@@ -1,0 +1,115 @@
+"""x265_tpu_torch CtuScan against x265_tpu's CtuScan, and K1's source (built
+for the host) against the port's plain step, on the CPU at 192x128
+(5 wavefront levels, 2 lanes at most); the pattern of
+tools/check_pallas_scan.py.  All 12 outputs must be equal."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from x265_tpu.common.geometry import PictureGeometry
+from x265_tpu.encoder.ctu_scan import CtuScan as RefScan
+from x265_tpu_torch.build import load_host_library
+from x265_tpu_torch.encoder import ctu_scan_cuda
+from x265_tpu_torch.encoder.ctu_scan import CtuScan
+
+NAMES = ("rec_y rec_cb rec_cr lv16 lv8cb lv8cr lv32 lv16cb lv16cr use32 "
+         "tu8 nr").split()
+
+
+def _inputs(seed=7, w=192, h=128):
+    rng = np.random.RandomState(seed)
+    g = PictureGeometry(w, h, 6, 3)
+    ph, pw = g.ctbs_h << 6, g.ctbs_w << 6
+    b16, b32 = (ph // 16) * (pw // 16), (ph // 32) * (pw // 32)
+    nctb = g.n_ctbs
+    x = dict(
+        oy=rng.randint(0, 256, (ph, pw)).astype(np.uint8),
+        ocb=rng.randint(0, 256, (ph // 2, pw // 2)).astype(np.uint8),
+        ocr=rng.randint(0, 256, (ph // 2, pw // 2)).astype(np.uint8),
+        modes=rng.randint(0, 35, b16).astype(np.int32),
+        mode32=rng.randint(0, 35, b32).astype(np.int32),
+        use32=rng.rand(b32) < 0.5,
+        qp=rng.randint(24, 40, nctb).astype(np.int32),
+        lam=(0.85 * 2.0 ** (rng.randint(24, 40, nctb) / 3.0 - 4.0)).astype(
+            np.float32),
+        is_inter=rng.rand(b16) < 0.7,
+        ipred_y=rng.randint(0, 256, (b16, 16, 16)).astype(np.int32),
+        ipred_cb=rng.randint(0, 256, (b16, 8, 8)).astype(np.int32),
+        ipred_cr=rng.randint(0, 256, (b16, 8, 8)).astype(np.int32),
+        m32_in=rng.rand(b32) < 0.4)
+    return g, x
+
+
+def _run(scan, arr, x, cfg, decide):
+    fn = scan.scan_fn(inter=cfg == "P", decide32=decide)
+    if arr is jnp:
+        fn = jax.jit(fn)
+    a = {k: (jnp.asarray(v) if arr is jnp else torch.as_tensor(v))
+         for k, v in x.items()}
+    use32 = a["use32"] if not decide else (
+        jnp.zeros_like(a["use32"]) if arr is jnp
+        else torch.zeros_like(a["use32"]))
+    kw = {}
+    if cfg == "P":
+        kw = {k: a[k] for k in ("is_inter", "ipred_y", "ipred_cb",
+                                "ipred_cr", "m32_in")}
+    out = fn(a["oy"], a["ocb"], a["ocr"], a["modes"], a["mode32"], use32,
+             a["qp"], a["qp"], a["qp"], lam=a["lam"], **kw)
+    return [None if o is None else np.asarray(o) for o in out]
+
+
+def _assert_same(want, got):
+    for nm, a, b in zip(NAMES, want, got):
+        if a is None and b is None:
+            continue
+        assert a.shape == b.shape, (nm, a.shape, b.shape)
+        assert np.array_equal(a, b), (nm, int((a != b).sum()))
+
+
+@pytest.mark.parametrize("cfg,psy,sign_hide", [("I", 0.0, False),
+                                               ("P", 2.0, True)])
+def test_scan_matches_reference(cfg, psy, sign_hide):
+    g, x = _inputs()
+    kw = dict(bit_depth=8, sign_hide=sign_hide, strong_intra_smoothing=True,
+              psy_rd=psy)
+    want = _run(RefScan(g, **kw), jnp, x, cfg, True)
+    got = _run(CtuScan(g, **kw), torch, x, cfg, True)
+    _assert_same(want, got)
+
+
+@pytest.mark.parametrize("cfg", ["I", "P"])
+@pytest.mark.parametrize("decide", [True, False])
+@pytest.mark.parametrize("psy,sign_hide", [(2.0, True), (2.0, False),
+                                           (0.0, True)])
+def test_k1_source_matches_plain_step(monkeypatch, cfg, decide, psy,
+                                      sign_hide):
+    """K1's CUDA source, compiled as host C++ (one thread per block), run
+    level by level through the wrapper's launch path, equals the plain
+    torch step on every output."""
+    lib = load_host_library()
+    g, x = _inputs(seed=11)
+    scan = CtuScan(g, bit_depth=8, sign_hide=sign_hide,
+                   strong_intra_smoothing=True, psy_rd=psy)
+    want = _run(scan, torch, x, cfg, decide)
+    n0 = ctu_scan_cuda.LAUNCHES
+    monkeypatch.setattr(
+        ctu_scan_cuda, "ctu_step",
+        lambda s, inter, d, carry, xs, plain: ctu_scan_cuda.launch(
+            lib, s, inter, d, carry, xs))
+    got = _run(scan, torch, x, cfg, decide)
+    assert ctu_scan_cuda.LAUNCHES - n0 == scan.t["n_levels"]
+    _assert_same(want, got)
+
+
+def test_cpu_tensors_take_the_plain_step():
+    g, x = _inputs()
+    scan = CtuScan(g, bit_depth=8, sign_hide=True,
+                   strong_intra_smoothing=True, psy_rd=2.0)
+    n0 = ctu_scan_cuda.LAUNCHES
+    _run(scan, torch, x, "I", True)
+    assert ctu_scan_cuda.LAUNCHES == n0
+    with pytest.raises(NotImplementedError):
+        CtuScan(g, bit_depth=8, rdoq=True)

@@ -1,0 +1,75 @@
+"""The slice end to end on the CPU: x265_tpu_torch's Encoder.encode_frame
+against x265_tpu's, 192x128, I P P of the bench's panning content with
+Params(bframes=0, me_range=16, decoded_picture_hash=3) and otherwise the
+defaults (AQ 2, psy-rd 2.0, 3 refs, weightp, TMVP, subme 2, SAO, deblock,
+sign hiding, strong intra smoothing).  Every access unit must be
+byte-identical, and the stream must decode with matching picture hashes
+in x265_tpu's decoder."""
+
+import numpy as np
+import pytest
+
+import x265_tpu.encoder as ref_encoder
+from bench import synthetic_frame
+from x265_tpu.common.params import Params
+from x265_tpu.decoder import decode_annexb
+from x265_tpu_torch.encoder import ctu_scan_cuda, me_cuda
+from x265_tpu_torch.encoder.intra_encoder import Encoder
+
+W, H, N = 192, 128, 3
+
+
+def _frames():
+    base = synthetic_frame(W, H, 0)
+    return [(np.roll(base[0], 3 * t, axis=1), base[1], base[2])
+            for t in range(N)]
+
+
+def _params():
+    return Params(source_width=W, source_height=H, bframes=0, me_range=16,
+                  decoded_picture_hash=3)
+
+
+def _encode(enc):
+    aus, recs = [enc.headers()], []
+    for planes in _frames():
+        au, rec = enc.encode_frame(planes)
+        aus.append(au)
+        recs.append(rec)
+    return aus, recs
+
+
+def test_ipp_stream_is_byte_identical():
+    want, want_rec = _encode(ref_encoder.Encoder(_params()))
+    n1, n2 = ctu_scan_cuda.LAUNCHES, me_cuda.LAUNCHES
+    got, got_rec = _encode(Encoder(_params(), device="cpu"))
+    # CPU tensors: the plain versions ran, not the kernels
+    assert (ctu_scan_cuda.LAUNCHES, me_cuda.LAUNCHES) == (n1, n2)
+    assert [len(a) for a in got] == [len(a) for a in want]
+    for i, (a, b) in enumerate(zip(want, got)):
+        assert a == b, f"access unit {i} differs"
+    for ra, rb in zip(want_rec, got_rec):
+        for pa, pb in zip(ra, rb):
+            assert np.array_equal(np.asarray(pa), pb)
+    pics = decode_annexb(b"".join(got))
+    assert len(pics) == N
+    assert all(p.hash_ok for p in pics)
+
+
+@pytest.mark.parametrize("kw", [dict(bframes=2), dict(internal_bit_depth=10),
+                                dict(rdoq_level=1), dict(lossless=True),
+                                dict(ctu_size=32),
+                                dict(noise_reduction_inter=100)])
+def test_unsupported_configs_raise(kw):
+    p = Params(source_width=W, source_height=H, **kw)
+    with pytest.raises(NotImplementedError):
+        Encoder(p, device="cpu")
+
+
+def test_lookahead_path_raises():
+    """push_frame with the default cuTree lookahead on is not ported;
+    encode_frame (zero latency) turns the lookahead off."""
+    enc = Encoder(Params(source_width=W, source_height=H, bframes=0),
+                  device="cpu")
+    with pytest.raises(NotImplementedError):
+        enc.push_frame(_frames()[0])

@@ -1,0 +1,90 @@
+"""x265_tpu_torch motion search against x265_tpu's jnp search
+(``_inter_tools_builder(enc, allow_pallas=False)["me"]``), and K2's source
+(built for the host) against the plain refine, on the CPU at 192x128.
+
+The reference picture is the reference encoder's own ME-extended DPB entry
+(``Encoder._extend_ref``), carried across with ``planes_to_torch``;
+me_range 16 makes the quarter-res ``coarse_seeds`` stage run.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import x265_tpu.encoder as ref_encoder
+from bench import synthetic_frame
+from x265_tpu.common.params import Params
+from x265_tpu.encoder.device_pipeline import _inter_tools_builder as ref_tools
+from x265_tpu_torch.build import load_host_library
+from x265_tpu_torch.convert import planes_to_torch
+from x265_tpu_torch.encoder import device_pipeline as dp
+from x265_tpu_torch.encoder import me_cuda
+from x265_tpu_torch.encoder.intra_encoder import Encoder
+
+W, H = 192, 128
+
+
+def _scene():
+    """A panned crop as the source and a noisy shifted crop as the recon
+    (noise makes neighbour adoption matter)."""
+    rng = np.random.RandomState(0)
+    base = synthetic_frame(W + 64, H + 64, 1)
+    orig = [p[10:10 + H // s, 20:20 + W // s].copy()
+            for p, s in zip(base, (1, 2, 2))]
+    recon = [np.clip(p[13:13 + H // s, 25:25 + W // s].astype(np.int32)
+                     + rng.randint(-8, 9, (H // s, W // s)), 0,
+                     255).astype(np.uint8)
+             for p, s in zip(base, (1, 2, 2))]
+    return orig, recon
+
+
+@pytest.mark.parametrize("subme", [0, 1, 2])
+def test_me_matches_reference(subme):
+    p = Params(source_width=W, source_height=H, bframes=0, me_range=16,
+               subme=subme)
+    er, ep = ref_encoder.Encoder(p), Encoder(p, device="cpu")
+    assert er.me_coarse > 0          # the quarter-res seed stage runs
+    orig, recon = _scene()
+    ref_ext = er._extend_ref(recon)              # the reference's DPB entry
+    ext = planes_to_torch(ref_ext, "cpu")
+    oy = orig[0].astype(np.int32)
+    ob = oy.reshape(H // 16, 16, W // 16, 16).transpose(0, 2, 1, 3).reshape(
+        -1, 16, 16)
+    qp = 32
+    want = jax.jit(ref_tools(er, allow_pallas=False)["me"])(
+        jnp.asarray(oy), jnp.asarray(ref_ext[0]), jnp.asarray(ob), qp)
+    got = dp._inter_tools_builder(ep)["me"](
+        torch.as_tensor(oy), ext[0], torch.as_tensor(ob), dp.me_lambda(qp))
+    for name, a, b in zip(("mv", "cost", "pred"), want, got):
+        a, b = np.asarray(a), b.numpy()
+        assert a.shape == b.shape, name
+        assert np.array_equal(a, b), (name, int((a != b).sum()))
+
+
+@pytest.mark.parametrize("subme", [0, 1, 2, 3])
+def test_k2_source_matches_plain_refine(subme):
+    """K2's CUDA source, compiled as host C++ (one thread per block), run
+    through the wrapper's launch path, equals refine_plain."""
+    rng = np.random.RandomState(subme)
+    B, mrq = 300, 16
+    base = rng.randint(0, 256, (B, 1, 25))
+    t = torch.as_tensor
+    Wn = t(np.clip(base + rng.randint(-20, 21, (B, 25, 25)), 0, 255).astype(
+        np.int32))
+    ob = t(rng.randint(0, 256, (B, 16, 16)).astype(np.int32))
+    mvi = t(rng.randint(-mrq, mrq + 1, (B, 2)).astype(np.int32))
+    pmv = t((4 * rng.randint(-12, 13, (B, 2))).astype(np.int32))
+    lam = dp.me_lambda(int(rng.randint(20, 45)))
+    want = me_cuda.refine_plain(Wn, ob, mvi, pmv, lam, subme, mrq)
+    n0 = me_cuda.LAUNCHES
+    got = me_cuda.launch(load_host_library(), Wn, ob, mvi, pmv, lam, subme,
+                         mrq)
+    assert me_cuda.LAUNCHES == n0 + 1
+    for a, b in zip(want, got):
+        assert torch.equal(a, b)
+    # CPU tensors take the plain version in the public wrapper
+    for a, b in zip(want, me_cuda.refine(Wn, ob, mvi, pmv, lam, subme, mrq)):
+        assert torch.equal(a, b)
+    assert me_cuda.LAUNCHES == n0 + 1

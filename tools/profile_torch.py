@@ -1,0 +1,155 @@
+"""Where the time of x265_tpu_torch's 1080p IPPP slice goes, on one GPU.
+
+    python3 tools/profile_torch.py [--frames 4] [--out chiprun_out/profile.json]
+
+Three encodes of the chip_smoke slice (1080p, Params() defaults with
+bframes=0, encode_frame):
+  1. warm-up;
+  2. torch.profiler over CPU and CUDA: device time by kernel name, the
+     device-busy sum and the idle share of the wall time;
+  3. stage breakdown: the pipeline's stages are wrapped in
+     ``torch.cuda.synchronize()`` timers (intra analysis, motion search,
+     the CTU scan, the loop filters, the fetch, and the host's QP plan,
+     complexity estimate, weightp analysis, padding, syntax and CABAC
+     work); the rest of the frame time is "other".
+Prints a summary and writes the numbers, with the card's name and power
+limit, as JSON.
+"""
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+from collections import defaultdict
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+
+def _timed(stats, name, fn):
+    import torch
+
+    def wrapped(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a, **k)
+        torch.cuda.synchronize()
+        stats[name] += time.perf_counter() - t0
+        return out
+    return wrapped
+
+
+def _instrument(stats):
+    """Wrap the stages at the builders' module seams (before the encoder
+    builds its pipelines)."""
+    from x265_tpu_torch.encoder import ctu_scan, device_pipeline as dp
+    from x265_tpu_torch.encoder import intra_encoder as ie
+    from x265_tpu_torch.encoder import weights
+
+    ab, itb, fsb = (dp._analyse_builder, dp._inter_tools_builder,
+                    dp._filter_stage_builder)
+    dp._analyse_builder = lambda *a: _timed(stats, "intra analysis", ab(*a))
+
+    def tools(enc):
+        t = dict(itb(enc))
+        t["me"] = _timed(stats, "motion search (incl. K2)", t["me"])
+        for k in ("eval_mv", "eval_mv_ps", "chroma_pred"):
+            t[k] = _timed(stats, "inter MC / uniformization", t[k])
+        return t
+    dp._inter_tools_builder = tools
+
+    def filters(enc):
+        f = fsb(enc)
+        g = _timed(stats, "deblock + SAO + checksums", f)
+        g.merged_masks = f.merged_masks
+        return g
+    dp._filter_stage_builder = filters
+    sf = ctu_scan.CtuScan.scan_fn
+    ctu_scan.CtuScan.scan_fn = lambda self, *a, **k: _timed(
+        stats, "CTU scan (K1)", sf(self, *a, **k))
+    for name, label in (("_fetch_outputs", "fetch to host"),
+                        ("_entropy_encode", "host CABAC (native C)"),
+                        ("_derive_inter_all", "host inter syntax"),
+                        ("_qp_plan", "host AQ offsets + QP plan"),
+                        ("_complexity_estimate", "host complexity estimate")):
+        setattr(ie.Encoder, name, _timed(stats, label,
+                                         getattr(ie.Encoder, name)))
+    ie.pad_plane = _timed(stats, "host padding", ie.pad_plane)
+    weights.analyse_luma_weight = _timed(stats, "host weightp analysis",
+                                         weights.analyse_luma_weight)
+
+
+def _encode(frames):
+    import torch
+    from x265_tpu_torch import Encoder, Params
+    from x265_tpu_torch.smoke_config import smoke_params
+
+    enc = Encoder(Params(**smoke_params()), device="cuda")
+    enc.headers()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for planes in frames:
+        enc.encode_frame(planes)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--frames", type=int, default=4)
+    ap.add_argument("--out", default=os.path.join(ROOT, "chiprun_out",
+                                                  "profile.json"))
+    args = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_torch: no CUDA device")
+    from torch.profiler import ProfilerActivity, profile
+    from x265_tpu_torch.smoke_config import smoke_frames
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    frames = smoke_frames(args.frames)
+    warm = _encode(frames)
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        prof_wall = _encode(frames)
+    from torch.autograd import DeviceType
+    by_kernel = defaultdict(float)
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA:      # kernels and copies
+            by_kernel[ev.key] += ev.self_device_time_total / 1e3   # ms
+    busy = sum(by_kernel.values())
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:25]
+
+    stats = defaultdict(float)
+    _instrument(stats)
+    staged = _encode(frames)
+    stages = {k: v * 1e3 for k, v in sorted(stats.items(),
+                                            key=lambda kv: -kv[1])}
+    stages["other"] = staged * 1e3 - sum(stages.values())
+
+    out = dict(device=smi, frames=args.frames, warm_s=warm,
+               wall_ms=prof_wall * 1e3, fps=args.frames / prof_wall,
+               device_busy_ms=busy,
+               idle_share=1.0 - busy / (prof_wall * 1e3),
+               kernels_ms=dict(top), staged_wall_ms=staged * 1e3,
+               stages_ms=stages)
+    os.makedirs(os.path.dirname(args.out), exist_ok=True)
+    with open(args.out, "w") as f:
+        json.dump(out, f, indent=1)
+    print(f"{smi}: {args.frames} frames, profiled wall {prof_wall * 1e3:.1f}"
+          f" ms ({args.frames / prof_wall:.3f} fps), device busy {busy:.1f}"
+          f" ms, idle share {out['idle_share']:.3f}")
+    for k, v in top:
+        print(f"  {v:10.3f} ms  {k[:100]}")
+    print(f"stages (synchronised, wall {staged * 1e3:.1f} ms):")
+    for k, v in stages.items():
+        print(f"  {v:10.1f} ms  {k}")
+
+
+if __name__ == "__main__":
+    main()

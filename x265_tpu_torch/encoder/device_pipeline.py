@@ -1,0 +1,807 @@
+"""Per-frame device pipelines for I and P frames — torch twin of
+``x265_tpu.encoder.device_pipeline`` (``build_i_pipeline``,
+``build_p_pipeline`` and their builders).
+
+One call runs a frame's whole device work on the frame's device: 16/32
+35-mode SATD intra analysis, per-reference motion search (quarter-res
+seeds, full-pel SAD search, subpel refine = K2, neighbour adoption),
+ref_idx selection, the CU-merge uniformization, chroma MC, the CTU
+wavefront scan (K1 per level), deblock, SAO and the picture checksums.
+The host receives one dict of small outputs.
+
+Per-block windows are plain gathers from the extended reference planes
+(the TPU's static-slice patch tensors and binary window select are not
+needed on a GPU); the TPU's two-program split is one sequence of torch
+calls here.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from x265_tpu.cabac.ctu import _CHROMA_QP_MAP
+from x265_tpu.ops.deblock import edge_masks_np
+from x265_tpu.ops.sao import eo_valid_masks_np
+
+from .._util import dev_table, f32, fma32
+from ..ops.cost import satd
+from ..ops.deblock import deblock_picture
+from ..ops.interp import (mc_chroma_batch, mc_chroma_batch_ps,
+                          mc_luma_batch, mc_luma_batch_ps)
+from ..ops.intra import predict_all_modes, substitute_references
+from ..ops.sao import sao_apply_plane, sao_estimate_plane
+from .me_cuda import mv_cost, refine
+
+# float32(1/6): XLA folds ``/ 6.0`` into a multiply by the inverse
+_INV6 = np.float32(1.0) / np.float32(6.0)
+
+
+def me_lambda(qp) -> torch.Tensor:
+    """ME lambda 2^((qp-12)/6) as the reference's XLA program rounds it,
+    computed on the host as a float32 scalar."""
+    q = torch.tensor(float(qp), dtype=torch.float32)
+    return torch.pow(torch.tensor(2.0), (q - 12.0) * torch.tensor(_INV6))
+
+
+def _rep(a, f):
+    return a.repeat_interleave(f, 0).repeat_interleave(f, 1)
+
+
+def _to_plane(lv, gh, gw, bn):
+    return lv.reshape(gh, gw, bn, bn).permute(0, 2, 1, 3).reshape(
+        gh * bn, gw * bn)
+
+
+def _clamp_pad(pl, top, bottom, left, right):
+    """Edge-replicating pad by clamped indexing (any dtype)."""
+    h, w = pl.shape
+    ys = (torch.arange(-top, h + bottom, device=pl.device)).clamp(0, h - 1)
+    xs = (torch.arange(-left, w + right, device=pl.device)).clamp(0, w - 1)
+    return pl[ys[:, None], xs[None, :]]
+
+
+def _windows(plane, y0, x0, size):
+    """[B, size, size] windows of ``plane`` with per-block top-left."""
+    ar = torch.arange(size, device=plane.device)
+    rows = (y0[:, None] + ar)[:, :, None]
+    cols = (x0[:, None] + ar)[:, None, :]
+    return plane[rows.long(), cols.long()]
+
+
+def _block_windows(S, y0, x0, size):
+    """[B, size, size] windows of per-block tensors S [B, H, W]."""
+    ar = torch.arange(size, device=S.device)
+    b = torch.arange(S.shape[0], device=S.device)[:, None, None]
+    return S[b, (y0[:, None] + ar)[:, :, None].long(),
+             (x0[:, None] + ar)[:, None, :].long()]
+
+
+def _filter_stage_builder(enc):
+    """In-pipeline loop filters and output packing.  Returns
+    finish(oy3, scan_out, qp_base, dqp_cb, dqp_cr, sao_lam, inter=None,
+    mv=None, motion_b=None, qp_base_ctb=None, merged=None) ->
+    (small dict, tails dict, final padded planes)."""
+    g = enc.geom
+    p = enc.params
+    bd = enc.bit_depth
+    dev = enc.device
+    ctb = 1 << g.log2_ctb
+    ph = g.ctbs_h << g.log2_ctb
+    pw = g.ctbs_w << g.log2_ctb
+    gh, gw = ph // 16, pw // 16
+    has32 = ctb >= 32
+    gh32, gw32 = (ph // 32, pw // 32) if has32 else (1, 1)
+    masks = edge_masks_np(g, g.log2_ctb)
+    eo_y, in_y = (torch.as_tensor(a, device=dev)
+                  for a in eo_valid_masks_np(ph, pw, g.width, g.height))
+    eo_c, in_c = (torch.as_tensor(a, device=dev)
+                  for a in eo_valid_masks_np(ph // 2, pw // 2, g.width // 2,
+                                             g.height // 2))
+    aq = bool(p.aq_mode)
+    cbo, cro = enc.pps.cb_qp_offset, enc.pps.cr_qp_offset
+    chw, cww = g.ctbs_h, g.ctbs_w
+    n16ctb = ctb // 16
+
+    def _chroma_qp(qp, offset):
+        qpi = (qp + offset).clamp(-12, 57)
+        mapped = dev_table("cqpmap", lambda: _CHROMA_QP_MAP, qp.device)[
+            (qpi - 30).clamp(0, 13).long()]
+        return torch.where(qpi < 30, qpi.clamp(min=0),
+                           torch.where(qpi > 43, qpi - 6, mapped))
+
+    z16 = np.zeros((gh, gw), np.int32)
+    for by in range(gh):
+        for bx in range(gw):
+            x, y, z = bx % n16ctb, by % n16ctb, 0
+            for i in range(4):
+                z |= ((x >> i) & 1) << (2 * i)
+                z |= ((y >> i) & 1) << (2 * i + 1)
+            z16[by, bx] = z
+    z16_t = torch.as_tensor(z16, device=dev)
+
+    def _qp_planes(cy, ccb, ccr, use32, merged, qp_base_ctb, slice_qp):
+        """(actual per-CTB QP [nctb], per-4x4 QpY plane) at QG == CTB."""
+        has16 = ((cy.reshape(gh, 16, gw, 16) != 0).any(3).any(1)
+                 | (ccb.reshape(gh, 8, gw, 8) != 0).any(3).any(1)
+                 | (ccr.reshape(gh, 8, gw, 8) != 0).any(3).any(1))
+        cuz = z16_t
+        has_cu = has16
+        if has32:
+            q32 = use32.reshape(gh32, gw32)
+            if merged is not None:
+                q32 = q32 | merged[0]
+            zq = z16_t[0::2, 0::2]
+            q_has = has16.reshape(gh32, 2, gw32, 2).any(3).any(1)
+            cuz = torch.where(_rep(q32, 2), _rep(zq, 2), cuz)
+            has_cu = torch.where(_rep(q32, 2), _rep(q_has, 2), has_cu)
+        hasctb = has16.reshape(chw, n16ctb, cww, n16ctb).any(3).any(1)
+        if merged is not None and ctb == 64:
+            r64 = _rep(merged[1], n16ctb)
+            cuz = torch.where(r64, 0, cuz)
+            has_cu = torch.where(r64, _rep(hasctb, n16ctb), has_cu)
+        # last coded CTB's QP so far (the reference's associative scan)
+        hv = hasctb.reshape(-1)
+        idx = torch.where(hv, torch.arange(hv.numel(), device=dev), -1)
+        last = torch.cummax(idx, 0).values
+        actual = torch.where(last >= 0, qp_base_ctb[last.clamp(min=0)],
+                             slice_qp).to(torch.int32)
+        pred = torch.cat([torch.full((1,), int(slice_qp), dtype=torch.int32,
+                                     device=dev), actual[:-1]])
+        zz = torch.where(has_cu, cuz, 1 << 20)
+        firstz = zz.reshape(chw, n16ctb, cww, n16ctb).amin(3).amin(1)
+        before16 = cuz < _rep(firstz, n16ctb)
+        a16 = _rep(actual.reshape(chw, cww), n16ctb)
+        p16 = _rep(pred.reshape(chw, cww), n16ctb)
+        qp16 = torch.where(before16, p16, a16)
+        return actual, _rep(qp16, 4)
+
+    inb32 = np.zeros((gh32, gw32), bool)
+    for qy in range(gh32):
+        for qx in range(gw32):
+            inb32[qy, qx] = (qx * 32 + 32 <= g.width
+                             and qy * 32 + 32 <= g.height)
+    inb64 = np.zeros((chw, cww), bool)
+    for cy2 in range(chw):
+        for cx2 in range(cww):
+            inb64[cy2, cx2] = (((cx2 + 1) << g.log2_ctb) <= g.width
+                               and ((cy2 + 1) << g.log2_ctb) <= g.height)
+    inb32_t = torch.as_tensor(inb32, device=dev)
+    inb64_t = torch.as_tensor(inb64, device=dev)
+
+    def merged_masks(inter, fields):
+        """(m32 [gh32, gw32], m64 [chw, cww]): aligned quads of inter
+        blocks with identical motion merge to 32/64 CUs."""
+        if not has32:
+            return None
+        ig = inter.reshape(gh, gw)
+        ff = torch.cat([f.reshape(gh, gw, -1).to(torch.int32)
+                        for f in fields], -1)
+        q = ff.reshape(gh32, 2, gw32, 2, -1)
+        same32 = (q == q[:, :1, :, :1]).all(4).all(3).all(1)
+        i32 = ig.reshape(gh32, 2, gw32, 2).all(3).all(1)
+        m32 = same32 & i32 & inb32_t
+        if ctb == 64:
+            q6 = ff.reshape(chw, 4, cww, 4, -1)
+            same64 = (q6 == q6[:, :1, :, :1]).all(4).all(3).all(1)
+            i64 = ig.reshape(chw, 4, cww, 4).all(3).all(1)
+            m64 = same64 & i64 & inb64_t
+        else:
+            m64 = torch.zeros((chw, cww), dtype=torch.bool, device=dev)
+        return m32, m64
+
+    def _qp_edge_maps(qp4):
+        qv = (torch.roll(qp4, 1, 1) + qp4 + 1) >> 1
+        qh = (torch.roll(qp4, 1, 0) + qp4 + 1) >> 1
+        qvc, qhc = qv[::2, ::2], qh[::2, ::2]
+        return ((qv, qh),
+                (_chroma_qp(qvc, cbo), _chroma_qp(qhc, cbo)),
+                (_chroma_qp(qvc, cro), _chroma_qp(qhc, cro)))
+
+    cw0, cr0, ct0, cb0 = getattr(enc.sps, "conf_win", (0, 0, 0, 0))
+    wl = g.width - 2 * (cw0 + cr0)
+    hl = g.height - 2 * (ct0 + cb0)
+
+    def finish(oy3, scan_out, qp_base, dqp_cb, dqp_cr, sao_lam,
+               inter=None, mv=None, motion_b=None, qp_base_ctb=None,
+               merged=None):
+        (rec_y, rec_cb, rec_cr, lv16_y, lv8_cb, lv8_cr,
+         lv32_y, lv16_cb, lv16_cr, use32, _tu8, _nr) = scan_out
+        cy = _to_plane(lv16_y, gh, gw, 16)
+        ccb = _to_plane(lv8_cb, gh, gw, 8)
+        ccr = _to_plane(lv8_cr, gh, gw, 8)
+        if has32:
+            u = use32.reshape(gh32, gw32)
+            cy = torch.where(_rep(u, 32), _to_plane(lv32_y, gh32, gw32, 32),
+                             cy)
+            mc = _rep(u, 16)
+            ccb = torch.where(mc, _to_plane(lv16_cb, gh32, gw32, 16), ccb)
+            ccr = torch.where(mc, _to_plane(lv16_cr, gh32, gw32, 16), ccr)
+        planes = tuple(x.to(torch.int32) for x in (rec_y, rec_cb, rec_cr))
+
+        if aq:
+            qp_actual, qp4 = _qp_planes(cy, ccb, ccr,
+                                        use32 if has32 else None, merged,
+                                        qp_base_ctb, qp_base)
+            dqp_y, dqp_cb, dqp_cr = _qp_edge_maps(qp4)
+        else:
+            qp_actual = torch.full((g.n_ctbs,), int(qp_base),
+                                   dtype=torch.int32, device=dev)
+            dqp_y = int(qp_base)
+            dqp_cb, dqp_cr = int(dqp_cb), int(dqp_cr)
+
+        if p.deblock:
+            if inter is not None:
+                intra4 = _rep(~inter.reshape(gh, gw), 4)
+                mv4 = mv.reshape(gh, gw, 2).repeat_interleave(
+                    4, 0).repeat_interleave(4, 1).to(torch.int32)
+            else:
+                intra4 = torch.ones((ph // 4, pw // 4), dtype=torch.bool,
+                                    device=dev)
+                mv4 = torch.zeros((ph // 4, pw // 4, 2), dtype=torch.int32,
+                                  device=dev)
+            cbf4 = _rep((lv16_y != 0).any(2).any(1).reshape(gh, gw), 4)
+            if has32:
+                cbf32 = (lv32_y != 0).any(2).any(1).reshape(gh32, gw32)
+                cbf4 = torch.where(_rep(u, 8), _rep(cbf32, 8), cbf4)
+            planes = deblock_picture(
+                planes, intra4, cbf4, mv4, u if has32 else None, masks,
+                dqp_y, dqp_cb, dqp_cr, bd, p.deblock_beta_offset,
+                p.deblock_tc_offset, motion_b=motion_b)
+
+        nctb = g.n_ctbs
+        small = {}
+        if p.sao:
+            oy, ocb, ocr = (x.to(torch.int32) for x in oy3)
+            lam_t = f32(sao_lam, dev)
+            dist, offs, bpos, bits = sao_estimate_plane(
+                oy, planes[0], chw, cww, ctb, eo_y, in_y, bd)
+            cost = fma32(lam_t, bits, dist)
+            cost[..., 0] = 0.0
+            best = torch.argmin(cost, -1).to(torch.int32)
+            db, ob_, pb, bb = sao_estimate_plane(
+                ocb, planes[1], chw, cww, ctb // 2, eo_c, in_c, bd)
+            dr, orr, pr, br = sao_estimate_plane(
+                ocr, planes[2], chw, cww, ctb // 2, eo_c, in_c, bd)
+            cost_c = fma32(lam_t, bb + br, db + dr)
+            cost_c[..., 0] = 0.0
+            best_c = torch.argmin(cost_c, -1).to(torch.int32)
+
+            def params_of(best_, offs_, bpos_):
+                types = torch.where(best_ == 0, 0,
+                                    torch.where(best_ == 5, 1, 2))
+                klass = (best_ - 1).clamp(0, 3)
+                osel = torch.gather(
+                    offs_, -2, best_.long()[..., None, None].expand(
+                        *best_.shape, 1, 4))[..., 0, :]
+                return types, klass, osel.to(torch.int32), bpos_
+
+            ty, ky, oy_sel, by_ = params_of(best, offs, bpos)
+            tc_, kc, ob_sel, bb_ = params_of(best_c, ob_, pb)
+            _, _, or_sel, br_ = params_of(best_c, orr, pr)
+            planes = (
+                sao_apply_plane(planes[0], chw, cww, ctb, ty, ky, by_,
+                                oy_sel, eo_y, bd),
+                sao_apply_plane(planes[1], chw, cww, ctb // 2, tc_, kc, bb_,
+                                ob_sel, eo_c, bd),
+                sao_apply_plane(planes[2], chw, cww, ctb // 2, tc_, kc, br_,
+                                or_sel, eo_c, bd))
+            small["sao_type"] = torch.stack([ty.reshape(-1),
+                                             tc_.reshape(-1)], 1)
+            small["sao_class"] = torch.stack([ky.reshape(-1),
+                                              kc.reshape(-1)], 1)
+            small["sao_bpos"] = torch.stack([by_.reshape(-1),
+                                             bb_.reshape(-1),
+                                             br_.reshape(-1)], 1)
+            small["sao_offs"] = torch.stack([oy_sel.reshape(-1, 4),
+                                             ob_sel.reshape(-1, 4),
+                                             or_sel.reshape(-1, 4)], 1)
+        else:
+            zi = torch.zeros
+            small["sao_type"] = zi((nctb, 2), dtype=torch.int32, device=dev)
+            small["sao_class"] = zi((nctb, 2), dtype=torch.int32, device=dev)
+            small["sao_bpos"] = zi((nctb, 3), dtype=torch.int32, device=dev)
+            small["sao_offs"] = zi((nctb, 3, 4), dtype=torch.int32,
+                                   device=dev)
+        small.update(cy=cy.to(torch.int16), ccb=ccb.to(torch.int16),
+                     ccr=ccr.to(torch.int16),
+                     qp_actual=qp_actual.to(torch.int32),
+                     checksums=_plane_checksums(planes, bd, g))
+        if merged is not None:
+            small["m32"], small["m64"] = merged
+        out_planes = tuple(pl.to(torch.uint8) for pl in planes)
+        y, cb_, cr_ = out_planes
+        tails = dict(
+            rec_coded=(y[:g.height, :g.width],
+                       cb_[:g.height // 2, :g.width // 2],
+                       cr_[:g.height // 2, :g.width // 2]),
+            rec_conf=(y[2 * ct0:2 * ct0 + hl, 2 * cw0:2 * cw0 + wl],
+                      cb_[ct0:ct0 + hl // 2, cw0:cw0 + wl // 2],
+                      cr_[ct0:ct0 + hl // 2, cw0:cw0 + wl // 2]))
+        return small, tails, out_planes
+
+    finish.merged_masks = merged_masks
+    return finish
+
+
+def _plane_checksums(planes, bit_depth, g):
+    """H.265 D.3.19 picture checksums: the 32-bit position-masked byte sum
+    of each plane's coded area, as int64 [3] (mod 2^32)."""
+    def one(pl, h, w):
+        p = pl[:h, :w].to(torch.int64)
+        xs = torch.arange(w, device=pl.device)
+        ys = torch.arange(h, device=pl.device)
+        mask = (((xs & 0xFF) ^ (xs >> 8))[None, :]
+                ^ ((ys & 0xFF) ^ (ys >> 8))[:, None])
+        s = ((p & 0xFF) ^ mask).sum()
+        if bit_depth > 8:
+            s = s + ((p >> 8) ^ mask).sum()
+        return s & 0xFFFFFFFF
+
+    return torch.stack([one(planes[0], g.height, g.width),
+                        one(planes[1], g.height // 2, g.width // 2),
+                        one(planes[2], g.height // 2, g.width // 2)])
+
+
+def _analyse_builder(enc, n, gh, gw, ph, pw):
+    """Open-loop 35-mode SATD analysis at block size n: returns
+    analyse(y) -> (best mode [B] int32, best cost [B] int32)."""
+    dev = enc.device
+    _, avails = enc._mode_gather_tables(n, gh, gw, ph, pw)
+    avails = torch.as_tensor(avails, device=dev)
+    r = (torch.arange(gh, device=dev) * n)[:, None, None]
+    c = (torch.arange(gw, device=dev) * n)[None, :, None]
+    k = torch.arange(2 * n + 1, device=dev)[None, None, :]
+    lrow, lcol = r + k, c
+    trow, tcol = r, c + 1 + k[..., :2 * n]
+
+    def analysis_refs(y):
+        """[B, 4n+1] canonical open-loop references (reversed left column
+        incl. corner + top row) of the edge-padded source plane."""
+        ypad = _clamp_pad(y.to(torch.int32), 1, 2 * n, 1, 2 * n)
+        lc = ypad[lrow, lcol]                       # [gh, gw, 2n+1]
+        top = ypad[trow, tcol]                      # [gh, gw, 2n]
+        return torch.cat([lc.flip(-1), top], -1).reshape(gh * gw, 4 * n + 1)
+
+    def analyse(y):
+        refs = substitute_references(analysis_refs(y), avails,
+                                     enc.bit_depth)
+        preds = predict_all_modes(refs, n, True, enc.bit_depth)
+        blocks = y.to(torch.int32).reshape(gh, n, gw, n).permute(
+            0, 2, 1, 3).reshape(-1, n, n)
+        costs = satd(blocks[:, None], preds)
+        return torch.argmin(costs, 1).to(torch.int32), costs.amin(1)
+
+    return analyse
+
+
+def _extend_builder(enc):
+    """Reference extension: crop the recon to the coded picture, then
+    edge-replicate to the padded plane plus the ME/MC margin."""
+    g = enc.geom
+    M = enc.me_range + 8
+    CM = enc.me_range // 2 + 4
+    ph = g.ctbs_h << g.log2_ctb
+    pw = g.ctbs_w << g.log2_ctb
+    cw, ch = enc.sps.pic_width, enc.sps.pic_height
+
+    def extend(planes3):
+        y, cb, cr = planes3
+        return (_clamp_pad(y[:ch, :cw], M, M + ph - ch, M, M + pw - cw),
+                _clamp_pad(cb[:ch // 2, :cw // 2], CM, CM + (ph - ch) // 2,
+                           CM, CM + (pw - cw) // 2),
+                _clamp_pad(cr[:ch // 2, :cw // 2], CM, CM + (ph - ch) // 2,
+                           CM, CM + (pw - cw) // 2))
+
+    return extend
+
+
+def build_i_pipeline(enc):
+    """I-frame program: 16/32 intra analysis, the CTU scan with the
+    in-scan 32-vs-16 RD decision, loop filters, DPB extension.
+    run(oy, ocb, ocr, qpy, qpb, qpr, lam, qp_base, dqp_cb, dqp_cr,
+    sao_lam, qp_base_ctb) -> (small, tails, ext)."""
+    g = enc.geom
+    n = 16
+    ph = g.ctbs_h << g.log2_ctb
+    pw = g.ctbs_w << g.log2_ctb
+    gh, gw = ph // n, pw // n
+    scan = enc._get_ctu_scan()
+    decide = bool(scan.t["has32"])
+    run_scan = scan.scan_fn(inter=False, decide32=decide)
+    B32 = scan.t["b32_n"]
+    dev = enc.device
+    analyse = _analyse_builder(enc, n, gh, gw, ph, pw)
+    analyse32 = (_analyse_builder(enc, 32, ph // 32, pw // 32, ph, pw)
+                 if decide else None)
+    finish = _filter_stage_builder(enc)
+    extend = _extend_builder(enc)
+
+    def run(oy, ocb, ocr, qpy, qpb, qpr, lam, qp_base, dqp_cb, dqp_cr,
+            sao_lam, qp_base_ctb):
+        modes, _cost = analyse(oy)
+        if decide:
+            mode32, _c32 = analyse32(oy)
+        else:
+            mode32 = torch.zeros((B32,), dtype=torch.int32, device=dev)
+        out = run_scan(oy, ocb, ocr, modes, mode32,
+                       torch.zeros((B32,), dtype=torch.bool, device=dev),
+                       qpy, qpb, qpr, lam=lam)
+        small, tails, fplanes = finish((oy, ocb, ocr), out, qp_base,
+                                       dqp_cb, dqp_cr, sao_lam,
+                                       qp_base_ctb=qp_base_ctb)
+        small = dict(small, modes=modes, mode32=mode32, use32=out[9])
+        return small, tails, extend(fplanes)
+
+    return run
+
+
+def _inter_tools_builder(enc):
+    """Motion search (quarter-res seeds, full-pel SAD search, subpel
+    refine, neighbour adoption) and luma/chroma MC at per-block MVs."""
+    g = enc.geom
+    dev = enc.device
+    n = 16
+    R = enc.me_range
+    RF = enc.me_fine
+    RC = enc.me_coarse
+    RS = 4 * RC
+    MRQ = max(1, min(64, enc.params.me_range))
+    M = R + 8
+    CM = R // 2 + 4
+    ph = g.ctbs_h << g.log2_ctb
+    pw = g.ctbs_w << g.log2_ctb
+    gh, gw = ph // n, pw // n
+    nb = gh * gw
+    cn = n // 2
+    bd = enc.bit_depth
+    offs_f = torch.tensor([(dy, dx) for dy in range(-RF, RF + 1)
+                           for dx in range(-RF, RF + 1)], dtype=torch.int32,
+                          device=dev)
+    offs_c = 4 * torch.tensor([(dy, dx) for dy in range(-RC, RC + 1)
+                               for dx in range(-RC, RC + 1)],
+                              dtype=torch.int32, device=dev)
+    by0 = (torch.arange(gh, device=dev) * n).repeat_interleave(gw)
+    bx0 = (torch.arange(gw, device=dev) * n).repeat(gh)
+    cby0, cbx0 = by0 // 2, bx0 // 2
+    row_ok = torch.arange(nb, device=dev) // gw > 0
+    col_ok = torch.arange(nb, device=dev) % gw > 0
+
+    def coarse_seeds(orig, ref_ext):
+        """Quarter-res full search: per-block full-pel seeds, multiples
+        of 4 pels within +-RS (zero-motion bias 2 per quarter-pel step)."""
+        def box4(pl):
+            h, w = pl.shape
+            return (pl.to(torch.int32).reshape(h // 4, 4, w // 4, 4).sum(
+                (1, 3), dtype=torch.int32) + 8) >> 4
+
+        oq = box4(orig)
+        rq = box4(ref_ext[M - RS:M - RS + ph + 2 * RS,
+                          M - RS:M - RS + pw + 2 * RS])
+        qh, qw = ph // 4, pw // 4
+        span = 2 * RC + 1
+        ar = torch.arange(-RC, RC + 1, device=dev).abs()
+        bias = 2 * (ar[:, None] + ar[None, :])
+        cs = torch.empty((span, span, gh, gw), dtype=torch.int32, device=dev)
+        for dy in range(span):
+            rows = rq[dy:dy + qh, :]
+            cand = rows.unfold(1, qw, 1).permute(1, 0, 2)[:span]
+            d = (oq[None] - cand).abs()
+            cs[dy] = d.reshape(span, gh, 4, gw, 4).sum((2, 4),
+                                                       dtype=torch.int32)
+        cs = cs + bias[:, :, None, None]
+        costs = cs.permute(2, 3, 0, 1).reshape(nb, -1)
+        return offs_c[torch.argmin(costs, 1)]
+
+    def me(orig, ref_ext, ob, lam):
+        """Per-block motion for one reference: returns (mv [B, 2] (x, y)
+        qpel, cost [B] float32, pred [B, 16, 16])."""
+        if RC:
+            seed = coarse_seeds(orig, ref_ext).clamp(-(MRQ - RF), MRQ - RF)
+        else:
+            seed = torch.zeros((nb, 2), dtype=torch.int32, device=dev)
+        # lambda * mv-bits anchor: median of the west / north / own seeds
+        sg = seed.reshape(gh, gw, 2)
+        sw_ = torch.roll(sg, 1, 1)
+        sn_ = torch.roll(sg, 1, 0)
+        sw_[:, 0] = sg[:, 0]
+        sn_[0, :] = sg[0, :]
+        pmv = 4 * (sg + sw_ + sn_ - torch.maximum(torch.maximum(sg, sw_),
+                                                  sn_)
+                   - torch.minimum(torch.minimum(sg, sw_), sn_)).reshape(
+                       nb, 2)
+
+        # full-pel SAD search over the (2RF+1)^2 grid around each seed
+        PSF = n + 2 * RF + 9
+        S = _windows(ref_ext, by0 + M - RF - 4 + seed[:, 0],
+                     bx0 + M - RF - 4 + seed[:, 1], PSF).to(torch.int32)
+        span = 2 * RF + 1
+        cs = torch.empty((nb, span, span), dtype=torch.int32, device=dev)
+        for dy in range(span):
+            rows = S[:, 4 + dy:4 + dy + n, 4:4 + span + n - 1]
+            cand = rows.unfold(2, n, 1)              # [B, n, span, n]
+            cs[:, dy] = (ob[:, :, None, :] - cand).abs().sum(
+                (1, 3), dtype=torch.int32)
+        cand_q = 4 * (seed[:, None, :] + offs_f[None])
+        costs = mv_cost(lam, cand_q, pmv[:, None],
+                        cs.reshape(nb, -1).to(torch.float32))
+        idx = torch.argmin(costs, 1)
+        dl = offs_f[idx]
+        mvi = seed + dl
+        W = _block_windows(S, dl[:, 0] + RF, dl[:, 1] + RF, n + 9)
+
+        q0, pred, cost = refine(W.contiguous(), ob.contiguous(),
+                                mvi.contiguous(), pmv.contiguous(), lam,
+                                int(enc.params.subme), MRQ)
+        mvq = mvi * 4 + q0
+
+        # MV coherence: adopt the west / north neighbour's MV when its
+        # total cost wins within a bonus of 4 * lambda
+        merge_bonus = 4.0 * lam
+        pmv_xy = pmv.flip(1)
+
+        def adopt2(mvq, pred, cost):
+            # both candidate fields come from the MVs entering the pass
+            # (the north candidates do not see the west adoptions)
+            g2 = mvq.reshape(gh, gw, 2)
+            cands = [(torch.roll(g2, 1, axis).reshape(-1, 2), valid)
+                     for axis, valid in ((1, col_ok), (0, row_ok))]
+            for cand, valid in cands:
+                cand = cand.clamp(-4 * MRQ, 4 * MRQ)
+                p1 = eval_mv(ref_ext, cand)
+                c = mv_cost(lam, cand, pmv_xy,
+                            satd(ob, p1).to(torch.float32))
+                better = (c < cost + merge_bonus) & valid
+                mvq = torch.where(better[:, None], cand, mvq)
+                pred = torch.where(better[:, None, None], p1, pred)
+                cost = torch.where(better, c, cost)
+            return mvq, pred, cost
+
+        mvxy = mvq.flip(1)
+        for _ in range(2):
+            mvxy, pred, cost = adopt2(mvxy, pred, cost)
+        return mvxy, cost, pred
+
+    def _luma_windows(ref_ext, mv):
+        return _windows(ref_ext, by0 + M - 3 + (mv[:, 1] >> 2),
+                        bx0 + M - 3 + (mv[:, 0] >> 2), n + 7)
+
+    def eval_mv_ps(ref_ext, mv):
+        """14-bit luma prediction at per-block (x, y) qpel MVs."""
+        return mc_luma_batch_ps(_luma_windows(ref_ext, mv), mv[:, 0] & 3,
+                                mv[:, 1] & 3, n, n, bd)
+
+    def eval_mv(ref_ext, mv):
+        """Pixel-domain luma prediction at per-block (x, y) qpel MVs."""
+        return mc_luma_batch(_luma_windows(ref_ext, mv), mv[:, 0] & 3,
+                             mv[:, 1] & 3, n, n, bd)
+
+    def _chroma_windows(ref_c, mv):
+        return _windows(ref_c, cby0 + CM - 1 + (mv[:, 1] >> 3),
+                        cbx0 + CM - 1 + (mv[:, 0] >> 3), cn + 3)
+
+    def chroma_pred(ref_c, mv):
+        return mc_chroma_batch(_chroma_windows(ref_c, mv), mv[:, 0] & 7,
+                               mv[:, 1] & 7, cn, cn, bd)
+
+    def chroma_pred_ps(ref_c, mv):
+        return mc_chroma_batch_ps(_chroma_windows(ref_c, mv), mv[:, 0] & 7,
+                                  mv[:, 1] & 7, cn, cn, bd)
+
+    return dict(me=me, eval_mv_ps=eval_mv_ps, eval_mv=eval_mv,
+                chroma_pred=chroma_pred, chroma_pred_ps=chroma_pred_ps,
+                satd=satd, R=R, M=M, CM=CM)
+
+
+def ref_idx_bits(nr: int, n_act: int) -> np.ndarray:
+    """Per-slot ref_idx bit cost [nr]: TR bits + a merge-risk bias of 6
+    for non-zero refs; padding slots cost 1e9 (never win)."""
+    out = np.full((nr,), 1e9, np.float32)
+    for r in range(min(nr, n_act)):
+        tr = 0.0 if n_act == 1 else float(
+            r + 1 if r < n_act - 1 else n_act - 1)
+        out[r] = tr + (6.0 if r > 0 else 0.0)
+    return out
+
+
+def build_p_pipeline(enc, nr: int = 1):
+    """P-frame program: intra analysis, per-reference ME (K2 inside),
+    ref_idx argmin, CU-merge uniformization, chroma MC, the CTU scan (K1)
+    with the inter TU32 trial, loop filters and DPB extension."""
+    g = enc.geom
+    dev = enc.device
+    n = 16
+    ph = g.ctbs_h << g.log2_ctb
+    pw = g.ctbs_w << g.log2_ctb
+    gh, gw = ph // n, pw // n
+    scan = enc._get_ctu_scan()
+    decide = bool(scan.t["has32"])
+    run_scan = scan.scan_fn(inter=True, decide32=decide)
+    B32 = scan.t["b32_n"]
+    analyse16 = _analyse_builder(enc, n, gh, gw, ph, pw)
+    finish = _filter_stage_builder(enc)
+    tools = _inter_tools_builder(enc)
+    extend = _extend_builder(enc)
+    weightp = bool(enc.params.weightp)
+    bd = enc.bit_depth
+    maxv = (1 << bd) - 1
+    log2wd = 6 + 14 - bd
+
+    def to_blocks(pl, bn):
+        return pl.reshape(gh, bn, gw, bn).permute(0, 2, 1, 3).reshape(
+            -1, bn, bn)
+
+    def quad_inbounds(bs):
+        by = (np.arange(gh) // bs) * bs * 16
+        bx = (np.arange(gw) // bs) * bs * 16
+        return torch.as_tensor((by[:, None] + bs * 16 <= g.height)
+                               & (bx[None, :] + bs * 16 <= g.width),
+                               device=dev).reshape(-1)
+
+    def prep(oy, refs_y, refs_cb, refs_cr, qp_base, rbits, wy, wo):
+        modes, icost = analyse16(oy)
+        ob = to_blocks(oy.to(torch.int32), n)
+        if decide:
+            mode32 = modes.reshape(gh, gw)[0::2, 0::2].reshape(-1)
+        else:
+            mode32 = torch.zeros((B32,), dtype=torch.int32, device=dev)
+        lam = me_lambda(qp_base).to(dev)
+        oy32 = oy.to(torch.int32)
+        obd = wo * (1 << (bd - 8))
+
+        def weighted(ps_pred):
+            return (((ps_pred * wy + (1 << (log2wd - 1))) >> log2wd)
+                    + obd).clamp(0, maxv)
+
+        mvs, preds, totals = [], [], []
+        for r in range(nr):
+            ry = refs_y[r]
+            if weightp and r == 0:
+                me_ref = (((ry.to(torch.int32) * wy + 32) >> 6) + obd).clamp(
+                    0, maxv).to(ry.dtype)
+            else:
+                me_ref = ry
+            mv_r, pcost_r, pred_r = tools["me"](oy32, me_ref, ob, lam)
+            if weightp and r == 0:
+                pred_r = weighted(tools["eval_mv_ps"](ry, mv_r))
+            totals.append(fma32(lam, f32(float(rbits[r]), dev), pcost_r))
+            mvs.append(mv_r)
+            preds.append(pred_r)
+        if nr == 1:
+            rsel = torch.zeros((mvs[0].shape[0],), dtype=torch.int32,
+                               device=dev)
+            pcost, mv, pred_y = totals[0], mvs[0], preds[0]
+        else:
+            tc = torch.stack(totals)
+            rsel = torch.argmin(tc, 0).to(torch.int32)
+            pcost = tc.amin(0)
+            mv = torch.stack(mvs).gather(
+                0, rsel.long()[None, :, None].expand(1, -1, 2))[0]
+            pred_y = torch.stack(preds).gather(
+                0, rsel.long()[None, :, None, None].expand(1, -1, n, n))[0]
+        # intra blocks cost more bits than SATD shows: bias toward inter
+        # (x64 is off in the reference: the int64 casts there are int32)
+        inter = pcost.to(torch.int32) <= (icost.to(torch.int32) * 9) // 8
+
+        def eval_sel(mv_c, rsel_c):
+            out = None
+            for r in range(nr):
+                if weightp and r == 0:
+                    p_r = weighted(tools["eval_mv_ps"](refs_y[0], mv_c))
+                else:
+                    p_r = tools["eval_mv"](refs_y[r], mv_c)
+                out = p_r if out is None else torch.where(
+                    (rsel_c == r)[:, None, None], p_r, out)
+            return out
+
+        def qsum(a, bs):
+            # per-quad sum in row-major order of the quad's blocks (the
+            # reference's reduce order), broadcast back to the blocks
+            q = a.reshape(gh // bs, bs, gw // bs, bs)
+            s = None
+            for i in range(bs):
+                for j in range(bs):
+                    s = q[:, i, :, j] if s is None else s + q[:, i, :, j]
+            return s.repeat_interleave(bs, 0).repeat_interleave(
+                bs, 1).reshape(-1)
+
+        def uniform_pass(mv, rsel, pred_y, pcost, inter, bs, inb):
+            gq = mv.reshape(gh, gw, 2)
+            tl_mv = gq[::bs, ::bs].repeat_interleave(bs, 0).repeat_interleave(
+                bs, 1).reshape(-1, 2)
+            tl_r = rsel.reshape(gh, gw)[::bs, ::bs].repeat_interleave(
+                bs, 0).repeat_interleave(bs, 1).reshape(-1)
+            cand_pred = eval_sel(tl_mv, tl_r)
+            cand_cost = satd(ob, cand_pred).to(torch.float32)
+            all_inter = inter.reshape(gh // bs, bs, gw // bs, bs).all(
+                3).all(1).repeat_interleave(bs, 0).repeat_interleave(
+                    bs, 1).reshape(-1)
+            nb2 = float(bs * bs)
+            cand_cost_q = qsum(cand_cost, bs)
+            accept = (cand_cost_q + lam * 4.0
+                      < qsum(pcost, bs) + (lam * 6.0) * nb2)
+            accept = accept & all_inter & inb
+            mv = torch.where(accept[:, None], tl_mv, mv)
+            rsel = torch.where(accept, tl_r, rsel)
+            pred_y = torch.where(accept[:, None, None], cand_pred, pred_y)
+            pcost = torch.where(accept, cand_cost_q * (1.0 / nb2), pcost)
+            return mv, rsel, pred_y, pcost
+
+        if gh % 2 == 0 and gw % 2 == 0 and g.log2_ctb >= 5:
+            mv, rsel, pred_y, pcost = uniform_pass(
+                mv, rsel, pred_y, pcost, inter, 2, quad_inbounds(2))
+            if gh % 4 == 0 and gw % 4 == 0 and g.log2_ctb == 6:
+                mv, rsel, pred_y, pcost = uniform_pass(
+                    mv, rsel, pred_y, pcost, inter, 4, quad_inbounds(4))
+
+        def sel_chroma(refs_c):
+            pc = [tools["chroma_pred"](refs_c[r], mv) for r in range(nr)]
+            if nr == 1:
+                return pc[0]
+            return torch.stack(pc).gather(
+                0, rsel.long()[None, :, None, None].expand(
+                    1, -1, n // 2, n // 2))[0]
+
+        pred_cb = sel_chroma(refs_cb)
+        pred_cr = sel_chroma(refs_cr)
+        # frame-level costs for the scenecut decision
+        cost_p = torch.minimum(pcost, icost.to(torch.float32)).double().sum()
+        cost_i = icost.to(torch.float64).sum()
+        return (modes, mode32, mv, rsel, inter, pred_y, pred_cb, pred_cr,
+                cost_p, cost_i)
+
+    def main(oy, ocb, ocr, modes, mode32, mv, rsel, inter, pred_y, pred_cb,
+             pred_cr, qpy, qpb, qpr, lam, qp_base, dqp_cb, dqp_cr, sao_lam,
+             qp_base_ctb, ref_pocs):
+        merged = finish.merged_masks(inter, (mv, rsel))
+        m32_in = None
+        if merged is not None:
+            m32q, m64q = merged
+            f = m32q.shape[0] // m64q.shape[0]
+            m32_in = m32q | _rep(m64q, f)
+        out = run_scan(oy, ocb, ocr, modes, mode32,
+                       torch.zeros((B32,), dtype=torch.bool, device=dev),
+                       qpy, qpb, qpr, lam=lam, is_inter=inter,
+                       ipred_y=pred_y, ipred_cb=pred_cb, ipred_cr=pred_cr,
+                       m32_in=m32_in)
+
+        def rep4(a):
+            return a.reshape(gh, gw, -1).repeat_interleave(
+                4, 0).repeat_interleave(4, 1)
+
+        poc4 = rep4(ref_pocs[rsel.long()][:, None])[:, :, 0]
+        mv4 = rep4(mv).to(torch.int32)
+        motion_b = (torch.ones((gh * 4, gw * 4), dtype=torch.int32,
+                               device=dev), mv4, mv4, poc4, poc4)
+        small, tails, fplanes = finish((oy, ocb, ocr), out, qp_base,
+                                       dqp_cb, dqp_cr, sao_lam,
+                                       inter=inter, mv=mv,
+                                       motion_b=motion_b,
+                                       qp_base_ctb=qp_base_ctb,
+                                       merged=merged)
+        small = dict(small, use32=out[9])
+        return small, tails, extend(fplanes)
+
+    def run(oy, ocb, ocr, refs_y, refs_cb, refs_cr, qpy, qpb, qpr, lam,
+            qp_base, dqp_cb, dqp_cr, sao_lam, qp_base_ctb, ref_pocs,
+            wy=64, wo=0, n_act=None):
+        if n_act is None:
+            n_act = len(refs_y)
+        rbits = ref_idx_bits(nr, n_act)
+        (modes, mode32, mv, rsel, inter, pred_y, pred_cb, pred_cr,
+         cost_p, cost_i) = prep(oy, tuple(refs_y), tuple(refs_cb),
+                                tuple(refs_cr), qp_base, rbits, int(wy),
+                                int(wo))
+        small, tails, ext = main(
+            oy, ocb, ocr, modes, mode32, mv, rsel, inter, pred_y, pred_cb,
+            pred_cr, qpy, qpb, qpr, lam, qp_base, dqp_cb, dqp_cr, sao_lam,
+            qp_base_ctb, torch.as_tensor(np.asarray(ref_pocs, np.int32),
+                                         device=dev))
+        small = dict(small, modes=modes, mode32=mode32, mv=mv.to(torch.int16),
+                     ref_idx=rsel, inter=inter, cost_p=cost_p, cost_i=cost_i)
+        return small, tails, ext
+
+    run.prep = prep
+    run.main = main
+    run.nr = nr
+    return run

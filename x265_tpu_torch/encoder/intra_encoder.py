@@ -1,0 +1,954 @@
+"""The frame encoder (I and P slices) on a torch device — the host logic
+of ``x265_tpu.encoder.intra_encoder.Encoder``, copied line for line where
+the stream depends on it, with the device seams on torch.
+
+Per frame: the device pipeline (``device_pipeline.py``) returns one dict of
+small outputs, fetched with ONE packed copy (``fetch_packed``); the host
+then scatters the syntax, derives merge/AMVP/skip (native C), entropy-codes
+with the native CABAC serializer, and appends the hash SEI.
+
+Scope: ``bframes == 0`` through ``encode_frame`` / ``push_frame`` with the
+lookahead off, 8-bit, 64x64 CTBs.  B frames, the lookahead (cuTree,
+b-adapt), 10-bit, RDOQ, noise reduction and lossless raise
+``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import sys as _sys
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from x265_tpu.cabac.ctu import (MODE_INTER, MODE_INTRA, CtuCoder, PicSyntax,
+                                chroma_qp)
+from x265_tpu.cabac.engine import CabacEncoder
+from x265_tpu.cabac.tables import init_context_states
+from x265_tpu.common.bitstream import (NAL_IDR_W_RADL, NAL_PPS, NAL_SPS,
+                                       NAL_SUFFIX_SEI, NAL_TRAIL_R, NAL_VPS,
+                                       wrap_nal)
+from x265_tpu.common.geometry import PictureGeometry
+from x265_tpu.common.headers import (PPS, SPS, VPS, SLICE_I, SLICE_P,
+                                     SliceHeader, write_pps,
+                                     write_slice_header, write_sps,
+                                     write_vps)
+from x265_tpu.common.params import Params
+from x265_tpu.common.sei import (SEI_DECODED_PICTURE_HASH,
+                                 picture_hash_payload, write_sei_rbsp)
+from x265_tpu.ops.deblock import _chroma_qp_arr
+
+
+@dataclass
+class EncodedFrame:
+    """One encoded picture."""
+    poc: int
+    display_idx: int
+    au: bytes
+    recon: tuple          # conformance-cropped recon planes (numpy)
+    coded: tuple          # coded-size recon planes (device tensors)
+    kind: str
+    qp: int
+
+
+@dataclass
+class _Pending:
+    """A dispatched frame awaiting its host finish."""
+    poc: int
+    kind: str
+    qp: int
+    ps: object
+    display_idx: int
+    planes: tuple = None
+    orig: tuple = None
+    out_dev: object = None      # (small dict, tails dict) on the device
+    ext: object = None          # ME-extended recon planes (DPB entry)
+    l0_poc: object = None
+    cu_size: int = 16
+    allow_scenecut: bool = False
+    wp: tuple = (64, 0, False)
+
+
+def fetch_packed(small: dict) -> dict:
+    """Copy a dict of device tensors to host numpy arrays in ONE transfer:
+    every leaf is viewed as bytes and concatenated on the device."""
+    names = sorted(small)
+    metas, parts = [], []
+    for n in names:
+        v = small[n]
+        host_dt = (np.dtype(bool) if v.dtype == torch.bool
+                   else torch.empty((), dtype=v.dtype).numpy().dtype)
+        x = v.reshape(-1)
+        if x.dtype == torch.bool:
+            x = x.to(torch.uint8)
+        b = x.contiguous().view(torch.uint8)
+        metas.append((n, host_dt, tuple(v.shape), b.numel()))
+        parts.append(b)
+    buf = torch.cat(parts).cpu().numpy()
+    out, off = {}, 0
+    for n, host_dt, shape, nb in metas:
+        store = np.uint8 if host_dt == bool else host_dt
+        a = np.frombuffer(buf[off:off + nb].tobytes(), dtype=store).reshape(
+            shape)
+        out[n] = a.astype(bool) if host_dt == bool else a
+        off += nb
+    return out
+
+
+def pad_plane(p: np.ndarray, h: int, w: int) -> np.ndarray:
+    """Edge-replicate pad a plane to (h, w)."""
+    out = np.empty((h, w), dtype=p.dtype)
+    ph, pw = p.shape
+    out[:ph, :pw] = p
+    if pw < w:
+        out[:ph, pw:] = out[:ph, pw - 1:pw]
+    if ph < h:
+        out[ph:, :] = out[ph - 1:ph, :]
+    return out
+
+
+def cu_leaves(ps: PicSyntax, ctu_addr: int, log2_min_cb: int = 3):
+    """(x0, y0, log2_size) of the CUs of a CTU in z-order (a copy of
+    ``x265_tpu.common.recon.cu_leaves``, whose module needs JAX)."""
+    g = ps.geom
+    out = []
+
+    def rec(x0, y0, log2_size, depth):
+        size = 1 << log2_size
+        if x0 >= g.width or y0 >= g.height:
+            return
+        fits = x0 + size <= g.width and y0 + size <= g.height
+        split = ps.depth[y0 >> 2, x0 >> 2] > depth or not fits
+        if split and log2_size > log2_min_cb:
+            half = size >> 1
+            for i in range(4):
+                rec(x0 + (i & 1) * half, y0 + (i >> 1) * half,
+                    log2_size - 1, depth + 1)
+        else:
+            out.append((x0, y0, log2_size))
+
+    x0, y0 = g.ctu_origin(ctu_addr)
+    rec(x0, y0, g.log2_ctb, 0)
+    return out
+
+
+def check_supported(params: Params) -> None:
+    """Raise NotImplementedError for configurations the port lacks."""
+    bad = []
+    if params.bframes:
+        bad.append("bframes > 0 (B pipeline)")
+    if params.internal_bit_depth != 8:
+        bad.append("bit depth != 8")
+    if params.rdoq_level:
+        bad.append("RDOQ")
+    if params.noise_reduction_intra or params.noise_reduction_inter:
+        bad.append("noise reduction")
+    if params.lossless:
+        bad.append("lossless")
+    if params.ctu_size != 64:
+        bad.append("CTU size != 64")
+    if bad:
+        raise NotImplementedError("x265_tpu_torch does not support: "
+                                  + ", ".join(bad))
+
+
+class Encoder:
+    """HEVC encoder (I/P slices) whose device work runs on ``device``."""
+
+    def __init__(self, params: Params, device):
+        check_supported(params)
+        self.device = torch.device(device)
+        self.params = params
+        w, h = params.source_width, params.source_height
+        assert w > 0 and h > 0
+        if params.log_level >= 1:
+            from x265_tpu.common.params import unsupported_param_warnings
+            for msg in unsupported_param_warnings(params):
+                print(msg, file=_sys.stderr)
+        align = 16
+        cw = (w + align - 1) & ~(align - 1)
+        ch = (h + align - 1) & ~(align - 1)
+        log2_ctb = params.ctu_size.bit_length() - 1
+        self.geom = PictureGeometry(cw, ch, log2_ctb, 3)
+        self.bit_depth = params.internal_bit_depth
+
+        from x265_tpu.common.headers import ProfileTierLevel
+        from x265_tpu.common.level import determine_level, enforce_level
+        level_idc, tier = determine_level(
+            cw, ch, params.fps_num, params.fps_denom,
+            bitrate_kbps=max(params.bitrate, params.vbv_max_bitrate),
+            requested_idc=params.level_idc, high_tier=params.high_tier)
+        for msg in enforce_level(params, level_idc, tier):
+            if params.log_level >= 1:
+                print(msg, file=_sys.stderr)
+        ptl = ProfileTierLevel(profile_idc=2 if self.bit_depth > 8 else 1,
+                               level_idc=level_idc, tier_flag=tier)
+        self.sps = SPS(
+            ptl=ptl,
+            pic_width=cw, pic_height=ch,
+            bit_depth_luma=self.bit_depth, bit_depth_chroma=self.bit_depth,
+            log2_ctb_size=log2_ctb,
+            log2_min_cb_size=3,
+            max_transform_hierarchy_depth_intra=max(
+                0, params.tu_intra_depth - 1),
+            max_transform_hierarchy_depth_inter=2,
+            conf_win=(0, (cw - w) // 2, 0, (ch - h) // 2),
+            strong_intra_smoothing=int(params.strong_intra_smoothing),
+            vui_timing_present=1, vui_present=1,
+            fps_num=params.fps_num, fps_denom=params.fps_denom,
+            sar_width=params.sar_width, sar_height=params.sar_height,
+            video_format=params.video_format,
+            video_full_range=bool(params.video_full_range),
+            colour_description_present=(params.colorprim != 2
+                                        or params.transfer != 2
+                                        or params.colormatrix != 2),
+            colour_primaries=params.colorprim,
+            transfer_characteristics=params.transfer,
+            matrix_coeffs=params.colormatrix,
+            chroma_loc_top=params.chromaloc,
+            chroma_loc_bottom=params.chromaloc,
+            max_dec_pic_buffering=max(1, min(4, params.ref)) + 1,
+            num_reorder_pics=0,
+            temporal_mvp_enabled=int(bool(params.temporal_mvp)),
+            sao_enabled=int(params.sao))
+        shd = int(params.sign_hide)
+        if params.deblock:
+            self.pps = PPS(init_qp=26, sign_data_hiding=shd,
+                           deblocking_filter_control_present=int(
+                               params.deblock_tc_offset
+                               or params.deblock_beta_offset),
+                           tc_offset_div2=params.deblock_tc_offset,
+                           beta_offset_div2=params.deblock_beta_offset)
+        else:
+            self.pps = PPS(init_qp=26, sign_data_hiding=shd,
+                           deblocking_filter_control_present=1,
+                           deblocking_filter_disabled=1)
+        self.pps.weighted_pred = int(params.weightp)
+        self.pps.transquant_bypass_enabled = 0
+        self.vps = VPS(ptl=ptl)
+        self.aq = bool(params.aq_mode and params.aq_strength > 0)
+        self.pps.cu_qp_delta_enabled = int(self.aq)
+        self.qp = params.qp
+        self.poc = 0
+        self.frames_encoded = 0
+        self.last_slice_type_str = "I"
+        self._ctu_scan = None
+        self._mode_tables = {}
+        self._i_pipeline = None
+        self._p_pipeline = None
+        mr = max(1, min(64, params.me_range))
+        self.me_fine = min(8, mr)
+        self.me_coarse = max(0, (mr - self.me_fine) // 4)
+        self.me_range = 4 * self.me_coarse + self.me_fine
+        from .ratecontrol import RateControl
+        self.rc = RateControl(params)
+        self.hrd = bool(params.hrd)
+        if self.hrd:
+            raise NotImplementedError("x265_tpu_torch: HRD is not ported")
+        self._zones: list = []
+        if params.zones:
+            for z in params.zones.split("/"):
+                parts = z.split(",")
+                s, e = int(parts[0]), int(parts[1])
+                qv = fac = None
+                for kv in parts[2:]:
+                    k, v = kv.split("=")
+                    if k == "q":
+                        qv = int(v)
+                    elif k == "b":
+                        fac = float(v)
+                self._zones.append((s, e, qv, fac))
+        self._qpfile_map: dict[int, int] = {}
+        if params.qpfile:
+            with open(params.qpfile) as fh:
+                for line in fh:
+                    f = line.split()
+                    if len(f) >= 3 and int(f[2]) >= 0:
+                        self._qpfile_map[int(f[0])] = int(f[2])
+        self._prev_half = None
+        self.bframes = params.bframes
+        self._next_poc = 0
+        self._display_idx = 0
+        self._cvs_base = 0
+        self.dpb = {}
+        self.dpb_dev = {}
+        self.num_ref = max(1, min(4, params.ref))
+        self._ref_pocs: list[int] = []
+        self._wp_src = {}
+        self._col_store = {}
+        self.prev_anchor_poc = None
+        self._use_lookahead = ((params.cu_tree and params.rc_lookahead > 0
+                                and self.aq)
+                               or (params.b_adapt > 0 and self.bframes > 0
+                                   and params.rc_lookahead > 0))
+        self._inflight: list[_Pending] = []
+        self.pipeline_depth = max(1, params.frame_parallelism)
+
+    def _min_keyint(self) -> int:
+        p = self.params
+        keyint = max(1, p.keyint_max)
+        mk = p.keyint_min
+        if mk <= 0:
+            fps = p.fps_num / max(1, p.fps_denom)
+            mk = min(int(fps), keyint // 10)
+        return max(1, min(mk, keyint // 2 + 1))
+
+    # -- stream headers ------------------------------------------------------
+
+    def headers(self) -> bytes:
+        out = (wrap_nal(NAL_VPS, write_vps(self.vps))
+               + wrap_nal(NAL_SPS, write_sps(self.sps))
+               + wrap_nal(NAL_PPS, write_pps(self.pps)))
+        hdr_seis = []
+        if self.params.master_display:
+            from x265_tpu.common.sei import (SEI_MASTERING_DISPLAY,
+                                             mastering_display_payload)
+            hdr_seis.append((SEI_MASTERING_DISPLAY,
+                             mastering_display_payload(
+                                 self.params.master_display)))
+        if self.params.max_cll:
+            from x265_tpu.common.sei import (SEI_CONTENT_LIGHT_LEVEL,
+                                             content_light_level_payload)
+            cll, fall = (int(v) for v in self.params.max_cll.split(","))
+            hdr_seis.append((SEI_CONTENT_LIGHT_LEVEL,
+                             content_light_level_payload(cll, fall)))
+        if hdr_seis:
+            from x265_tpu.common.bitstream import NAL_PREFIX_SEI as _PFX
+            out += wrap_nal(_PFX, write_sei_rbsp(hdr_seis),
+                            long_start_code=False)
+        if self.params.emit_info_sei:
+            from x265_tpu import __version__
+            from x265_tpu.common.bitstream import NAL_PREFIX_SEI
+            from x265_tpu.common.sei import SEI_USER_DATA_UNREGISTERED
+            uuid = bytes(range(16))
+            info = (f"x265_tpu {__version__} - TPU-native HEVC encoder - "
+                    f"qp={self.params.qp} ctu={self.params.ctu_size}"
+                    ).encode()
+            sei = write_sei_rbsp([(SEI_USER_DATA_UNREGISTERED,
+                                   uuid + info)])
+            out += wrap_nal(NAL_PREFIX_SEI, sei)
+        return out
+
+    def _complexity_estimate(self, orig, is_p: bool) -> float:
+        y = orig[0].astype(np.int32)
+        half = (y[0::2, 0::2] + y[1::2, 0::2]
+                + y[0::2, 1::2] + y[1::2, 1::2] + 2) >> 2
+        if is_p and self._prev_half is not None:
+            est = 1.5 * float(np.abs(half - self._prev_half).sum())
+        else:
+            est = 0.8 * float(np.abs(np.diff(half, axis=1)).sum()
+                              + np.abs(np.diff(half, axis=0)).sum())
+        self._prev_half = half
+        return est
+
+    def _mode_gather_tables(self, n, gh, gw, H, W):
+        """Cached [B, 4n+1] gather indices + availability of the open-loop
+        mode-decision reference vectors."""
+        key = (n, gh, gw, H, W)
+        t = self._mode_tables.get(key)
+        if t is not None:
+            return t
+        from x265_tpu.common.geometry import intra_neighbor_coords
+        g = self.geom
+        ridx = np.zeros((gh * gw, 4 * n + 1), np.int64)
+        avails = np.zeros((gh * gw, 4 * n + 1), bool)
+        for by in range(gh):
+            for bx in range(gw):
+                x0, y0 = bx * n, by * n
+                xs, ys = intra_neighbor_coords(x0, y0, n)
+                avails[by * gw + bx] = g.avail_rows(x0, y0, xs, ys)
+                ridx[by * gw + bx] = (np.clip(ys, 0, H - 1) * W
+                                      + np.clip(xs, 0, W - 1))
+        self._mode_tables[key] = (ridx, avails)
+        return ridx, avails
+
+    # -- top level -----------------------------------------------------------
+
+    def encode_frame(self, planes):
+        """planes: (Y, Cb, Cr) uint8 source arrays.  Zero-latency path:
+        the lookahead is off and the frame pipeline drains synchronously.
+        Returns (annexb_bytes, recon_planes_cropped)."""
+        self._use_lookahead = False
+        out = self.push_frame(planes) + self._drain(0)
+        assert len(out) == 1
+        return out[0].au, out[0].recon
+
+    def push_frame(self, planes) -> list:
+        """Feed one display-order frame; returns the EncodedFrames this
+        push finished (``pipeline_depth`` frames stay in flight)."""
+        if self._use_lookahead:
+            raise NotImplementedError(
+                "x265_tpu_torch: the lookahead (cuTree / b-adapt) is not "
+                "ported; use encode_frame() or rc_lookahead=0")
+        self._gop_input(planes)
+        return self._drain(self.pipeline_depth)
+
+    def flush(self) -> list:
+        return self._drain(0)
+
+    def _drain(self, depth: int) -> list:
+        out = []
+        while len(self._inflight) > depth:
+            out.append(self._finish_one(self._inflight.pop(0)))
+        return out
+
+    def _gop_input(self, planes) -> None:
+        p = self.params
+        keyint = max(1, p.keyint_max)
+        gop_start = ((self._display_idx - self._cvs_base) % keyint == 0
+                     or self.prev_anchor_poc is None)
+        poc = 0 if gop_start else self._next_poc
+        kind = "I" if gop_start else "P"
+        pend = self._dispatch_one(planes, poc, kind,
+                                  l0_poc=self.prev_anchor_poc,
+                                  didx=self._display_idx)
+        if gop_start:
+            self._cvs_base = self._display_idx
+        self._after_anchor(pend, idr=pend.kind == "I")
+        pend.display_idx = self._display_idx
+        self._inflight.append(pend)
+        self._display_idx += 1
+
+    def _after_anchor(self, pf: _Pending, idr: bool = False) -> None:
+        """DPB management after an anchor dispatch: the last ``num_ref``
+        anchors form the L0 list, nearest first."""
+        if idr:
+            self.dpb.clear()
+            self.dpb_dev.clear()
+            self._ref_pocs = []
+            self._next_poc = 1
+        else:
+            self._next_poc = max(self._next_poc, pf.poc + 1)
+        keep = max(self.num_ref, 1)
+        self._ref_pocs = [pf.poc] + [p for p in self._ref_pocs
+                                     if p != pf.poc][:keep - 1]
+        dpb = {pf.poc: pf}
+        dpb_dev = {pf.poc: pf.ext} if pf.ext is not None else {}
+        for p in self._ref_pocs[1:]:
+            if p in self.dpb:
+                dpb[p] = self.dpb[p]
+            if p in self.dpb_dev:
+                dpb_dev[p] = self.dpb_dev[p]
+        self.dpb, self.dpb_dev = dpb, dpb_dev
+        self.prev_anchor_poc = pf.poc
+
+    def _qp_override(self, didx):
+        if didx is None:
+            return None
+        q = self._qpfile_map.get(didx)
+        if q is not None:
+            return min(51, max(0, q))
+        for (s, e, qv, fac) in self._zones:
+            if s <= didx <= e:
+                if qv is not None:
+                    return min(51, max(0, qv))
+                if fac:
+                    return min(51, max(0, round(
+                        self.qp - 6.0 * np.log2(fac))))
+        return None
+
+    def _dispatch_one(self, planes, poc: int, kind: str, l0_poc=None,
+                      cplx=None, didx=None):
+        """Run one picture's device work and return its _Pending."""
+        g = self.geom
+        p = self.params
+        ph = g.ctbs_h << g.log2_ctb
+        pw = g.ctbs_w << g.log2_ctb
+        orig = (pad_plane(np.asarray(planes[0]), ph, pw),
+                pad_plane(np.asarray(planes[1]), ph // 2, pw // 2),
+                pad_plane(np.asarray(planes[2]), ph // 2, pw // 2))
+        if kind != "I" and l0_poc is None:
+            kind = "I"
+            poc = 0
+        is_p = kind == "P"
+        if cplx is None:
+            cplx = self._complexity_estimate(orig, kind != "I")
+        self.qp = self.rc.frame_qp(is_intra=kind == "I", satd=cplx,
+                                   is_b=False, is_ref_b=False)
+        ov = self._qp_override(didx)
+        if ov is not None:
+            self.qp = int(ov)
+
+        cu_size = min(16, 1 << g.log2_ctb)
+        cu_log2 = cu_size.bit_length() - 1
+        ps = PicSyntax(
+            g, max_tr_depth_intra=self.sps.max_transform_hierarchy_depth_intra,
+            max_tr_depth_inter=self.sps.max_transform_hierarchy_depth_inter,
+            sign_hiding=bool(self.pps.sign_data_hiding),
+            slice_qp=self.qp, cu_qp_delta_enabled=self.aq)
+        ps.depth[:] = g.log2_ctb - cu_log2
+        ps.pred_mode[:] = MODE_INTRA
+        ps.tu_depth[:] = 0
+        self._qp_plan(orig)
+
+        ps.cur_poc = poc
+        if is_p and l0_poc is not None:
+            active = [q for q in self._ref_pocs if q < poc]
+            if l0_poc not in active:
+                active = [l0_poc] + active
+            ps.ref_pocs_l0 = tuple(active[:self.num_ref])
+        else:
+            ps.ref_pocs_l0 = (l0_poc,) if l0_poc is not None else ()
+        ps.ref_pocs_l1 = ()
+        ps.rps_keep = tuple(self._ref_pocs)
+
+        pend = _Pending(poc=poc, kind=kind, qp=self.qp, ps=ps,
+                        display_idx=0, planes=planes, orig=orig,
+                        l0_poc=l0_poc, cu_size=cu_size)
+        if p.weightp:
+            self._wp_src[poc] = np.asarray(planes[0])
+            while len(self._wp_src) > 4:
+                self._wp_src.pop(next(iter(self._wp_src)))
+        ref_src = self._wp_src.get(l0_poc) if is_p and p.weightp else None
+        if ref_src is not None and ref_src.shape == np.asarray(
+                planes[0]).shape:
+            from .weights import analyse_luma_weight
+            pend.wp = analyse_luma_weight(np.asarray(planes[0]), ref_src,
+                                          self.bit_depth)
+        ps.wp_entry = pend.wp
+        if is_p:
+            pend.out_dev, pend.ext = self._dispatch_p(
+                orig, ps.ref_pocs_l0, pend.wp)
+            pend.allow_scenecut = bool(p.scenecut_threshold
+                                       and not self._use_lookahead)
+        else:
+            pend.out_dev, pend.ext = self._dispatch_i(orig)
+        return pend
+
+    def _finish_one(self, pend: _Pending) -> EncodedFrame:
+        """Host finish: fetch, scatter syntax, derive inter syntax,
+        entropy-code, hash SEI, rate control."""
+        p = self.params
+        self.qp = pend.qp
+        ps = pend.ps
+        kind = pend.kind
+        is_p = kind == "P"
+        poc = pend.poc
+        keyint = max(1, p.keyint_max)
+        if is_p:
+            o = self._finish_p(pend)
+            cost_p, cost_i = self.last_frame_costs
+            if (pend.allow_scenecut and not self._inflight
+                    and cost_p > 0.85 * cost_i
+                    and poc % keyint >= self._min_keyint()):
+                # scene change: restart the GOP with an IDR
+                redo = self._dispatch_one(pend.planes, 0, "I", cplx=0.0)
+                redo.display_idx = pend.display_idx
+                self._cvs_base = pend.display_idx
+                self._after_anchor(redo, idr=True)
+                return self._finish_one(redo)
+        else:
+            o = self._finish_i(pend)
+        checksums = o["checksums"]
+        tails = pend.out_dev[1]
+        coded_rec = tails["rec_coded"]
+        rec_crop = tuple(pl.cpu().numpy() for pl in tails["rec_conf"])
+
+        st = SLICE_P if is_p else SLICE_I
+        au = self._entropy_encode(ps, st, poc)
+        if self.dpb.get(poc) is pend:
+            self.dpb[poc] = coded_rec
+
+        if p.decoded_picture_hash:
+            from x265_tpu.common.params import HASH_CHECKSUM
+            if p.decoded_picture_hash == HASH_CHECKSUM:
+                payload = bytes([2]) + b"".join(
+                    int(c).to_bytes(4, "big") for c in checksums)
+            else:
+                payload = picture_hash_payload(
+                    [pl.cpu().numpy() for pl in coded_rec], self.bit_depth,
+                    hash_type=p.decoded_picture_hash - 1)
+            sei = write_sei_rbsp([(SEI_DECODED_PICTURE_HASH, payload)])
+            au += wrap_nal(NAL_SUFFIX_SEI, sei, long_start_code=False)
+
+        if p.repeat_headers and kind == "I" and self.frames_encoded > 0:
+            au = self.headers() + au
+        if p.aud:
+            from x265_tpu.common.bitstream import NAL_AUD, BitWriter
+            bw = BitWriter()
+            bw.write(1 if is_p else 0, 3)
+            bw.rbsp_trailing_bits()
+            au = wrap_nal(NAL_AUD, bw.getvalue(),
+                          long_start_code=True) + au
+        self.rc.update(len(au) * 8, self.qp, is_intra=kind == "I")
+        self.frames_encoded += 1
+        self.last_slice_type_str = "P" if is_p else "I"
+        self.last_ps = ps
+        return EncodedFrame(poc=poc, display_idx=pend.display_idx, au=au,
+                            recon=rec_crop, coded=coded_rec,
+                            kind=self.last_slice_type_str, qp=self.qp)
+
+    # -- device pipelines ----------------------------------------------------
+
+    def _get_ctu_scan(self):
+        if self._ctu_scan is None:
+            from .ctu_scan import CtuScan
+            self._ctu_scan = CtuScan(
+                self.geom, bit_depth=self.bit_depth,
+                sign_hide=bool(self.pps.sign_data_hiding),
+                strong_intra_smoothing=bool(
+                    self.sps.strong_intra_smoothing),
+                rdoq=self.params.rdoq_level > 0,
+                noise_reduction=False,
+                psy_rd=self.params.psy_rd,
+                psy_rdoq=self.params.psy_rdoq)
+        return self._ctu_scan
+
+    def _fetch_outputs(self, pend):
+        """Fetch the frame's small outputs (one packed copy); returns the
+        host dict and the (luma, cb, cr) coefficient planes."""
+        o = fetch_packed(pend.out_dev[0])
+        return o, (o["cy"], o["ccb"], o["ccr"])
+
+    def _scatter_syntax(self, ps, o, coeffs):
+        cy, ccb, ccr = coeffs
+        ps.coeff_y[:] = cy.astype(np.int32)
+        ps.coeff_cb[:] = ccb.astype(np.int32)
+        ps.coeff_cr[:] = ccr.astype(np.int32)
+        ps.qp_ctb[:] = o["qp_actual"].astype(np.int32)
+        if self.sps.sao_enabled:
+            ps.sao_type[:] = o["sao_type"].astype(np.int8)
+            ps.sao_eo_class[:] = o["sao_class"].astype(np.int8)
+            ps.sao_band_pos[:] = o["sao_bpos"].astype(np.int8)
+            ps.sao_offsets[:] = o["sao_offs"].astype(np.int8)
+
+    def _apply_inter_merge(self, ps, o):
+        """Merged inter CUs (32/64) from the device masks; quads whose
+        in-scan RD chose TU32 code TU == CU."""
+        g = self.geom
+        m32 = np.asarray(o["m32"]) if o.get("m32") is not None else None
+        m64 = np.asarray(o["m64"]) if o.get("m64") is not None else None
+        tu32 = None
+        if m32 is not None and o.get("use32") is not None:
+            u = np.asarray(o["use32"]).reshape(m32.shape)
+            m64r = (np.repeat(np.repeat(
+                m64, m32.shape[0] // m64.shape[0], 0),
+                m32.shape[1] // m64.shape[1], 1)
+                if m64 is not None else np.zeros(m32.shape, bool))
+            tu32 = u & (m32 | m64r)
+        if m32 is not None and m32.any():
+            u8 = np.kron(m32, np.ones((8, 8), bool))
+            ps.depth[u8] = g.log2_ctb - 5
+            ps.tu_depth[u8] = 1
+        if m64 is not None and m64.any():
+            u16 = np.kron(m64, np.ones((16, 16), bool))
+            ps.depth[u16] = g.log2_ctb - 6
+            ps.tu_depth[u16] = 2
+        if tu32 is not None and tu32.any():
+            t8 = np.kron(tu32, np.ones((8, 8), bool))
+            ps.tu_depth[t8] -= 1
+
+    def _apply_cu32(self, ps, use32, mode32):
+        """Chosen 32x32 intra CUs: one depth-(log2_ctb-5) CU with a 32x32
+        luma TU and the 32-mode (DM chroma)."""
+        if use32 is None or not use32.any():
+            return
+        g = self.geom
+        d32 = g.log2_ctb - 5
+        u8 = np.kron(use32, np.ones((8, 8), bool))
+        m8 = np.kron(mode32.astype(np.uint8), np.ones((8, 8), np.uint8))
+        ps.depth[u8] = d32
+        ps.luma_mode[u8] = m8[u8]
+        ps.chroma_mode[u8] = m8[u8]
+        ps.tu_depth[u8] = 0
+        ps.part[u8] = 0
+
+    def _filter_qps(self):
+        dq_cb = chroma_qp(self.qp, self.pps.cb_qp_offset)
+        dq_cr = chroma_qp(self.qp, self.pps.cr_qp_offset)
+        sao_lam = 0.72 * 2.0 ** ((self.qp - 12) / 3.0)
+        return (np.int32(self.qp), np.int32(dq_cb), np.int32(dq_cr),
+                np.float32(sao_lam))
+
+    def _qp_plan(self, orig):
+        """Per-CTB desired QPs + SSD-domain lambdas (frame QP + AQ)."""
+        g = self.geom
+        p = self.params
+        bd_off = 6 * (self.bit_depth - 8)
+        if self.aq:
+            from .aq import aq_offsets, per_ctb_qp
+            cw, ch = self.sps.pic_width, self.sps.pic_height
+            coded = (orig[0][:ch, :cw], orig[1][:ch // 2, :cw // 2],
+                     orig[2][:ch // 2, :cw // 2])
+            off16 = aq_offsets(coded, p.aq_mode, p.aq_strength,
+                               self.bit_depth, normalize=p.rc_mode == 0)
+            qp_ctb = per_ctb_qp(np.asarray(off16), self.qp, g)
+        else:
+            qp_ctb = np.full((g.n_ctbs,), self.qp, np.int32)
+        lam = 2.0 ** (qp_ctb / 6.0 - 2.0)
+        self._qp_arrays = (
+            (qp_ctb + bd_off).astype(np.int32),
+            (_chroma_qp_arr(qp_ctb, self.pps.cb_qp_offset)
+             + bd_off).astype(np.int32),
+            (_chroma_qp_arr(qp_ctb, self.pps.cr_qp_offset)
+             + bd_off).astype(np.int32),
+            (0.85 * lam * lam).astype(np.float32),
+            qp_ctb.astype(np.int32))
+
+    def _dev(self, a):
+        return torch.as_tensor(np.ascontiguousarray(a), device=self.device)
+
+    def _dispatch_i(self, orig):
+        from .device_pipeline import build_i_pipeline
+        if self._i_pipeline is None:
+            self._i_pipeline = build_i_pipeline(self)
+        qpy, qpb, qpr, lam, qp_ctb = (self._dev(a) for a in self._qp_arrays)
+        qp_base, dq_cb, dq_cr, sao_lam = self._filter_qps()
+        small, tails, ext = self._i_pipeline(
+            *(self._dev(pl) for pl in orig), qpy, qpb, qpr, lam,
+            int(qp_base), int(dq_cb), int(dq_cr), float(sao_lam), qp_ctb)
+        return (small, tails), ext
+
+    def _finish_i(self, pend):
+        ps = pend.ps
+        o, coeffs = self._fetch_outputs(pend)
+        g = self.geom
+        ph = g.ctbs_h << g.log2_ctb
+        pw = g.ctbs_w << g.log2_ctb
+        gh, gw = ph // 16, pw // 16
+        modes = o["modes"].reshape(gh, gw)
+        s4 = pend.cu_size // 4
+        ps.luma_mode[:] = np.kron(modes.astype(np.uint8),
+                                  np.ones((s4, s4), np.uint8))
+        ps.chroma_mode[:] = ps.luma_mode
+        if self._get_ctu_scan().t["has32"]:
+            use32 = o["use32"].reshape(ph // 32, pw // 32)
+            mode32 = o["mode32"].reshape(ph // 32, pw // 32)
+            self._apply_cu32(ps, use32, mode32)
+        self._scatter_syntax(ps, o, coeffs)
+        return o
+
+    def _get_ref_ext(self, poc):
+        return self.dpb_dev[poc]
+
+    def _dispatch_p(self, orig, ref_pocs, wp=(64, 0, False)):
+        """The P pipeline runs with a FIXED ``num_ref`` reference slots; a
+        shorter list repeats its farthest entry (padding slots can never
+        win the ref_idx argmin)."""
+        from .device_pipeline import build_p_pipeline
+        if self._p_pipeline is None:
+            self._p_pipeline = build_p_pipeline(self, nr=self.num_ref)
+        pocs = list(ref_pocs)
+        pocs = pocs + [pocs[-1]] * (self.num_ref - len(pocs))
+        refs = [self._get_ref_ext(q) for q in pocs]
+        qpy, qpb, qpr, lam, qp_ctb = (self._dev(a) for a in self._qp_arrays)
+        qp_base, dq_cb, dq_cr, sao_lam = self._filter_qps()
+        small, tails, ext = self._p_pipeline(
+            *(self._dev(pl) for pl in orig),
+            tuple(r[0] for r in refs), tuple(r[1] for r in refs),
+            tuple(r[2] for r in refs),
+            qpy, qpb, qpr, lam, int(qp_base), int(dq_cb), int(dq_cr),
+            float(sao_lam), qp_ctb, np.asarray(pocs, np.int32),
+            int(wp[0]), int(wp[1]), n_act=len(ref_pocs))
+        return (small, tails), ext
+
+    def _finish_p(self, pend):
+        ps = pend.ps
+        g = self.geom
+        n = cu_size = pend.cu_size
+        ph = g.ctbs_h << g.log2_ctb
+        pw = g.ctbs_w << g.log2_ctb
+        o, coeffs = self._fetch_outputs(pend)
+        self.last_frame_costs = (float(o["cost_p"]), float(o["cost_i"]))
+        gh, gw = (ph // cu_size, pw // cu_size)
+        modes = o["modes"].reshape(gh, gw)
+        mv = o["mv"].reshape(gh, gw, 2)
+        inter_mask = o["inter"].reshape(gh, gw)
+        s4 = n // 4
+        ps.luma_mode[:] = np.kron(modes.astype(np.uint8),
+                                  np.ones((s4, s4), np.uint8))
+        ps.chroma_mode[:] = ps.luma_mode
+        pm = np.where(inter_mask, MODE_INTER, MODE_INTRA).astype(np.uint8)
+        ps.pred_mode[:] = np.kron(pm, np.ones((s4, s4), np.uint8))
+        ps.mv0[:] = np.kron(
+            mv.astype(np.int16).transpose(2, 0, 1),
+            np.ones((1, s4, s4), np.int16)).transpose(1, 2, 0)
+        rsel = np.asarray(o["ref_idx"]).reshape(gh, gw)
+        ps.ref_idx0[:] = np.kron(rsel.astype(ps.ref_idx0.dtype),
+                                 np.ones((s4, s4), ps.ref_idx0.dtype))
+        ps.ref_idx0[ps.pred_mode == MODE_INTRA] = 0
+        if self._get_ctu_scan().t["has32"]:
+            use32 = self._intra32_mask(o).reshape(ph // 32, pw // 32)
+            mode32 = o["mode32"].reshape(ph // 32, pw // 32)
+            self._apply_cu32(ps, use32, mode32)
+        self._apply_inter_merge(ps, o)
+        self._scatter_syntax(ps, o, coeffs)
+        self._derive_inter_all(ps)
+        return o
+
+    @staticmethod
+    def _intra32_mask(o):
+        """sel32 minus the inter-TU32 quads (merged inter CUs)."""
+        u = np.asarray(o["use32"])
+        m32 = o.get("m32")
+        if m32 is None:
+            return u
+        m32 = np.asarray(m32)
+        m64 = o.get("m64")
+        m64r = (np.repeat(np.repeat(np.asarray(m64),
+                                    m32.shape[0] // np.asarray(m64).shape[0],
+                                    0),
+                          m32.shape[1] // np.asarray(m64).shape[1], 1)
+                if m64 is not None else np.zeros(m32.shape, bool))
+        return u.reshape(m32.shape) & ~(m32 | m64r)
+
+    # -- P-frame syntax derivation -------------------------------------------
+
+    def _derive_inter_all(self, ps):
+        """Merge/AMVP/skip derivation over all inter CU leaves (native C,
+        Python spec loops when the toolchain is missing); TMVP col
+        picture attached here, in entropy order."""
+        if self.params.temporal_mvp and ps.ref_pocs_l0 and ps.col is None:
+            col = self._col_store.get(ps.ref_pocs_l0[0])
+            if col is not None:
+                ps.temporal_mvp = True
+                ps.col = col
+        from x265_tpu.native import derive_inter_syntax_native
+        if derive_inter_syntax_native(ps):
+            return
+        self._derive_inter_syntax(ps)
+        self._derive_skip(ps)
+
+    def _derive_inter_syntax(self, ps):
+        from x265_tpu.common.motion import (MotionCand, amvp_candidates,
+                                            merge_candidates)
+
+        g = self.geom
+        for ctu in range(g.n_ctbs):
+            for (x0, y0, log2_cb) in cu_leaves(ps, ctu):
+                y4, x4 = y0 >> 2, x0 >> 2
+                if ps.pred_mode[y4, x4] == MODE_INTRA:
+                    continue
+                n = 1 << log2_cb
+                d = int(ps.inter_dir[y4, x4]) or 1
+                me = MotionCand(
+                    d,
+                    (int(ps.mv0[y4, x4, 0]), int(ps.mv0[y4, x4, 1])),
+                    int(ps.ref_idx0[y4, x4]),
+                    (int(ps.mv1[y4, x4, 0]), int(ps.mv1[y4, x4, 1])),
+                    int(ps.ref_idx1[y4, x4]))
+                cands = merge_candidates(ps, x0, y0, n, n,
+                                         ps.max_merge_cand)
+                keys = [c.key() for c in cands]
+                if me.key() in keys:
+                    idx = keys.index(me.key())
+                    ps.set_region(ps.merge_flag, x0, y0, n, 1)
+                    ps.set_region(ps.merge_idx, x0, y0, n, idx)
+                    continue
+                mv = me.mv0
+                amvp = amvp_candidates(ps, x0, y0, n, n, 0, me.ref0)
+                costs = [abs(mv[0] - c[0]) + abs(mv[1] - c[1])
+                         for c in amvp]
+                mvp = int(np.argmin(costs))
+                ps.set_region(ps.mvp_flag, x0, y0, n, mvp)
+                ps.mvd[y4:(y0 + n) >> 2, x4:(x0 + n) >> 2] = (
+                    mv[0] - amvp[mvp][0], mv[1] - amvp[mvp][1])
+
+    def _derive_skip(self, ps):
+        g = self.geom
+        for ctu in range(g.n_ctbs):
+            for (x0, y0, log2_cb) in cu_leaves(ps, ctu):
+                y4, x4 = y0 >> 2, x0 >> 2
+                if ps.pred_mode[y4, x4] == MODE_INTRA or \
+                        not ps.merge_flag[y4, x4]:
+                    continue
+                n = 1 << log2_cb
+                c = n >> 1
+                if (ps.coeff_y[y0:y0 + n, x0:x0 + n].any()
+                        or ps.coeff_cb[y0 >> 1:(y0 >> 1) + c,
+                                       x0 >> 1:(x0 >> 1) + c].any()
+                        or ps.coeff_cr[y0 >> 1:(y0 >> 1) + c,
+                                       x0 >> 1:(x0 >> 1) + c].any()):
+                    continue
+                ps.set_region(ps.skip, x0, y0, n, 1)
+
+    def _store_col_motion(self, ps, poc: int) -> None:
+        """Retain this picture's final motion field for TMVP."""
+        pocs0 = np.asarray(ps.ref_pocs_l0 or (0,), np.int32)
+        pocs1 = np.asarray(ps.ref_pocs_l1 or (0,), np.int32)
+        r0 = np.minimum(ps.ref_idx0.astype(np.int32), len(pocs0) - 1)
+        r1 = np.minimum(ps.ref_idx1.astype(np.int32), len(pocs1) - 1)
+        self._col_store[poc] = dict(
+            pred_mode=ps.pred_mode.copy(),
+            inter_dir=ps.inter_dir.copy(),
+            mv0=ps.mv0.copy(), mv1=ps.mv1.copy(),
+            poc0=pocs0[r0], poc1=pocs1[r1], poc=poc)
+        while len(self._col_store) > 8:
+            self._col_store.pop(next(iter(self._col_store)))
+
+    def _entropy_encode(self, ps: PicSyntax, slice_type: int = SLICE_I,
+                        poc: int = 0) -> bytes:
+        from x265_tpu.common.headers import ShortTermRPS
+        if self.params.temporal_mvp:
+            if slice_type == SLICE_I:
+                self._col_store.clear()
+            self._store_col_motion(ps, poc)
+
+        g = self.geom
+        sao_on = bool(self.sps.sao_enabled)
+        if slice_type == SLICE_I:
+            sh = SliceHeader(slice_type=SLICE_I, slice_qp=self.qp,
+                             sao_luma=int(sao_on), sao_chroma=int(sao_on))
+            nal_type = NAL_IDR_W_RADL
+            init_type = 0
+        else:
+            keep = set(getattr(ps, "rps_keep", ()))
+            act0 = [q for q in ps.ref_pocs_l0 if q is not None]
+            s0_pocs = sorted({q for q in keep if q < poc} | set(act0),
+                             reverse=True)
+            s1_pocs = sorted({q for q in keep if q > poc})
+            if not s0_pocs:
+                s0_pocs = [poc - 1]
+            rps = ShortTermRPS(
+                delta_pocs_s0=[q - poc for q in s0_pocs],
+                used_s0=[1 if q in act0 else 0 for q in s0_pocs],
+                delta_pocs_s1=[q - poc for q in s1_pocs],
+                used_s1=[0 for q in s1_pocs])
+            nal_type = NAL_TRAIL_R
+            init_type = 1
+            sh = SliceHeader(
+                slice_type=slice_type, slice_qp=self.qp,
+                sao_luma=int(sao_on), sao_chroma=int(sao_on),
+                pic_order_cnt_lsb=poc % (1 << self.sps.log2_max_poc_lsb),
+                rps=rps, max_num_merge_cand=ps.max_merge_cand,
+                temporal_mvp_enabled=int(getattr(ps, "temporal_mvp",
+                                                 False)))
+            n0 = max(1, len(act0))
+            sh.num_ref_idx_l0 = n0
+            if n0 != self.pps.num_ref_idx_l0_default:
+                sh.num_ref_idx_active_override = 1
+            if self.pps.weighted_pred and slice_type == SLICE_P:
+                w, o, on = getattr(ps, "wp_entry", (64, 0, False))
+                sh.luma_log2_weight_denom = 6
+                sh.chroma_log2_weight_denom = 6
+                sh.weights_l0 = ([(int(bool(on)), w, o, 0, 64, 0, 64, 0)]
+                                 + [(0, 64, 0, 0, 64, 0, 64, 0)]
+                                 * (n0 - 1))
+        bw = write_slice_header(sh, self.sps, self.pps, nal_type)
+
+        from x265_tpu.native import encode_slice_data_native
+        data = encode_slice_data_native(
+            ps, self.qp, log2_min_cb=self.sps.log2_min_cb_size,
+            log2_min_tb=self.sps.log2_min_tb_size,
+            log2_max_tb=self.sps.log2_max_tb_size,
+            slice_type=2 if slice_type == SLICE_I else 1,
+            sao_luma=sao_on, sao_chroma=sao_on,
+            bit_depth=self.bit_depth,
+            num_ref_l0=max(1, len(ps.ref_pocs_l0)), num_ref_l1=1)
+        if data is None:            # no C toolchain: the Python CABAC
+            ctx = init_context_states(init_type, self.qp)
+            enc = CabacEncoder(ctx=ctx)
+            coder = CtuCoder(ps, self.sps.log2_min_cb_size,
+                             self.sps.log2_min_tb_size,
+                             self.sps.log2_max_tb_size,
+                             slice_type=slice_type, sao_luma=sao_on,
+                             sao_chroma=sao_on, bit_depth=self.bit_depth,
+                             num_ref_l0=max(1, len(ps.ref_pocs_l0)),
+                             num_ref_l1=1, transquant_bypass=False)
+            for ctu in range(g.n_ctbs):
+                coder.encode_ctu(enc, ctu)
+                enc.encode_terminate(1 if ctu == g.n_ctbs - 1 else 0)
+            enc.bw.byte_alignment()
+            data = enc.bw.getvalue()
+        rbsp = bw.getvalue() + data
+        return wrap_nal(nal_type, rbsp)

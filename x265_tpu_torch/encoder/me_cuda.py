@@ -1,0 +1,158 @@
+"""K2: subpel motion refinement as one hand-written CUDA kernel.
+
+Replaces ``x265_tpu/encoder/me_pallas.py`` (``make_refine_kernel``: body
+``kernel`` at :112, ``pallas_call`` at :237).  Source:
+``x265_tpu_torch/csrc/k2_subpel_refine.cu``; plain version: ``refine_plain``
+below, the torch twin of ``refine_round`` and its --subme ladder
+(``x265_tpu/encoder/device_pipeline.py:729-789``), which the wrapper runs
+for tensors on the CPU.
+
+What it computes: for each 16x16 block, from the 25x25 integer window
+around its full-pel winner, a half-pel round (step 2) then a quarter-pel
+round (step 1) of 9 candidates each (``_DELTAS`` order, first wins ties
+under strict ``<``); per candidate the exact 8-tap separable luma MC
+(8-bit, +2048 >> 12, clip), the 4x4-Hadamard SATD, plus
+lam * (mv_bits(dy) + mv_bits(dx)) against the seed-median pmv, with
+candidates beyond 4*merange qpel masked to 2^30.
+
+Design.  One 256-thread block per 16x16 block, one thread per output
+pixel; the block's 25x25 window, its source block, the horizontal filter
+pass and the best prediction so far stay in shared memory, and the
+candidates run one after another (the 16 4x4 Hadamards on 16 threads,
+summed with shared atomics).  Bound on an H100: per 1080p reference the
+algorithm needs 8160 blocks x 18 candidates x (368 + 256) 8-tap sums,
+~7e8 integer multiply-adds, against ~30 MB of window reads (both counted
+from the shapes, not measured), so neither bytes nor operations bound it; each block walks 18 dependent candidate stages with
+three barriers each (latency).  Measured on an H100 80GB HBM3 at 700 W:
+0.336 ms per launch at B = 8160 against 22.854 ms for ``refine_plain``
+(PERF.md).
+Costs round as the reference: ``__fmaf_rn(lam, bits, satd)``, mv_bits from
+the committed float32 table (no device log2).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+
+import numpy as np
+import torch
+
+from .._util import dev_table, fma32
+from ..build import load_library
+from ..ops.cost import satd
+from ..ops.interp import mc_luma_batch
+
+#: launches of K2 made by ``refine`` (counted once per kernel launch)
+LAUNCHES = 0
+
+_DELTAS = [(dy, dx) for dy in (-1, 0, 1) for dx in (-1, 0, 1)]
+MV_BITS_LEN = 1024
+_MVB_PATH = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "data", "mv_bits_f32.npy")
+
+
+def mv_bits_table() -> np.ndarray:
+    """float32 [1024]: the reference's EG1-style mvd bits per |d| qpel —
+    0.718 at 0, else 2*log2(|d|+1)+1.718 — as XLA:CPU evaluates them
+    (committed data; ``tools/make_mv_bits_table.py`` regenerates it)."""
+    t = np.load(_MVB_PATH)
+    assert t.dtype == np.float32 and t.shape == (MV_BITS_LEN,)
+    return t
+
+
+def mv_bits(d: torch.Tensor) -> torch.Tensor:
+    """Table lookup of the mvd bits of qpel components ``d`` (|d| <=
+    2 * 4 * 64 + 3 by the search's clamps; checked without a host sync)."""
+    a = d.abs()
+    torch._assert_async(a.max() < MV_BITS_LEN,
+                        "mvd component beyond the mv_bits table")
+    return dev_table("mvbits", mv_bits_table, d.device)[a.long()]
+
+
+def mv_cost(lam, mv_q, pmv_b, base):
+    """base + lam * (bits(dy) + bits(dx)) with one rounding (fused)."""
+    d = mv_q - pmv_b
+    return fma32(lam, mv_bits(d[..., 0]) + mv_bits(d[..., 1]), base)
+
+
+def refine_plain(W, ob, mvi, pmv, lam, subme: int, mrq: int):
+    """Subpel ladder over [B, 25, 25] int32 windows W (top-left at the
+    full-pel winner - 4), source blocks ob [B, 16, 16], full-pel winners
+    mvi [B, 2] (y, x), pmv [B, 2] qpel (y, x), lam float32 scalar tensor.
+    Returns (q0 [B, 2] qpel offset (y, x), pred [B, 16, 16], cost [B])."""
+    n = 16
+    big = torch.tensor(float(1 << 30), dtype=torch.float32, device=W.device)
+
+    def refine_round(center, step):
+        qs, preds, costs = [], [], []
+        for (dy, dx) in _DELTAS:
+            q = center + torch.tensor((dy * step, dx * step),
+                                      dtype=center.dtype, device=W.device)
+            oob = ((mvi * 4 + q).abs() > 4 * mrq).any(1)
+            iy1 = (q[:, 0] >> 2) + 1
+            ix1 = (q[:, 1] >> 2) + 1
+            wr = torch.where(iy1[:, None, None] == 0, W[:, 0:n + 7, :],
+                             W[:, 1:n + 8, :])
+            win = torch.where(ix1[:, None, None] == 0, wr[:, :, 0:n + 7],
+                              wr[:, :, 1:n + 8])
+            pred = mc_luma_batch(win, q[:, 1] & 3, q[:, 0] & 3, n, n, 8)
+            c = mv_cost(lam, mvi * 4 + q, pmv,
+                        satd(ob, pred).to(torch.float32))
+            qs.append(q)
+            preds.append(pred)
+            costs.append(torch.where(oob, big, c))
+        best_c, best_q, best_p = costs[0], qs[0], preds[0]
+        for k in range(1, 9):
+            better = costs[k] < best_c
+            best_c = torch.where(better, costs[k], best_c)
+            best_q = torch.where(better[:, None], qs[k], best_q)
+            best_p = torch.where(better[:, None, None], preds[k], best_p)
+        return best_q, best_p, best_c
+
+    q0 = torch.zeros_like(mvi)
+    if subme == 0:
+        return refine_round(q0, 0)
+    q0, pred, cost = refine_round(q0, 2)
+    if subme >= 2:
+        q0, pred, cost = refine_round(q0, 1)
+    return q0, pred, cost
+
+
+def refine(W, ob, mvi, pmv, lam, subme: int, mrq: int):
+    """Subpel refine of every block.  CPU tensors: ``refine_plain``.
+    CUDA tensors: one launch of K2 (or an exception)."""
+    if W.device.type != "cuda":
+        return refine_plain(W, ob, mvi, pmv, lam, subme, mrq)
+    return launch(load_library(), W, ob, mvi, pmv, lam, subme, mrq)
+
+
+def launch(lib, W, ob, mvi, pmv, lam, subme: int, mrq: int):
+    """Launch K2 from ``lib`` on the device of ``W`` (the CUDA library on
+    CUDA tensors; the host build of the same source on CPU tensors)."""
+    global LAUNCHES
+    B = W.shape[0]
+    for nm, x, shp in (("W", W, (B, 25, 25)), ("ob", ob, (B, 16, 16)),
+                       ("mvi", mvi, (B, 2)), ("pmv", pmv, (B, 2))):
+        if (x.device != W.device or x.dtype != torch.int32
+                or tuple(x.shape) != shp or not x.is_contiguous()):
+            raise ValueError(f"K2 input {nm}: expected contiguous "
+                             f"{W.device} int32 {shp}, got {x.device} "
+                             f"{x.dtype} {tuple(x.shape)}")
+    lam_t = torch.as_tensor(lam, dtype=torch.float32).reshape(1).to(
+        W.device)
+    mvb = dev_table("mvbits", mv_bits_table, W.device)
+    q0 = torch.empty((B, 2), dtype=torch.int32, device=W.device)
+    pred = torch.empty((B, 16, 16), dtype=torch.int32, device=W.device)
+    cost = torch.empty((B,), dtype=torch.float32, device=W.device)
+    stream = (torch.cuda.current_stream(W.device).cuda_stream
+              if W.device.type == "cuda" else 0)
+    rc = lib.k2_subpel_refine(
+        W.data_ptr(), ob.data_ptr(), mvi.data_ptr(), pmv.data_ptr(),
+        lam_t.data_ptr(), mvb.data_ptr(), q0.data_ptr(), pred.data_ptr(),
+        cost.data_ptr(), B, int(subme), int(mrq), ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(
+            f"K2 launch failed: {lib.k_error_string(rc).decode()}")
+    LAUNCHES += 1
+    return q0, pred, cost

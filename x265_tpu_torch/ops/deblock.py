@@ -1,0 +1,225 @@
+"""HEVC deblocking (H.265 §8.7.2) on whole padded planes — torch twin of
+``x265_tpu.ops.deblock.deblock_picture_jnp``.
+
+Vertical edges on the 8-px grid tile the plane exactly, so each direction
+is reshape -> batched segment filter -> reshape; the horizontal pass runs
+on the transposed output.  The spec tables and the static edge masks are
+the reference's own numpy helpers.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from x265_tpu.ops.deblock import BETA_TABLE, TC_TABLE
+
+from .._util import dev_table
+
+
+def _lookup(table, name, idx):
+    return dev_table(name, lambda: table, idx.device)[idx.long()]
+
+
+def _luma_seg_filter(seg, bs, qp, bit_depth, beta_off, tc_off):
+    """seg [E, 4, 8] int32; bs [E]; qp [E] -> filtered [E, 4, 8]."""
+    shift = bit_depth - 8
+    qb = (qp + beta_off * 2).clamp(0, 51)
+    qt = (qp + 2 * (bs - 1) + tc_off * 2).clamp(0, 53)
+    beta = (_lookup(BETA_TABLE, "beta", qb) << shift)[:, None]
+    tc = (_lookup(TC_TABLE, "tc", qt) << shift)[:, None]
+
+    p3, p2, p1, p0 = (seg[:, :, i] for i in range(4))
+    q0, q1, q2, q3 = (seg[:, :, i] for i in range(4, 8))
+    dp0 = (p2[:, 0] - 2 * p1[:, 0] + p0[:, 0]).abs()
+    dp3 = (p2[:, 3] - 2 * p1[:, 3] + p0[:, 3]).abs()
+    dq0 = (q2[:, 0] - 2 * q1[:, 0] + q0[:, 0]).abs()
+    dq3 = (q2[:, 3] - 2 * q1[:, 3] + q0[:, 3]).abs()
+    dpq0, dpq3 = dp0 + dq0, dp3 + dq3
+    dp, dq = dp0 + dp3, dq0 + dq3
+    b1 = beta[:, 0]
+    t1 = tc[:, 0]
+    filter_on = (dpq0 + dpq3 < b1) & (bs > 0) & (t1 > 0)
+
+    def strong_cond(dpq, i):
+        return ((2 * dpq < (b1 >> 2))
+                & ((p3[:, i] - p0[:, i]).abs() + (q0[:, i] - q3[:, i]).abs()
+                   < (b1 >> 3))
+                & ((p0[:, i] - q0[:, i]).abs() < ((5 * t1 + 1) >> 1)))
+
+    strong = strong_cond(dpq0, 0) & strong_cond(dpq3, 3)
+
+    def c3(lo, hi, v):
+        return torch.minimum(torch.maximum(v, lo), hi)
+
+    sp0 = c3(p0 - 2 * tc, p0 + 2 * tc,
+             (p2 + 2 * p1 + 2 * p0 + 2 * q0 + q1 + 4) >> 3)
+    sp1 = c3(p1 - 2 * tc, p1 + 2 * tc, (p2 + p1 + p0 + q0 + 2) >> 2)
+    sp2 = c3(p2 - 2 * tc, p2 + 2 * tc,
+             (2 * p3 + 3 * p2 + p1 + p0 + q0 + 4) >> 3)
+    sq0 = c3(q0 - 2 * tc, q0 + 2 * tc,
+             (p1 + 2 * p0 + 2 * q0 + 2 * q1 + q2 + 4) >> 3)
+    sq1 = c3(q1 - 2 * tc, q1 + 2 * tc, (p0 + q0 + q1 + q2 + 2) >> 2)
+    sq2 = c3(q2 - 2 * tc, q2 + 2 * tc,
+             (p0 + q0 + q1 + 3 * q2 + 2 * q3 + 4) >> 3)
+
+    delta = (9 * (q0 - p0) - 3 * (q1 - p1) + 8) >> 4
+    w_on = delta.abs() < tc * 10
+    dlt = c3(-tc, tc, delta)
+    maxval = (1 << bit_depth) - 1
+    wp0 = (p0 + dlt).clamp(0, maxval)
+    wq0 = (q0 - dlt).clamp(0, maxval)
+    side_thresh = (b1 + (b1 >> 1)) >> 3
+    dEp1 = (dp < side_thresh)[:, None]
+    dEq1 = (dq < side_thresh)[:, None]
+    tc2 = tc >> 1
+    dp1 = c3(-tc2, tc2, (((p2 + p0 + 1) >> 1) - p1 + dlt) >> 1)
+    dq1 = c3(-tc2, tc2, (((q2 + q0 + 1) >> 1) - q1 - dlt) >> 1)
+    wp1 = (p1 + dp1).clamp(0, maxval)
+    wq1 = (q1 + dq1).clamp(0, maxval)
+
+    on = filter_on[:, None]
+    st = strong[:, None] & on
+    wk = (~strong[:, None]) & on & w_on
+    out = seg.clone()
+    out[:, :, 1] = torch.where(st, sp2, p2)
+    out[:, :, 2] = torch.where(st, sp1, torch.where(wk & dEp1, wp1, p1))
+    out[:, :, 3] = torch.where(st, sp0, torch.where(wk, wp0, p0))
+    out[:, :, 4] = torch.where(st, sq0, torch.where(wk, wq0, q0))
+    out[:, :, 5] = torch.where(st, sq1, torch.where(wk & dEq1, wq1, q1))
+    out[:, :, 6] = torch.where(st, sq2, q2)
+    return out
+
+
+def _chroma_seg_filter(seg, bs, qp, bit_depth, tc_off):
+    """seg [E, 4, 4] int32 (p1 p0 q0 q1); filters only where bs == 2."""
+    shift = bit_depth - 8
+    qt = (qp + 2 + tc_off * 2).clamp(0, 53)
+    tc = (_lookup(TC_TABLE, "tc", qt) << shift)
+    tc = torch.where(bs == 2, tc, 0)[:, None]
+    p1, p0, q0, q1 = (seg[:, :, i] for i in range(4))
+    delta = torch.minimum(torch.maximum(
+        (((q0 - p0) << 2) + p1 - q1 + 4) >> 3, -tc), tc)
+    maxval = (1 << bit_depth) - 1
+    out = seg.clone()
+    out[:, :, 1] = (p0 + delta).clamp(0, maxval)
+    out[:, :, 2] = (q0 - delta).clamp(0, maxval)
+    return out
+
+
+def _deblock_dir(plane, bs_edge, qp, bit_depth, beta_off, tc_off, chroma):
+    """Vertical edges of one plane: plane [H, W] int32, bs_edge and qp
+    [H//4, nk] for the edges at x = 8(k+1)."""
+    H, W = plane.shape
+    G = 8
+    R = 2 if chroma else 4
+    nk = W // G - 1
+    if nk < 1:
+        return plane
+    x0 = G - R
+    seg = plane[:, x0:x0 + nk * G].reshape(H // 4, 4, nk, G).permute(
+        0, 2, 1, 3).reshape(-1, 4, G)
+    bs = bs_edge.reshape(-1)
+    qp = qp.reshape(-1)
+    if chroma:
+        f = seg.clone()
+        f[:, :, :2 * R] = _chroma_seg_filter(seg[:, :, :2 * R], bs, qp,
+                                             bit_depth, tc_off)
+    else:
+        f = _luma_seg_filter(seg, bs, qp, bit_depth, beta_off, tc_off)
+    win = f.reshape(H // 4, nk, 4, G).permute(0, 2, 1, 3).reshape(H, nk * G)
+    out = plane.clone()
+    out[:, x0:x0 + nk * G] = win
+    return out
+
+
+def deblock_plane(plane, bs_v, bs_h, qp, bit_depth=8, beta_off=0, tc_off=0,
+                  *, chroma=False):
+    """Both directions of one plane; qp = (qp_v, qp_h) per-edge maps
+    [H//4, W//4] or one scalar QP."""
+    H, W = plane.shape
+    nkv = W // 8 - 1
+    nkh = H // 8 - 1
+    per_edge = isinstance(qp, tuple)
+
+    def full(q, shape):
+        return torch.as_tensor(q, dtype=torch.int32,
+                               device=plane.device).expand(shape)
+
+    if nkv >= 1:
+        bsv = bs_v[:, 2::2][:, :nkv]
+        q = qp[0][:, 2::2][:, :nkv] if per_edge else full(qp, bsv.shape)
+        plane = _deblock_dir(plane, bsv, q, bit_depth, beta_off, tc_off,
+                             chroma)
+    if nkh >= 1:
+        bsh = bs_h[2::2, :][:nkh].T
+        q = qp[1][2::2, :][:nkh].T if per_edge else full(qp, bsh.shape)
+        plane = _deblock_dir(plane.T.contiguous(), bsh, q, bit_depth,
+                             beta_off, tc_off, chroma).T.contiguous()
+    return plane
+
+
+def deblock_picture(planes, intra4, cbf4, mv4, use32, static_masks,
+                    qp_y, qp_cb, qp_cr, bit_depth=8, beta_off=0, tc_off=0,
+                    motion_b=None):
+    """Deblock a whole reconstructed picture (padded planes, int32).
+
+    Same contract as ``deblock_picture_jnp``: intra4/cbf4 [h4p, w4p] bool,
+    mv4 [h4p, w4p, 2] qpel, use32 [PH//32, PW//32] or None, static_masks
+    from ``x265_tpu.ops.deblock.edge_masks_np``, motion_b the two-list
+    (nmv, mva, mvb, poca, pocb) planes or None for one-list P motion."""
+    dev = planes[0].device
+    ev0, eh0, _inside = (torch.as_tensor(m, device=dev)
+                         for m in static_masks)
+    h4p, w4p = ev0.shape
+    if use32 is not None:
+        u4 = use32.repeat_interleave(8, 0).repeat_interleave(8, 1)
+        x4 = torch.arange(w4p, device=dev)[None, :]
+        y4 = torch.arange(h4p, device=dev)[:, None]
+        ev = ev0 & ~(u4 & (x4 % 8 == 4))
+        eh = eh0 & ~(u4 & (y4 % 8 == 4))
+    else:
+        ev, eh = ev0, eh0
+    mv = mv4.to(torch.int32)
+
+    def ge4(a, b):
+        return ((a - b).abs() >= 4).any(-1)
+
+    def bs_dir(edge, axis):
+        p_intra = torch.roll(intra4, 1, dims=axis)
+        p_cbf = torch.roll(cbf4, 1, dims=axis)
+        if motion_b is None:
+            mv_big = ge4(mv, torch.roll(mv, 1, dims=axis))
+        else:
+            nmv, mva, mvb, poca, pocb = motion_b
+            pn = torch.roll(nmv, 1, dims=axis)
+            pmva = torch.roll(mva, 1, dims=axis)
+            pmvb = torch.roll(mvb, 1, dims=axis)
+            ppoca = torch.roll(poca, 1, dims=axis)
+            ppocb = torch.roll(pocb, 1, dims=axis)
+            set_eq = (((poca == ppoca) & (pocb == ppocb))
+                      | ((poca == ppocb) & (pocb == ppoca)))
+            aligned = ge4(mva, pmva) | ge4(mvb, pmvb)
+            crossed = ge4(mva, pmvb) | ge4(mvb, pmva)
+            align_ok = torch.where(poca == ppoca, aligned,
+                                   torch.where(poca == ppocb, crossed, True))
+            bi_diff = torch.where(poca == pocb, aligned & crossed, align_ok)
+            mv_big = torch.where(nmv != pn, True,
+                                 torch.where(~set_eq, True, bi_diff))
+        bs = torch.where(intra4 | p_intra, 2,
+                         torch.where(cbf4 | p_cbf | mv_big, 1, 0))
+        return torch.where(edge, bs, 0).to(torch.int32)
+
+    bs_v = bs_dir(ev, 1)
+    bs_h = bs_dir(eh, 0)
+    y = deblock_plane(planes[0].to(torch.int32), bs_v, bs_h, qp_y,
+                      bit_depth, beta_off, tc_off)
+    h4c, w4c = h4p // 2, w4p // 2
+    cv = torch.zeros((h4c, w4c), dtype=torch.int32, device=dev)
+    chm = torch.zeros((h4c, w4c), dtype=torch.int32, device=dev)
+    cv[:, 0::2] = torch.where(bs_v[::2, 0::4] == 2, 2, 0).to(torch.int32)
+    chm[0::2, :] = torch.where(bs_h[0::4, ::2] == 2, 2, 0).to(torch.int32)
+    cb = deblock_plane(planes[1].to(torch.int32), cv, chm, qp_cb, bit_depth,
+                       tc_off=tc_off, chroma=True)
+    cr = deblock_plane(planes[2].to(torch.int32), cv, chm, qp_cr, bit_depth,
+                       tc_off=tc_off, chroma=True)
+    return y, cb, cr
