@@ -5,19 +5,37 @@
 
 Phases (each raises on failure; the script then exits non-zero):
   1. the card's name and power limit (nvidia-smi), then the build of the
-     kernels K1 and K2 from x265_tpu_torch/csrc/ with nvcc for sm_90a;
-  2. K1 against its plain torch step on the card: the whole 62-level CTU
-     scan of seeded random 1920x1088 inputs, I and P, psy-rd 2.0; every
-     output must be equal;
+     kernels K1 and K2 from x265_tpu_torch/csrc/ with nvcc for sm_90a (one
+     nvcc per source, all started together);
+  2. K1 against its plain torch step on the card, I and P, psy-rd 2.0:
+     the whole 62-level CTU scan of seeded random 1920x1088 inputs (every
+     output equal), then the busiest level alone (L = 15 real lanes): one
+     launch against one plain step (outputs and carry equal), K1's time
+     for one launch with CUDA events (each on a fresh copy of the level's
+     carry), the plain step's time, and the bound of that launch;
   3. K2 against its plain torch version on the card: 8160 blocks, subme 2,
      merange 57; q0, pred and cost must be equal;
-  4. the slice: 1080p IPPP (4 frames of the bench's panning content) at
+  4. the slice: 1080p IPPP (4 frames of panning synthetic content) at
      Params() defaults with bframes=0 through Encoder.encode_frame on the
      card; K1 must launch 62 x 4 times and K2 3 x 3 times, and the stream's
      MD5 must equal the golden digest of x265_tpu's own encode
      (x265_tpu_torch/data/golden_1080p_ippp.json, tools/make_golden.py).
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
+
+Bounds: the least time the card could take for a launch's work, the
+larger of its bytes (each input it needs read once, each output written
+once) over 3.35 TB/s and its integer operations over the H100 SXM's rate
+for them at the full 700 W.  The INT32 pipes run 132 SMs x 64 lanes x 1.98
+GHz = 16.7 T instructions/s (half the data sheet's 67 TFLOP/s float32
+rate).  K1's operations are the multiply-adds of its transforms, int16
+residuals and levels times the int8 DCT matrix, counted as x265's
+partial butterflies need them, at two a dp2a instruction: 33.4 T/s.  K2's
+are instructions at 16.7 T/s: the 8-tap interpolation's, each filtered
+sample counted once however many candidates of a block share it, as dp4a
+in the horizontal pass (8-bit samples times int8 taps, two a sample) and
+dp2a in the vertical (int16 sums, four a sample), and the SATDs' adds,
+one each.
 """
 
 import hashlib
@@ -28,6 +46,9 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 16.7e12
+DP2A_MAC_PER_S = 2 * INT32_OPS_PER_S
 
 
 def _events_ms(fn, reps):
@@ -46,6 +67,34 @@ def _events_ms(fn, reps):
     return t0.elapsed_time(t1) / reps
 
 
+def k1_launch_ms(lib, scan, inter, xs, carry0, reps):
+    """Mean device milliseconds of one K1 launch (decide32) from ``lib`` on
+    level inputs ``xs``, timed with CUDA events around each launch alone.
+    K1 writes the frontiers into its carry, so every launch gets a fresh
+    copy of ``carry0``, made outside the timed events; the launches are
+    queued behind a sleep on the card so that the host's launch time falls
+    outside them too."""
+    import torch
+    from x265_tpu_torch.encoder import ctu_scan_cuda
+    ck = tuple(c.clone() for c in carry0)
+    # args holds raw pointers into ck, xs and the outputs _ys
+    args, _ys = ctu_scan_cuda.kernel_args(scan, inter, True, ck, xs)
+    ev = [(torch.cuda.Event(enable_timing=True),
+           torch.cuda.Event(enable_timing=True)) for _ in range(reps + 1)]
+    torch.cuda.synchronize()
+    torch.cuda._sleep(100_000_000)
+    for t0, t1 in ev:
+        for c, c0 in zip(ck, carry0):
+            c.copy_(c0)
+        t0.record()
+        rc = lib.k1_ctu_step(*args)
+        t1.record()
+        if rc != 0:
+            raise RuntimeError(f"K1 launch failed: rc {rc}")
+    torch.cuda.synchronize()
+    return sum(t0.elapsed_time(t1) for t0, t1 in ev[1:]) / reps
+
+
 def _max_abs_err(a, b):
     import torch
     errs = [0.0]
@@ -60,11 +109,146 @@ def _max_abs_err(a, b):
     return max(errs)
 
 
-def check_k1(dev):
-    """K1 vs the plain step: full scans of random 1080p inputs."""
+def _report_diff(what, a, b):
+    """Print, for each output that differs, how many entries differ."""
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x is not None and y is not None and not bool((x == y).all()):
+            print(f"  {what}: output {i} {tuple(x.shape)} differs in "
+                  f"{int((x != y).sum())} entries", flush=True)
+
+
+def _bound(nbytes, ops, ops_per_s):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def _nbytes(ts):
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def _butterfly_macs(n):
+    """Multiplies of one n-point HEVC core transform of one line through
+    x265's partial butterflies: the odd half's (n/2)^2, then the even half
+    as an n/2-point transform; 8 for n = 4."""
+    return 8 if n == 4 else (n // 2) ** 2 + _butterfly_macs(n // 2)
+
+
+def _tu_chain_macs(n):
+    """Multiply-adds of one K1 chain: the forward and inverse 2-D
+    transforms (two passes of n lines each) of a luma n x n block and of
+    its two chroma n/2 x n/2 blocks."""
+    def tu(m):
+        return 4 * m * _butterfly_macs(m)
+    return tu(n) + 2 * tu(n // 2)
+
+
+def k1_level_bound(xs, ys, inter):
+    """Bound of one K1 launch on level inputs ``xs``: the bytes of the
+    inputs it reads (the original samples in one tiling), the frontier
+    entries it reads and writes, the transform tables and its outputs; the
+    multiply-adds of its transforms, counting the inter TU32 trials this
+    level's data asks for, at the dp2a rate."""
+    L = xs["cx"].shape[0]
+    keys = ["cx", "cy", "m16", "m32", "qp_y", "qp_cb", "qp_cr", "o32y",
+            "o16cb", "o16cr", "l16_av", "c8_av", "l32_av", "c16_av",
+            "quad_ok", "lam", "plam"]
+    if inter:
+        keys += ["inter", "ipy", "ipc", "m32_in"]
+    # per lane: reads 2 rows + 1 column + 1 corner of each plane's frontier,
+    # writes 1 row + 1 column + 1 corner of each
+    frontier = L * 4 * ((3 * 64 + 1) + (2 * 64 + 1) + 2 * ((3 * 32 + 1)
+                                                          + (2 * 32 + 1)))
+    tables = 4 * 4 * 336     # K1's packed DCT matrices, one bulk copy
+    nbytes = _nbytes([xs[k] for k in keys]) + frontier + tables + _nbytes(ys)
+    trials = int(xs["m32_in"].sum()) if inter else 0
+    macs = (L * 4 * (_tu_chain_macs(32) + 4 * _tu_chain_macs(16))
+            + trials * _tu_chain_macs(32))
+    return _bound(nbytes, macs, DP2A_MAC_PER_S)
+
+
+# nonzero taps of HEVC's 8-tap luma filter per quarter-pel phase (phase 0
+# is the sample itself)
+_LUMA_TAPS = ((3,), tuple(range(7)), tuple(range(8)), tuple(range(1, 8)))
+
+
+def _k2_interp_ops(cands):
+    """Instructions of K2's interpolation for one block's candidate qpel
+    offsets ``cands`` (y, x): every horizontally filtered sample (window
+    row, column, phase; two dp4a) and every vertically filtered one (row,
+    column, both phases; four dp2a) counted once, whichever candidates
+    share it."""
+    hs, vs = set(), set()
+    for qy, qx in cands:
+        iy1, ix1, fy, fx = (qy >> 2) + 1, (qx >> 2) + 1, qy & 3, qx & 3
+        rows = {y + k for y in range(16) for k in _LUMA_TAPS[fy]}
+        if fx:
+            hs.update((iy1 + r, ix1 + x, fx) for r in rows for x in range(16))
+        if fy:
+            vs.update((iy1 + y, ix1 + x, fy, fx) for y in range(16)
+                      for x in range(16))
+    return 2 * len(hs) + 4 * len(vs)
+
+
+def k2_bound(W, ob, mvi, pmv, outs, lam, mrq):
+    """Bound of one K2 launch (subme 2): its bytes, and the instructions
+    the candidates within the search range need: the interpolation once
+    per shared filtered sample (``_k2_interp_ops``) and per distinct
+    candidate the residual and sixteen 4x4 Hadamard SATDs (256 + 16 x 96
+    adds).  The
+    second round's candidates sit around the first round's winner, which
+    the plain refine gives (subme 1: the first round alone)."""
+    import numpy as np
+    from x265_tpu_torch.encoder import me_cuda
+    q1 = me_cuda.refine_plain(W, ob, mvi, pmv, lam, 1, mrq)[0]
+    q1, mv = q1.cpu().numpy(), mvi.cpu().numpy()
+    d = [(dy, dx) for dy in (-1, 0, 1) for dx in (-1, 0, 1)]
+    r1 = np.array([(2 * dy, 2 * dx) for dy, dx in d])            # [9, 2]
+    r2 = q1[:, None, :] + np.array([p for p in d if p != (0, 0)])  # [B, 8, 2]
+    cands = np.concatenate([np.broadcast_to(r1, (len(q1), 9, 2)), r2], 1)
+    inside = (np.abs(mv[:, None, :] * 4 + cands) <= 4 * mrq).all(2)
+    keys = np.concatenate([q1, inside], 1)
+    uniq, count = np.unique(keys, axis=0, return_counts=True)
+    ops = 0
+    for key, n in zip(uniq, count):
+        cq = [tuple(c) for c, ok in zip(cands[np.all(keys == key, 1)][0],
+                                        key[2:]) if ok]
+        ops += n * (_k2_interp_ops(cq) + len(cq) * (256 + 16 * 96))
+    nbytes = _nbytes([W, ob, mvi, pmv] + list(outs))
+    return _bound(nbytes, ops, INT32_OPS_PER_S)
+
+
+def _capture_level(li, run):
+    """``run()`` with wavefront level ``li`` recorded on the way: its carry
+    before the step (cloned), its lane inputs and the plain step."""
+    from x265_tpu_torch.encoder import ctu_scan_cuda
+    real = ctu_scan_cuda.ctu_step
+    got, n = {}, [0]
+
+    def spy(scan, inter, decide32, carry, xs, plain):
+        if n[0] == li:
+            got.update(carry=tuple(c.clone() for c in carry), xs=xs,
+                       plain=plain)
+        n[0] += 1
+        return real(scan, inter, decide32, carry, xs, plain)
+
+    ctu_scan_cuda.ctu_step = spy
+    try:
+        out = run()
+    finally:
+        ctu_scan_cuda.ctu_step = real
+    return out, got
+
+
+def k1_inputs(dev):
+    """Seeded random inputs of the 1080p CTU scan, psy-rd 2.0.  Returns
+    ``(scan, li, n_real, go)``: the busiest wavefront level ``li`` with its
+    ``n_real`` real lanes, and ``go(cfg, route)`` that runs the 62-level
+    scan, ``cfg`` "I" or "P", ``route`` "kernel" or "plain"."""
     import numpy as np
     import torch
-    from x265_tpu_torch.encoder.ctu_scan import CtuScan, PictureGeometry
+    from x265_tpu_torch.common.geometry import PictureGeometry
+    from x265_tpu_torch.encoder.ctu_scan import CtuScan
 
     rng = np.random.RandomState(1)
     g = PictureGeometry(1920, 1088, 6, 3)
@@ -94,32 +278,69 @@ def check_k1(dev):
                  m32_in=T(rng.rand(b32) < 0.4))
     scan = CtuScan(g, bit_depth=8, sign_hide=True,
                    strong_intra_smoothing=True, psy_rd=2.0)
+    real = (scan.t["xs"]["ctu"] < nctb).sum(1)
+    li = int(real.argmax())
+
+    def go(cfg, route):
+        fn = scan.scan_fn(inter=cfg == "P", decide32=True,
+                          allow_kernel=route == "kernel")
+        return fn(oy, ocb, ocr, modes, mode32, use32, qp, qp, qp, lam=lam,
+                  **(inter if cfg == "P" else {}))
+
+    return scan, li, int(real[li]), go
+
+
+def check_k1(dev, lib):
+    """K1 vs the plain step: full scans of random 1080p inputs, then the
+    busiest level alone (equality, one-launch time, bound)."""
+    import torch
+    from x265_tpu_torch.encoder import ctu_scan_cuda
+
+    scan, li, n_real, run = k1_inputs(dev)
     res = {}
     for cfg in ("I", "P"):
-        kw = inter if cfg == "P" else {}
-        runs = {}
-        for route in ("kernel", "plain"):
-            fn = scan.scan_fn(inter=cfg == "P", decide32=True,
-                              allow_kernel=route == "kernel")
+        is_p = cfg == "P"
 
-            def go(fn=fn, kw=kw):
-                return fn(oy, ocb, ocr, modes, mode32, use32, qp, qp, qp,
-                          lam=lam, **kw)
+        def go(route, cfg=cfg):
+            return run(cfg, route)
 
-            out = go()
-            torch.cuda.synchronize()
-            runs[route] = (out, _events_ms(go, 2))
-        err = _max_abs_err(runs["kernel"][0], runs["plain"][0])
-        print(f"K1 {cfg}: 62-level scan {runs['kernel'][1]:.2f} ms kernel, "
-              f"{runs['plain'][1]:.2f} ms plain, max_abs_err {err}",
+        out_k, lvl = _capture_level(li, lambda: go("kernel"))
+        out_p = go("plain")
+        torch.cuda.synchronize()
+        scan_err = _max_abs_err(out_k, out_p)
+        scan_ms = _events_ms(lambda: go("kernel"), 2)
+        scan_plain_ms = _events_ms(lambda: go("plain"), 1)
+        print(f"K1 {cfg}: 62-level scan {scan_ms:.3f} ms kernel, "
+              f"{scan_plain_ms:.3f} ms plain, max_abs_err {scan_err}",
               flush=True)
-        if err != 0.0:
+        # the busiest level alone
+        xs, carry0, plain = lvl["xs"], lvl["carry"], lvl["plain"]
+        ck = tuple(c.clone() for c in carry0)
+        carry_k, ys_k = ctu_scan_cuda.launch(lib, scan, is_p, True, ck, xs)
+        carry_p, ys_p = plain(tuple(c.clone() for c in carry0), xs)
+        torch.cuda.synchronize()
+        lvl_err = max(_max_abs_err(carry_k, carry_p),
+                      _max_abs_err(ys_k, ys_p))
+        ms = k1_launch_ms(lib, scan, is_p, xs, carry0, 50)
+        plain_ms = _events_ms(lambda: plain(carry0, xs), 3)
+        bound_ms, bound_by = k1_level_bound(xs, ys_k, is_p)
+        L = xs["cx"].shape[0]
+        print(f"K1 {cfg}: level {li} (L = {L}, {n_real} real lanes): "
+              f"{ms:.4f} ms per launch, plain step {plain_ms:.3f} ms, bound "
+              f"{bound_ms:.5f} ms ({bound_by}), max_abs_err {lvl_err}",
+              flush=True)
+        if scan_err != 0.0 or lvl_err != 0.0:
+            _report_diff("scan", out_k, out_p)
+            _report_diff("level carry", carry_k, carry_p)
+            _report_diff("level outputs", ys_k, ys_p)
             raise AssertionError(f"K1 differs from the plain step ({cfg})")
-        res[cfg] = (runs["kernel"][1], runs["plain"][1], err)
+        res[cfg] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                        bound_by=bound_by, err=max(scan_err, lvl_err),
+                        scan_ms=scan_ms, scan_plain_ms=scan_plain_ms)
     return res
 
 
-def check_k2(dev):
+def check_k2(dev, lib):
     """K2 vs the plain refine at the 1080p shapes (B = 8160)."""
     import numpy as np
     import torch
@@ -138,7 +359,6 @@ def check_k2(dev):
     pmv = torch.as_tensor((4 * rng.randint(-49, 50, (B, 2))).astype(
         np.int32)).to(dev)
     lam = me_lambda(32).to(dev)
-    lib = me_cuda.load_library()
     k = me_cuda.launch(lib, W, ob, mvi, pmv, lam, 2, mrq)
     p = me_cuda.refine_plain(W, ob, mvi, pmv, lam, 2, mrq)
     torch.cuda.synchronize()
@@ -147,11 +367,14 @@ def check_k2(dev):
                                            mrq), 10)
     plain_ms = _events_ms(lambda: me_cuda.refine_plain(W, ob, mvi, pmv, lam,
                                                        2, mrq), 3)
-    print(f"K2: B={B} subme 2 merange {mrq}: {ms:.3f} ms kernel, "
-          f"{plain_ms:.3f} ms plain, max_abs_err {err}", flush=True)
+    bound_ms, bound_by = k2_bound(W, ob, mvi, pmv, k, lam, mrq)
+    print(f"K2: B={B} subme 2 merange {mrq}: {ms:.4f} ms kernel, "
+          f"{plain_ms:.3f} ms plain, bound {bound_ms:.5f} ms ({bound_by}), "
+          f"max_abs_err {err}", flush=True)
     if err != 0.0:
         raise AssertionError("K2 differs from the plain refine")
-    return ms, plain_ms, err
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, err=err)
 
 
 def encode_slice(dev):
@@ -198,11 +421,11 @@ def main():
     print(f"kernel build: {time.time() - t0:.1f} s (nvcc sm_90a), "
           f"K1 shared memory {lib.k1_smem_bytes()} B", flush=True)
     for line in build.BUILD_LOG.splitlines():
-        if "registers" in line or "spill" in line:
+        if "registers" in line or "spill" in line or "Compiling" in line:
             print("ptxas:", line.strip(), flush=True)
 
-    k1 = check_k1(dev)
-    k2 = check_k2(dev)
+    k1 = check_k1(dev, lib)
+    k2 = check_k2(dev, lib)
 
     with open(os.path.join(ROOT, "x265_tpu_torch", "data",
                            "golden_1080p_ippp.json")) as f:
@@ -228,16 +451,22 @@ def main():
     if md5 != golden["md5"] or len(stream) != golden["total_bytes"]:
         raise AssertionError("stream differs from x265_tpu's golden")
 
+    kp = k1["P"]
     print(json.dumps({"kernels": [
         dict(name="K1 ctu_step", route="cuda",
              source="x265_tpu_torch/csrc/k1_ctu_step.cu",
              replaces="x265_tpu/encoder/ctu_scan_pallas.py:72",
-             launches=n1, max_abs_err=max(k1["I"][2], k1["P"][2]),
-             ms=k1["P"][0], plain_ms=k1["P"][1]),
+             launches=n1, max_abs_err=max(k1["I"]["err"], kp["err"]),
+             ms=kp["ms"], plain_ms=kp["plain_ms"], bound_ms=kp["bound_ms"],
+             bound_by=kp["bound_by"], library_ms=None,
+             ms_I=k1["I"]["ms"], scan_ms_P=kp["scan_ms"],
+             scan_ms_I=k1["I"]["scan_ms"]),
         dict(name="K2 subpel_refine", route="cuda",
              source="x265_tpu_torch/csrc/k2_subpel_refine.cu",
              replaces="x265_tpu/encoder/me_pallas.py:71",
-             launches=n2, max_abs_err=k2[2], ms=k2[0], plain_ms=k2[1])]}),
+             launches=n2, max_abs_err=k2["err"], ms=k2["ms"],
+             plain_ms=k2["plain_ms"], bound_ms=k2["bound_ms"],
+             bound_by=k2["bound_by"], library_ms=None)]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,9 +9,10 @@ import numpy as np
 import pytest
 import torch
 
-from x265_tpu.common.geometry import PictureGeometry
+from x265_tpu.common.geometry import PictureGeometry as RefGeometry
 from x265_tpu.encoder.ctu_scan import CtuScan as RefScan
 from x265_tpu_torch.build import load_host_library
+from x265_tpu_torch.common.geometry import PictureGeometry
 from x265_tpu_torch.encoder import ctu_scan_cuda
 from x265_tpu_torch.encoder.ctu_scan import CtuScan
 
@@ -75,7 +76,8 @@ def test_scan_matches_reference(cfg, psy, sign_hide):
     g, x = _inputs()
     kw = dict(bit_depth=8, sign_hide=sign_hide, strong_intra_smoothing=True,
               psy_rd=psy)
-    want = _run(RefScan(g, **kw), jnp, x, cfg, True)
+    want = _run(RefScan(RefGeometry(g.width, g.height, 6, 3), **kw), jnp, x,
+                cfg, True)
     got = _run(CtuScan(g, **kw), torch, x, cfg, True)
     _assert_same(want, got)
 

@@ -11,8 +11,9 @@ import pytest
 
 import x265_tpu.encoder as ref_encoder
 from bench import synthetic_frame
-from x265_tpu.common.params import Params
+from x265_tpu.common.params import Params as RefParams
 from x265_tpu.decoder import decode_annexb
+from x265_tpu_torch import Params
 from x265_tpu_torch.encoder import ctu_scan_cuda, me_cuda
 from x265_tpu_torch.encoder.intra_encoder import Encoder
 
@@ -25,9 +26,9 @@ def _frames():
             for t in range(N)]
 
 
-def _params():
-    return Params(source_width=W, source_height=H, bframes=0, me_range=16,
-                  decoded_picture_hash=3)
+def _params(cls=Params):
+    return cls(source_width=W, source_height=H, bframes=0, me_range=16,
+               decoded_picture_hash=3)
 
 
 def _encode(enc):
@@ -40,7 +41,7 @@ def _encode(enc):
 
 
 def test_ipp_stream_is_byte_identical():
-    want, want_rec = _encode(ref_encoder.Encoder(_params()))
+    want, want_rec = _encode(ref_encoder.Encoder(_params(RefParams)))
     n1, n2 = ctu_scan_cuda.LAUNCHES, me_cuda.LAUNCHES
     got, got_rec = _encode(Encoder(_params(), device="cpu"))
     # CPU tensors: the plain versions ran, not the kernels

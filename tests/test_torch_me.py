@@ -15,8 +15,9 @@ import torch
 
 import x265_tpu.encoder as ref_encoder
 from bench import synthetic_frame
-from x265_tpu.common.params import Params
+from x265_tpu.common.params import Params as RefParams
 from x265_tpu.encoder.device_pipeline import _inter_tools_builder as ref_tools
+from x265_tpu_torch import Params
 from x265_tpu_torch.build import load_host_library
 from x265_tpu_torch.convert import planes_to_torch
 from x265_tpu_torch.encoder import device_pipeline as dp
@@ -42,9 +43,10 @@ def _scene():
 
 @pytest.mark.parametrize("subme", [0, 1, 2])
 def test_me_matches_reference(subme):
-    p = Params(source_width=W, source_height=H, bframes=0, me_range=16,
-               subme=subme)
-    er, ep = ref_encoder.Encoder(p), Encoder(p, device="cpu")
+    kw = dict(source_width=W, source_height=H, bframes=0, me_range=16,
+              subme=subme)
+    er = ref_encoder.Encoder(RefParams(**kw))
+    ep = Encoder(Params(**kw), device="cpu")
     assert er.me_coarse > 0          # the quarter-res seed stage runs
     orig, recon = _scene()
     ref_ext = er._extend_ref(recon)              # the reference's DPB entry

@@ -1,6 +1,7 @@
-"""x265_tpu_torch without JAX, as on the GPU machine: in a fresh process
-where ``import jax`` fails, the port imports and encodes a 64x64 I frame
-whose stream has the expected structure."""
+"""x265_tpu_torch without JAX and without x265_tpu, as on the GPU machine:
+in a fresh process where ``import jax`` and ``import x265_tpu`` both fail,
+the port imports and encodes a 128x64 I P pair on the CPU, and the stream
+has the expected structure."""
 
 import os
 import subprocess
@@ -11,22 +12,28 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCRIPT = r"""
 import sys
 sys.modules["jax"] = None          # any `import jax` now raises ImportError
+sys.modules["x265_tpu"] = None     # and so does any `import x265_tpu...`
 sys.path.insert(0, ROOT)
 import numpy as np
 import x265_tpu_torch
 from x265_tpu_torch import Encoder, Params
 from x265_tpu_torch.encoder import ctu_scan, device_pipeline, me_cuda
 rng = np.random.RandomState(0)
-planes = (rng.randint(0, 256, (64, 64)).astype(np.uint8),
-          rng.randint(0, 256, (32, 32)).astype(np.uint8),
-          rng.randint(0, 256, (32, 32)).astype(np.uint8))
-enc = Encoder(Params(source_width=64, source_height=64, bframes=0,
-                     decoded_picture_hash=3), device="cpu")
+y = rng.randint(0, 256, (64, 128)).astype(np.uint8)
+c = [rng.randint(0, 256, (32, 64)).astype(np.uint8) for _ in range(2)]
+enc = Encoder(Params(source_width=128, source_height=64, bframes=0,
+                     me_range=16, decoded_picture_hash=3), device="cpu")
 hdr = enc.headers()
-au, rec = enc.encode_frame(planes)
-assert hdr.startswith(b"\x00\x00\x00\x01") and len(au) > 100
-assert [p.shape for p in rec] == [(64, 64), (32, 32), (32, 32)]
-print("NOJAX-OK", len(hdr), len(au))
+aus = [enc.encode_frame((np.roll(y, 2 * t, axis=1), c[0], c[1]))
+       for t in range(2)]
+assert hdr.startswith(b"\x00\x00\x00\x01") and b"x265_tpu 0.1.0" in hdr
+for au, rec in aus:
+    assert au.startswith(b"\x00\x00\x00\x01") and len(au) > 100
+    assert [p.shape for p in rec] == [(64, 128), (32, 64), (32, 64)]
+assert [enc.last_slice_type_str] == ["P"]
+assert not any(m == "jax" or m.startswith(("jax.", "x265_tpu."))
+               for m in sys.modules if sys.modules[m] is not None)
+print("NOJAX-OK", len(hdr), [len(au) for au, _ in aus])
 """
 
 

@@ -22,6 +22,7 @@ from x265_tpu.ops import sao as r_sao
 from x265_tpu.ops import transforms as r_tr
 from x265_tpu_torch import convert
 from x265_tpu_torch.common import rdcost as p_rdcost
+from x265_tpu_torch.common.geometry import PictureGeometry as PGeometry
 from x265_tpu_torch.encoder import wavefront as p_wf
 from x265_tpu_torch.encoder.me_cuda import mv_bits, mv_bits_table
 from x265_tpu_torch.ops import cost as p_cost
@@ -171,7 +172,8 @@ def test_deblock_picture(inter):
             jnp.asarray(m) for m in motion_b))
     port = p_db.deblock_picture(
         tuple(_t(p) for p in (y, cb, cr)), _t(intra4), _t(cbf4), _t(mv4),
-        _t(use32), masks, *qps, 8, 1, -1,
+        _t(use32), p_db.edge_masks_np(PGeometry(176, 120, 6, 3), 6), *qps,
+        8, 1, -1,
         motion_b=None if motion_b is None else tuple(_t(m)
                                                      for m in motion_b))
     for a, b in zip(ref, port):
@@ -189,11 +191,12 @@ def test_sao(chroma):
     ctb = 32 if chroma else 64
     chh, cww = ph // ctb, pw // ctb
     eo, inside = r_sao.eo_valid_masks_np(ph, pw, pw - 8, ph - 8)
+    peo, pinside = p_sao.eo_valid_masks_np(ph, pw, pw - 8, ph - 8)
     ref = r_sao.sao_estimate_plane_jnp(jnp.asarray(orig), jnp.asarray(rec),
                                        chh, cww, ctb, jnp.asarray(eo),
                                        jnp.asarray(inside), 8)
-    port = p_sao.sao_estimate_plane(_t(orig), _t(rec), chh, cww, ctb, _t(eo),
-                                    _t(inside), 8)
+    port = p_sao.sao_estimate_plane(_t(orig), _t(rec), chh, cww, ctb,
+                                    _t(peo), _t(pinside), 8)
     for a, b in zip(ref, port):
         _eq(a, b)
     types = rng.randint(0, 3, (chh, cww)).astype(np.int32)
@@ -205,7 +208,7 @@ def test_sao(chroma):
                                   jnp.asarray(bpos), jnp.asarray(offs),
                                   jnp.asarray(eo), 8),
         p_sao.sao_apply_plane(_t(rec), chh, cww, ctb, _t(types), _t(classes),
-                              _t(bpos), _t(offs), _t(eo), 8))
+                              _t(bpos), _t(offs), _t(peo), 8))
 
 
 def test_mv_bits_table_is_jnp_under_jit():

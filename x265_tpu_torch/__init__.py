@@ -9,22 +9,25 @@ for the two hot loops that were Pallas kernels in ``x265_tpu``:
   * K2, the subpel motion refine (``encoder/me_cuda.py``,
     ``csrc/k2_subpel_refine.cu``), one launch per reference.
 
-Layout mirrors ``x265_tpu`` (``ops/``, ``encoder/``) with the same function
-names.  Host-only modules of ``x265_tpu`` that do not touch JAX (CABAC,
-headers, params, SEI, motion derivation, the native C serializer, the
-deblock/SAO numpy helpers) are imported as they are; host modules that
-``x265_tpu`` can only import together with JAX (the ``Encoder`` host
-logic, AQ, rate control, weightp, the CTU tables) are carried as copies.
+Layout mirrors ``x265_tpu`` (``ops/``, ``encoder/``, ``common/``,
+``cabac/``, ``native/``) with the same module and function names.  The
+port stands on its own: it imports nothing of ``x265_tpu``.  The host
+modules it needs (params, geometry, headers, SEI, level, the picture
+syntax arrays and CABAC context init, the native C serializer, the
+deblock/SAO tables, the ``Encoder`` host logic, AQ, rate control, weightp,
+the CTU tables) are copies, line for line where the stream depends on
+them; only the tests import both packages.
 
-Device policy: the device is always explicit — a ``torch.device`` passed by
-the caller (``"cuda"`` on the card, ``"cpu"`` in the tests), never a silent
-choice.  TF32 is switched off for matmul and cuDNN at import: every float
-product in the port is meant to be exact (integer operands) or IEEE float32.
+Device policy: ``Encoder`` runs on the card (``device="cuda"``) unless the
+caller asks for the CPU (``device="cpu"``, as the tests do); nothing falls
+back silently.  TF32 is switched off for matmul and cuDNN at import: every
+float product in the port is meant to be exact (integer operands) or IEEE
+float32.
 """
 
 import torch
 
-from x265_tpu.common.params import Params
+from .common.params import Params
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False

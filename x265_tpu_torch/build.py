@@ -1,8 +1,9 @@
 """Build and load the port's hand-written kernels (K1, K2).
 
-The sources under ``csrc/`` are compiled at first use into a shared library
-with a plain C interface, kept under ``_build/`` by a digest of the sources
-and flags, and loaded with ctypes.
+The sources under ``csrc/`` are compiled at first use (one compiler
+process per source, all started together, then one link) into a shared
+library with a plain C interface, kept under ``_build/`` by a digest of the
+sources and flags, and loaded with ctypes.
 
 * ``load_library()``: ``nvcc`` for Hopper (``sm_90a``), ``-O3`` and
   ``--fmad=false``, so that no float multiply and add are contracted behind
@@ -29,9 +30,8 @@ _DIR = os.path.dirname(os.path.abspath(__file__))
 _SRC_DIR = os.path.join(_DIR, "csrc")
 _BUILD_DIR = os.path.join(_DIR, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC"]
-HOST_FLAGS = ["-x", "c++", "-std=c++17", "-O2", "-ffp-contract=off",
-              "-shared", "-fPIC"]
+              "-O3", "--fmad=false", "-Xcompiler", "-fPIC"]
+HOST_FLAGS = ["-x", "c++", "-std=c++17", "-O2", "-ffp-contract=off", "-fPIC"]
 
 _LOCK = threading.Lock()
 _LIBS: dict = {}
@@ -44,6 +44,8 @@ def _sources() -> list:
 
 
 def _build(compiler: list, flags: list, tag: str) -> str:
+    """Compile every source to an object file, all compilers started
+    together, then link the shared library."""
     global BUILD_LOG
     srcs = _sources()
     h = hashlib.sha256(" ".join(compiler + flags).encode())
@@ -55,11 +57,24 @@ def _build(compiler: list, flags: list, tag: str) -> str:
         return so
     os.makedirs(_BUILD_DIR, exist_ok=True)
     tmp = f"{so}.tmp{os.getpid()}"
-    cmd = compiler + flags + ["-o", tmp] + srcs
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    BUILD_LOG = r.stdout + r.stderr
-    if r.returncode != 0:
-        raise RuntimeError(f"{compiler[0]} failed:\n" + BUILD_LOG[-8000:])
+    objs = [f"{tmp}.{os.path.basename(s)}.o" for s in srcs]
+    procs = [subprocess.Popen(compiler + flags + ["-c", "-o", o, s],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for s, o in zip(srcs, objs)]
+    logs = [p.communicate()[0] for p in procs]
+    BUILD_LOG = "".join(logs)
+    try:
+        if any(p.returncode for p in procs):
+            raise RuntimeError(f"{compiler[0]} failed:\n" + BUILD_LOG[-8000:])
+        r = subprocess.run(compiler + ["-shared", "-o", tmp] + objs,
+                           capture_output=True, text=True)
+        if r.returncode != 0:
+            raise RuntimeError(f"{compiler[0]} link failed:\n"
+                               + (r.stdout + r.stderr)[-8000:])
+    finally:
+        for o in objs:
+            if os.path.exists(o):
+                os.remove(o)
     os.replace(tmp, so)
     return so
 

@@ -1,0 +1,584 @@
+"""HEVC parameter sets and slice headers (ITU-T H.265 §7.3.2) — the
+writer side of ``x265_tpu/common/headers.py``, copied line for line.
+"""
+
+from __future__ import annotations
+
+
+from dataclasses import dataclass, field
+
+from .bitstream import BitWriter
+
+# slice types (H.265 Table 7-7)
+SLICE_B, SLICE_P, SLICE_I = 0, 1, 2
+
+
+# ---------------------------------------------------------------------------
+# Profile / tier / level
+# ---------------------------------------------------------------------------
+
+@dataclass
+class ProfileTierLevel:
+    profile_idc: int = 1            # 1=Main, 2=Main10
+    tier_flag: int = 0
+    level_idc: int = 120            # level 4.0 (x30)
+    progressive_source: int = 1
+    interlaced_source: int = 0
+    non_packed_constraint: int = 0
+    frame_only_constraint: int = 1
+
+
+def write_ptl(bw: BitWriter, ptl: ProfileTierLevel, max_sub_layers: int = 1):
+    bw.write(0, 2)                      # general_profile_space
+    bw.write_flag(ptl.tier_flag)        # general_tier_flag
+    bw.write(ptl.profile_idc, 5)        # general_profile_idc
+    compat = [0] * 32
+    compat[ptl.profile_idc] = 1
+    if ptl.profile_idc == 1:
+        compat[2] = 1                   # Main streams also conform to Main10
+    for b in compat:
+        bw.write_flag(b)
+    bw.write_flag(ptl.progressive_source)
+    bw.write_flag(ptl.interlaced_source)
+    bw.write_flag(ptl.non_packed_constraint)
+    bw.write_flag(ptl.frame_only_constraint)
+    bw.write(0, 32)                     # general_reserved_zero_44bits
+    bw.write(0, 12)
+    bw.write(ptl.level_idc, 8)          # general_level_idc
+    for _ in range(max_sub_layers - 1):
+        bw.write_flag(0)                # sub_layer_profile_present_flag
+        bw.write_flag(0)                # sub_layer_level_present_flag
+    if max_sub_layers > 1:
+        for _ in range(max_sub_layers - 1, 8):
+            bw.write(0, 2)              # reserved_zero_2bits
+
+
+# ---------------------------------------------------------------------------
+# VPS
+# ---------------------------------------------------------------------------
+
+@dataclass
+class VPS:
+    vps_id: int = 0
+    max_sub_layers: int = 1
+    temporal_id_nesting: int = 1
+    ptl: ProfileTierLevel = field(default_factory=ProfileTierLevel)
+    max_dec_pic_buffering: int = 4   # minus1 coded
+    num_reorder_pics: int = 0
+    max_latency_increase: int = 0    # plus1 coded
+
+
+def write_vps(vps: VPS) -> bytes:
+    bw = BitWriter()
+    bw.write(vps.vps_id, 4)
+    bw.write(3, 2)                      # vps_base_layer_internal/available (reserved 11)
+    bw.write(0, 6)                      # vps_max_layers_minus1
+    bw.write(vps.max_sub_layers - 1, 3)
+    bw.write_flag(vps.temporal_id_nesting)
+    bw.write(0xFFFF, 16)                # vps_reserved_0xffff_16bits
+    write_ptl(bw, vps.ptl, vps.max_sub_layers)
+    bw.write_flag(1)                    # vps_sub_layer_ordering_info_present_flag
+    for _ in range(vps.max_sub_layers):
+        bw.write_ue(vps.max_dec_pic_buffering - 1)
+        bw.write_ue(vps.num_reorder_pics)
+        bw.write_ue(vps.max_latency_increase)
+    bw.write(0, 6)                      # vps_max_layer_id
+    bw.write_ue(0)                      # vps_num_layer_sets_minus1
+    bw.write_flag(0)                    # vps_timing_info_present_flag
+    bw.write_flag(0)                    # vps_extension_flag
+    bw.rbsp_trailing_bits()
+    return bw.getvalue()
+
+
+# ---------------------------------------------------------------------------
+# Short-term reference picture sets
+# ---------------------------------------------------------------------------
+
+@dataclass
+class ShortTermRPS:
+    """Negative/positive delta-POC sets (H.265 §7.3.7, explicit form only)."""
+    delta_pocs_s0: list = field(default_factory=list)   # negative, in decreasing POC order
+    used_s0: list = field(default_factory=list)
+    delta_pocs_s1: list = field(default_factory=list)   # positive, increasing
+    used_s1: list = field(default_factory=list)
+
+    @property
+    def num_negative(self):
+        return len(self.delta_pocs_s0)
+
+    @property
+    def num_positive(self):
+        return len(self.delta_pocs_s1)
+
+
+def write_strps(bw: BitWriter, rps: ShortTermRPS, idx: int, num_sets: int):
+    if idx > 0:
+        bw.write_flag(0)  # inter_ref_pic_set_prediction_flag (explicit only)
+    bw.write_ue(rps.num_negative)
+    bw.write_ue(rps.num_positive)
+    prev = 0
+    for d, u in zip(rps.delta_pocs_s0, rps.used_s0):
+        bw.write_ue(prev - d - 1)       # delta_poc_s0_minus1
+        prev = d
+        bw.write_flag(u)
+    prev = 0
+    for d, u in zip(rps.delta_pocs_s1, rps.used_s1):
+        bw.write_ue(d - prev - 1)       # delta_poc_s1_minus1
+        prev = d
+        bw.write_flag(u)
+
+
+# ---------------------------------------------------------------------------
+# SPS
+# ---------------------------------------------------------------------------
+
+@dataclass
+class SPS:
+    sps_id: int = 0
+    vps_id: int = 0
+    max_sub_layers: int = 1
+    temporal_id_nesting: int = 1
+    ptl: ProfileTierLevel = field(default_factory=ProfileTierLevel)
+    chroma_format_idc: int = 1      # 4:2:0
+    pic_width: int = 0              # luma samples (coded, multiple of minCU)
+    pic_height: int = 0
+    conf_win: tuple = (0, 0, 0, 0)  # left, right, top, bottom (in chroma units)
+    bit_depth_luma: int = 8
+    bit_depth_chroma: int = 8
+    log2_max_poc_lsb: int = 8
+    max_dec_pic_buffering: int = 4
+    num_reorder_pics: int = 0
+    max_latency_increase: int = 0
+    log2_min_cb_size: int = 3
+    log2_ctb_size: int = 6
+    log2_min_tb_size: int = 2
+    log2_max_tb_size: int = 5
+    max_transform_hierarchy_depth_inter: int = 0
+    max_transform_hierarchy_depth_intra: int = 0
+    scaling_list_enabled: int = 0
+    amp_enabled: int = 0
+    sao_enabled: int = 0
+    pcm_enabled: int = 0
+    short_term_rps: list = field(default_factory=list)  # list[ShortTermRPS]
+    long_term_ref_pics_present: int = 0
+    temporal_mvp_enabled: int = 0
+    strong_intra_smoothing: int = 1
+    vui_present: int = 0
+    vui_timing_present: int = 0
+    fps_num: int = 25
+    fps_denom: int = 1
+    # VUI signaling (Annex E; x265 --sar/--range/--colorprim/--transfer/
+    # --colormatrix/--chromaloc/--videoformat)
+    sar_width: int = 0
+    sar_height: int = 0
+    video_format: int = 5
+    video_full_range: bool = False
+    colour_description_present: bool = False
+    colour_primaries: int = 2
+    transfer_characteristics: int = 2
+    matrix_coeffs: int = 2
+    chroma_loc_top: int = 0
+    chroma_loc_bottom: int = 0
+    # HRD (Annex E.2.2; populated by the encoder's initHRD analogue,
+    # x265 ratecontrol.cpp:618)
+    hrd_present: bool = False
+    hrd_bit_rate_scale: int = 0
+    hrd_bit_rate_value: int = 0
+    hrd_cpb_size_scale: int = 0
+    hrd_cpb_size_value: int = 0
+    hrd_cbr: bool = False
+    hrd_initial_cpb_len: int = 24
+    hrd_cpb_removal_len: int = 24
+    hrd_dpb_output_len: int = 24
+
+    # derived
+    @property
+    def ctb_size(self):
+        return 1 << self.log2_ctb_size
+
+    @property
+    def pic_width_in_ctbs(self):
+        return (self.pic_width + self.ctb_size - 1) >> self.log2_ctb_size
+
+    @property
+    def pic_height_in_ctbs(self):
+        return (self.pic_height + self.ctb_size - 1) >> self.log2_ctb_size
+
+
+def write_sps(sps: SPS) -> bytes:
+    bw = BitWriter()
+    bw.write(sps.vps_id, 4)
+    bw.write(sps.max_sub_layers - 1, 3)
+    bw.write_flag(sps.temporal_id_nesting)
+    write_ptl(bw, sps.ptl, sps.max_sub_layers)
+    bw.write_ue(sps.sps_id)
+    bw.write_ue(sps.chroma_format_idc)
+    if sps.chroma_format_idc == 3:
+        bw.write_flag(0)                # separate_colour_plane_flag
+    bw.write_ue(sps.pic_width)
+    bw.write_ue(sps.pic_height)
+    cw = sps.conf_win
+    if any(cw):
+        bw.write_flag(1)
+        for v in cw:
+            bw.write_ue(v)
+    else:
+        bw.write_flag(0)
+    bw.write_ue(sps.bit_depth_luma - 8)
+    bw.write_ue(sps.bit_depth_chroma - 8)
+    bw.write_ue(sps.log2_max_poc_lsb - 4)
+    bw.write_flag(1)                    # sps_sub_layer_ordering_info_present
+    for _ in range(sps.max_sub_layers):
+        bw.write_ue(sps.max_dec_pic_buffering - 1)
+        bw.write_ue(sps.num_reorder_pics)
+        bw.write_ue(sps.max_latency_increase)
+    bw.write_ue(sps.log2_min_cb_size - 3)
+    bw.write_ue(sps.log2_ctb_size - sps.log2_min_cb_size)
+    bw.write_ue(sps.log2_min_tb_size - 2)
+    bw.write_ue(sps.log2_max_tb_size - sps.log2_min_tb_size)
+    bw.write_ue(sps.max_transform_hierarchy_depth_inter)
+    bw.write_ue(sps.max_transform_hierarchy_depth_intra)
+    bw.write_flag(sps.scaling_list_enabled)
+    if sps.scaling_list_enabled:
+        bw.write_flag(0)                # sps_scaling_list_data_present (use defaults)
+    bw.write_flag(sps.amp_enabled)
+    bw.write_flag(sps.sao_enabled)
+    bw.write_flag(sps.pcm_enabled)
+    bw.write_ue(len(sps.short_term_rps))
+    for i, rps in enumerate(sps.short_term_rps):
+        write_strps(bw, rps, i, len(sps.short_term_rps))
+    bw.write_flag(sps.long_term_ref_pics_present)
+    bw.write_flag(sps.temporal_mvp_enabled)
+    bw.write_flag(sps.strong_intra_smoothing)
+    bw.write_flag(sps.vui_present)
+    if sps.vui_present:
+        _write_vui(bw, sps)
+    bw.write_flag(0)                    # sps_extension_present_flag
+    bw.rbsp_trailing_bits()
+    return bw.getvalue()
+
+
+def _write_vui(bw: BitWriter, sps: SPS):
+    """VUI parameters (Annex E.2.1; x265 entropy.cpp:242 codeVUI):
+    sample aspect ratio, video signal type (format/range/color
+    description) and chroma sample location in addition to timing."""
+    sar_present = bool(sps.sar_width and sps.sar_height)
+    if sar_present:
+        bw.write_flag(1)
+        # Table E-1 standard ratios; 255 = EXTENDED_SAR
+        SARS = [(0, 0), (1, 1), (12, 11), (10, 11), (16, 11), (40, 33),
+                (24, 11), (20, 11), (32, 11), (80, 33), (18, 11),
+                (15, 11), (64, 33), (160, 99), (4, 3), (3, 2), (2, 1)]
+        sar = (sps.sar_width, sps.sar_height)
+        idc = SARS.index(sar) if sar in SARS else 255
+        bw.write(idc, 8)
+        if idc == 255:
+            bw.write(sps.sar_width, 16)
+            bw.write(sps.sar_height, 16)
+    else:
+        bw.write_flag(0)                # aspect_ratio_info_present
+    bw.write_flag(0)                    # overscan_info_present
+    signal_present = (sps.video_format != 5 or sps.video_full_range
+                      or sps.colour_description_present)
+    bw.write_flag(int(signal_present))
+    if signal_present:
+        bw.write(sps.video_format, 3)
+        bw.write_flag(int(sps.video_full_range))
+        bw.write_flag(int(sps.colour_description_present))
+        if sps.colour_description_present:
+            bw.write(sps.colour_primaries, 8)
+            bw.write(sps.transfer_characteristics, 8)
+            bw.write(sps.matrix_coeffs, 8)
+    if sps.chroma_loc_top or sps.chroma_loc_bottom:
+        bw.write_flag(1)                # chroma_loc_info_present
+        bw.write_ue(sps.chroma_loc_top)
+        bw.write_ue(sps.chroma_loc_bottom)
+    else:
+        bw.write_flag(0)
+    bw.write_flag(0)                    # neutral_chroma_indication
+    bw.write_flag(0)                    # field_seq_flag
+    bw.write_flag(0)                    # frame_field_info_present
+    bw.write_flag(0)                    # default_display_window
+    bw.write_flag(sps.vui_timing_present)
+    if sps.vui_timing_present:
+        bw.write(sps.fps_denom, 32)     # vui_num_units_in_tick
+        bw.write(sps.fps_num, 32)       # vui_time_scale
+        bw.write_flag(0)                # vui_poc_proportional_to_timing
+        bw.write_flag(int(sps.hrd_present))   # vui_hrd_parameters_present
+        if sps.hrd_present:
+            _write_hrd(bw, sps)
+    bw.write_flag(0)                    # bitstream_restriction_flag
+
+
+def _write_hrd(bw: BitWriter, sps: SPS):
+    """hrd_parameters (Annex E.2.2) for one temporal layer — the exact
+    field set x265 emits (entropy.cpp:347 codeHrdParameters): NAL HRD
+    only, no sub-pic parameters, fixed picture rate, one CPB."""
+    bw.write_flag(1)                    # nal_hrd_parameters_present
+    bw.write_flag(0)                    # vcl_hrd_parameters_present
+    bw.write_flag(0)                    # sub_pic_hrd_params_present
+    bw.write(sps.hrd_bit_rate_scale, 4)
+    bw.write(sps.hrd_cpb_size_scale, 4)
+    bw.write(sps.hrd_initial_cpb_len - 1, 5)
+    bw.write(sps.hrd_cpb_removal_len - 1, 5)
+    bw.write(sps.hrd_dpb_output_len - 1, 5)
+    for _ in range(sps.max_sub_layers):
+        bw.write_flag(1)                # fixed_pic_rate_general_flag
+        bw.write_ue(0)                  # elemental_duration_in_tc_minus1
+        bw.write_ue(0)                  # cpb_cnt_minus1
+        bw.write_ue(sps.hrd_bit_rate_value - 1)
+        bw.write_ue(sps.hrd_cpb_size_value - 1)
+        bw.write_flag(int(sps.hrd_cbr))
+
+
+# ---------------------------------------------------------------------------
+# PPS
+# ---------------------------------------------------------------------------
+
+@dataclass
+class PPS:
+    pps_id: int = 0
+    sps_id: int = 0
+    dependent_slice_segments: int = 0
+    output_flag_present: int = 0
+    num_extra_slice_header_bits: int = 0
+    sign_data_hiding: int = 0
+    cabac_init_present: int = 0
+    num_ref_idx_l0_default: int = 1
+    num_ref_idx_l1_default: int = 1
+    init_qp: int = 26
+    constrained_intra_pred: int = 0
+    transform_skip_enabled: int = 0
+    cu_qp_delta_enabled: int = 0
+    diff_cu_qp_delta_depth: int = 0
+    cb_qp_offset: int = 0
+    cr_qp_offset: int = 0
+    slice_chroma_qp_offsets_present: int = 0
+    weighted_pred: int = 0
+    weighted_bipred: int = 0
+    transquant_bypass_enabled: int = 0
+    tiles_enabled: int = 0
+    entropy_coding_sync_enabled: int = 0
+    loop_filter_across_slices: int = 1
+    deblocking_filter_control_present: int = 0
+    deblocking_filter_override_enabled: int = 0
+    deblocking_filter_disabled: int = 0
+    beta_offset_div2: int = 0
+    tc_offset_div2: int = 0
+    scaling_list_data_present: int = 0
+    lists_modification_present: int = 0
+    log2_parallel_merge_level: int = 2
+    slice_segment_header_extension_present: int = 0
+
+
+def write_pps(pps: PPS) -> bytes:
+    bw = BitWriter()
+    bw.write_ue(pps.pps_id)
+    bw.write_ue(pps.sps_id)
+    bw.write_flag(pps.dependent_slice_segments)
+    bw.write_flag(pps.output_flag_present)
+    bw.write(pps.num_extra_slice_header_bits, 3)
+    bw.write_flag(pps.sign_data_hiding)
+    bw.write_flag(pps.cabac_init_present)
+    bw.write_ue(pps.num_ref_idx_l0_default - 1)
+    bw.write_ue(pps.num_ref_idx_l1_default - 1)
+    bw.write_se(pps.init_qp - 26)
+    bw.write_flag(pps.constrained_intra_pred)
+    bw.write_flag(pps.transform_skip_enabled)
+    bw.write_flag(pps.cu_qp_delta_enabled)
+    if pps.cu_qp_delta_enabled:
+        bw.write_ue(pps.diff_cu_qp_delta_depth)
+    bw.write_se(pps.cb_qp_offset)
+    bw.write_se(pps.cr_qp_offset)
+    bw.write_flag(pps.slice_chroma_qp_offsets_present)
+    bw.write_flag(pps.weighted_pred)
+    bw.write_flag(pps.weighted_bipred)
+    bw.write_flag(pps.transquant_bypass_enabled)
+    bw.write_flag(pps.tiles_enabled)
+    bw.write_flag(pps.entropy_coding_sync_enabled)
+    bw.write_flag(pps.loop_filter_across_slices)
+    bw.write_flag(pps.deblocking_filter_control_present)
+    if pps.deblocking_filter_control_present:
+        bw.write_flag(pps.deblocking_filter_override_enabled)
+        bw.write_flag(pps.deblocking_filter_disabled)
+        if not pps.deblocking_filter_disabled:
+            bw.write_se(pps.beta_offset_div2)
+            bw.write_se(pps.tc_offset_div2)
+    bw.write_flag(pps.scaling_list_data_present)
+    bw.write_flag(pps.lists_modification_present)
+    bw.write_ue(pps.log2_parallel_merge_level - 2)
+    bw.write_flag(pps.slice_segment_header_extension_present)
+    bw.write_flag(0)                    # pps_extension_present_flag
+    bw.rbsp_trailing_bits()
+    return bw.getvalue()
+
+
+# ---------------------------------------------------------------------------
+# Slice segment header
+# ---------------------------------------------------------------------------
+
+@dataclass
+class SliceHeader:
+    first_slice_in_pic: int = 1
+    no_output_of_prior_pics: int = 0
+    pps_id: int = 0
+    slice_type: int = SLICE_I
+    pic_order_cnt_lsb: int = 0
+    rps: ShortTermRPS | None = None     # None for IDR
+    rps_sps_idx: int | None = None      # use SPS RPS by index if set
+    sao_luma: int = 0
+    sao_chroma: int = 0
+    num_ref_idx_l0: int = 1
+    num_ref_idx_l1: int = 1
+    num_ref_idx_active_override: int = 0
+    temporal_mvp_enabled: int = 0
+    collocated_from_l0: int = 1
+    collocated_ref_idx: int = 0
+    mvd_l1_zero: int = 0
+    cabac_init_flag: int = 0
+    max_num_merge_cand: int = 5
+    slice_qp: int = 26
+    slice_qp_delta_base: int = 26       # = pps.init_qp when writing
+    deblocking_filter_override: int = 0
+    deblocking_filter_disabled: int = 0
+    beta_offset_div2: int = 0
+    tc_offset_div2: int = 0
+    loop_filter_across_slices: int = 1
+    entry_points: list = field(default_factory=list)  # WPP substream byte sizes
+    slice_segment_address: int = 0
+    dependent_slice: int = 0
+    # pred_weight_table (§7.3.6.3), entries per l0/l1 ref:
+    # (luma_flag, w, o, chroma_flag, wcb, ocb, wcr, ocr)
+    luma_log2_weight_denom: int = 0
+    chroma_log2_weight_denom: int = 0
+    weights_l0: list = field(default_factory=list)
+    weights_l1: list = field(default_factory=list)
+
+
+def write_slice_header(sh: SliceHeader, sps: SPS, pps: PPS, nal_type: int,
+                       bw: BitWriter | None = None) -> BitWriter:
+    from .bitstream import NAL_BLA_W_LP, NAL_CRA_NUT, NAL_IDR_W_RADL, NAL_IDR_N_LP
+    if bw is None:
+        bw = BitWriter()
+    is_irap = NAL_BLA_W_LP <= nal_type <= 23
+    is_idr = nal_type in (NAL_IDR_W_RADL, NAL_IDR_N_LP)
+    bw.write_flag(sh.first_slice_in_pic)
+    if is_irap:
+        bw.write_flag(sh.no_output_of_prior_pics)
+    bw.write_ue(sh.pps_id)
+    if not sh.first_slice_in_pic:
+        if pps.dependent_slice_segments:
+            bw.write_flag(sh.dependent_slice)
+        n_ctbs = sps.pic_width_in_ctbs * sps.pic_height_in_ctbs
+        bw.write(sh.slice_segment_address, max(1, (n_ctbs - 1).bit_length()))
+    if not sh.dependent_slice:
+        for _ in range(pps.num_extra_slice_header_bits):
+            bw.write_flag(0)
+        bw.write_ue(sh.slice_type)
+        if pps.output_flag_present:
+            bw.write_flag(1)
+        if not is_idr:
+            bw.write(sh.pic_order_cnt_lsb, sps.log2_max_poc_lsb)
+            if sh.rps_sps_idx is not None and sps.short_term_rps:
+                bw.write_flag(1)        # short_term_ref_pic_set_sps_flag
+                nbits = max(1, (len(sps.short_term_rps) - 1).bit_length())
+                if len(sps.short_term_rps) > 1:
+                    bw.write(sh.rps_sps_idx, nbits)
+            else:
+                bw.write_flag(0)
+                write_strps(bw, sh.rps, len(sps.short_term_rps),
+                            len(sps.short_term_rps) + 1)
+            if sps.long_term_ref_pics_present:
+                raise NotImplementedError
+            if sps.temporal_mvp_enabled:
+                bw.write_flag(sh.temporal_mvp_enabled)
+        if sps.sao_enabled:
+            bw.write_flag(sh.sao_luma)
+            bw.write_flag(sh.sao_chroma)
+        if sh.slice_type != SLICE_I:
+            override = sh.num_ref_idx_active_override
+            bw.write_flag(override)
+            if override:
+                bw.write_ue(sh.num_ref_idx_l0 - 1)
+                if sh.slice_type == SLICE_B:
+                    bw.write_ue(sh.num_ref_idx_l1 - 1)
+            if pps.lists_modification_present:
+                raise NotImplementedError
+            if sh.slice_type == SLICE_B:
+                bw.write_flag(sh.mvd_l1_zero)
+            if pps.cabac_init_present:
+                bw.write_flag(sh.cabac_init_flag)
+            if sh.temporal_mvp_enabled:
+                if sh.slice_type == SLICE_B:
+                    bw.write_flag(sh.collocated_from_l0)
+                refs = sh.num_ref_idx_l0 if sh.collocated_from_l0 else sh.num_ref_idx_l1
+                if refs > 1:
+                    bw.write_ue(sh.collocated_ref_idx)
+            if (pps.weighted_pred and sh.slice_type == SLICE_P) or \
+               (pps.weighted_bipred and sh.slice_type == SLICE_B):
+                write_pred_weight_table(bw, sh)
+            bw.write_ue(5 - sh.max_num_merge_cand)
+        bw.write_se(sh.slice_qp - pps.init_qp)
+        if pps.slice_chroma_qp_offsets_present:
+            bw.write_se(0)
+            bw.write_se(0)
+        if pps.deblocking_filter_control_present:
+            if pps.deblocking_filter_override_enabled:
+                bw.write_flag(sh.deblocking_filter_override)
+            if sh.deblocking_filter_override:
+                bw.write_flag(sh.deblocking_filter_disabled)
+                if not sh.deblocking_filter_disabled:
+                    bw.write_se(sh.beta_offset_div2)
+                    bw.write_se(sh.tc_offset_div2)
+        # presence condition uses the EFFECTIVE deblock state (override or
+        # PPS-level), matching the parse side and §7.3.6.1
+        eff_disabled = (sh.deblocking_filter_disabled
+                        if sh.deblocking_filter_override
+                        else pps.deblocking_filter_disabled)
+        if pps.loop_filter_across_slices and \
+           (sh.sao_luma or sh.sao_chroma or not eff_disabled):
+            bw.write_flag(sh.loop_filter_across_slices)
+    if pps.tiles_enabled or pps.entropy_coding_sync_enabled:
+        bw.write_ue(len(sh.entry_points))
+        if sh.entry_points:
+            max_len = max(sh.entry_points)
+            nbits = max(1, max_len.bit_length())
+            bw.write_ue(nbits - 1)      # offset_len_minus1
+            for ep in sh.entry_points:
+                bw.write(ep - 1, nbits)  # entry_point_offset_minus1
+    if pps.slice_segment_header_extension_present:
+        bw.write_ue(0)
+    bw.byte_alignment()
+    return bw
+
+
+DEFAULT_WEIGHT = (0, 64, 0, 0, 64, 0, 64, 0)  # flags off -> unity weights
+
+
+def write_pred_weight_table(bw: BitWriter, sh: SliceHeader) -> None:
+    """§7.3.6.3 / x265 entropy.cpp:1088 codePredWeightTable.  Entries:
+    (luma_flag, w, o, chroma_flag, wcb, ocb, wcr, ocr); weights are in
+    denom units, offsets in pixel units (8-bit domain)."""
+    d = sh.luma_log2_weight_denom
+    dc = sh.chroma_log2_weight_denom
+    bw.write_ue(d)
+    lists = [sh.weights_l0]
+    if sh.slice_type == SLICE_B:
+        lists.append(sh.weights_l1)
+    bw.write_se(dc - d)
+    for lst in lists:
+        for (lf, _w, _o, cf, *_rest) in lst:
+            bw.write_flag(lf)
+        for (_lf, _w, _o, cf, *_rest) in lst:
+            bw.write_flag(cf)
+        for (lf, w, o, cf, wcb, ocb, wcr, ocr) in lst:
+            if lf:
+                bw.write_se(w - (1 << d))
+                bw.write_se(o)
+            if cf:
+                for wc, oc in ((wcb, ocb), (wcr, ocr)):
+                    bw.write_se(wc - (1 << dc))
+                    # delta_chroma_offset prediction (§7.4.7.3)
+                    pred = 128 - ((128 * wc) >> dc)
+                    bw.write_se(oc - pred)
+

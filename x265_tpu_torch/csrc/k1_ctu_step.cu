@@ -6,28 +6,56 @@
 // in x265_tpu_torch/encoder/ctu_scan.py; every output of one launch equals
 // one call of that step.
 //
-// One thread block per lane CTU of the level.  The lane's reconstruction
-// buffers -- luma C [97][129] and chroma Cc [2][49][65], row 0 / column 0
-// seeded from the frontiers -- stay in shared memory for the whole CTU
-// (sizeof(K1Smem) = 132,516 bytes with the work buffers, dynamic shared
-// memory), and the 4 quads x 4 slots run in z-order inside the block:
-//   quad: 32x32 luma intra candidate (strong smoothing), TU32 chain, the
-//         16x16 chroma candidates;
-//   slot: 16x16 luma prediction (intra mode or the inter prediction), TU16
-//         chain, 8x8 chroma prediction and TU8 chains, recon into C / Cc,
-//         the 16x16 RD cost (+ psy);
-//   quad: cost32 vs cost16, the inter TU32 trial of merged quads, the
-//         choice written into C / Cc.
-// Angular prediction is the spec formula per pixel; transforms, quant,
-// sign hiding and dequant are integer loops.  Float costs round as the
-// reference's: SSD and bit counts converted to float32, sums in the
-// plain step's order, `lam * bits` and `plam * psy` fused (KFMA), and the
-// file is compiled with --fmad=false so nothing else is contracted.
-//
-// What bounds it on an H100: a level has at most 15 lanes (15 of 132 SMs
-// busy), and each block walks ~60 dependent stages separated by barriers,
-// so it is latency-bound; the bytes (~60 KB of inputs per lane, counted
-// from the shapes) are negligible.
+// One 768-thread block per lane CTU of the level.  What bounds it on an
+// H100: a level has at most 15 lanes (15 of 132 SMs busy) and each lane is
+// one long chain of dependent stages, so the kernel is bound by the latency
+// of one CTU; its bytes (~120 KB a lane) would take ~0.5 us a level at the
+// card's memory rate, and its transforms' multiply-adds less (chip_smoke.py
+// computes the bound of a launch).  The design shortens that chain
+// (tools/profile_k1_stages.py stamps every barrier of it):
+//   * staging: the lane's original samples (in the quads' tiling, which the
+//     16x16 slots index as sub-blocks), inter predictions and the packed
+//     transform matrices arrive by bulk asynchronous copies (TMA,
+//     cp.async.bulk on an mbarrier) issued by one thread, the availability
+//     flags by 4-byte cp.async; the others clear the recon buffers and load
+//     the frontiers; nothing is read from global memory after that;
+//   * one joint TU chain per candidate: the luma block and its two chroma
+//     blocks go through forward rows, forward columns + quant, sign hiding
+//     (ballots over the 16 lanes of a 4x4 group) + dequant + bit counts,
+//     inverse columns, inverse rows + recon + SSD -- five barriers -- with
+//     one element per thread in every pass;
+//   * the transforms as int16 x int8 dot products (dp2a, two multiply-adds
+//     an instruction) on int16 work buffers, the DCT matrices as bytes in
+//     the layout each pass reads, shared rows broadcast and the other
+//     operand at consecutive words: no bank conflicts;
+//   * two teams of warps: while 12 warps run the quad's four 16x16 slots
+//     (384 chain elements, one a thread), the other 12 run its 32x32 intra
+//     candidate, each team on its own named barrier (both read only the
+//     quad's neighbours and write disjoint buffers); the inter TU32 trial,
+//     the psy terms and the decision then run on the whole block;
+//   * reference preparation on one warp per plane, in registers: the
+//     gather, the substitution by ballots and shuffles, the [1 2 1] filter
+//     or strong smoothing by shuffles, the DC sum as a warp sum;
+//   * the psy energy of all the quad's chains in one pass, 8 threads per
+//     8x8 tile, columns through shuffles;
+//   * RD sums kept in registers, summed per warp (__reduce_add_sync), and
+//     turned into float costs by one lane per chain in the plain step's
+//     order (SSD and bit counts to float32, `lam * bits` and `plam * psy`
+//     fused, the file compiled with --fmad=false so nothing else is
+//     contracted);
+//   * the recon buffers C / Cc are int16, and the new frontier rows,
+//     columns and corners are written in place: a level's lanes lie on
+//     cx + 2 cy = const, so a lane writes rowf[cx], colf[cy] and
+//     corn[cx + 1][cy & 1], which no other real lane of the level reads
+//     (dummy lanes, cx == cw, all compute the same values from nothing but
+//     padding, and no real lane depends on what they write).
+// The int16 buffers hold what the plain step holds in int32: residuals of
+// 8-bit samples and predictions, the forward rows' outputs (at most
+// 255 * 64 * n >> (log2 n - 1) = 32640), clipped dequant levels and
+// inverse outputs.
+// Per quad: 7 block barriers for the 32x32 intra candidate, 7 per 16x16
+// slot (5 for an inter slot), 6 for the inter TU32 trial, 3 for the
+// decision and the write-back.
 
 #include "k_common.cuh"
 
@@ -37,10 +65,19 @@
 #define K1_SIGN_HIDE 8
 #define K1_STRONG 16
 
+#define K1_THREADS 768
+#define K1_MAXWARPS (K1_THREADS / 32)
+// warps of the team that runs the 16x16 slots (one chain element a
+// thread); the other 12 run the 32x32 intra candidate meanwhile
+#define K1_SLOT_WARPS 12
+
 #define CH_ 97
 #define CW_ 129
 #define CHC 49
 #define CWC 65
+// the recon buffers' sizes in shorts, rounded up to 16 bytes
+#define K1_CN ((CH_ * CW_ + 7) / 8 * 8)
+#define K1_CCN ((2 * CHC * CWC + 7) / 8 * 8)
 
 __constant__ static const int k1_angles[33] = {
     32, 26, 21, 17, 13, 9, 5, 2, 0, -2, -5, -9, -13, -17, -21, -26, -32,
@@ -48,48 +85,124 @@ __constant__ static const int k1_angles[33] = {
 __constant__ static const int k1_qs[6] = {26214, 23302, 20560,
                                           18396, 16384, 14564};
 __constant__ static const int k1_iqs[6] = {40, 45, 51, 57, 64, 72};
-// rank of (x, y) in the 4x4 up-right diagonal scan, row-major [y][x]
-__constant__ static const int k1_diag4_rank[16] = {0, 2, 5, 9,  1,  4,  8,  12,
-                                                   3, 7, 11, 14, 6, 10, 13, 15};
 
 struct K1Args {
   const int *cx, *cy, *m16, *m32, *qp_y, *qp_cb, *qp_cr;
-  const int *o16y, *o8c, *o32y, *o16cb, *o16cr;
+  const int *o32y, *o16cb, *o16cr;
   const u8 *l16_av, *c8_av, *l32_av, *c16_av, *quad_ok;
   const float *lam, *plam;
   const u8 *use32, *inter;
   const int *ipy, *ipc;
   const u8* m32in;
-  const int *rowf, *colf, *cornf, *rowfb, *colfb, *cornfb, *rowfr, *colfr,
-      *cornfr;
+  const int *rowf, *colf, *rowfb, *colfb, *rowfr, *colfr;
+  int *cornf, *cornfb, *cornfr;
   int *lv16, *lv8, *lv32, *lvc16, *sel32, *int_y, *int_c;
   int *nrowf, *ncolf, *nrowfb, *ncolfb, *nrowfr, *ncolfr;
-  const int* T32;
+  const int* Tp;  // the packed transform matrices (see K1Smem::Tp)
   int L, cw, ch, flags;
 };
 
+// chains of one quad: the 32x32 candidate, four slots, the TU32 trial
+#define K1_NCHAIN 6
+
 struct K1Smem {
-  int C[CH_ * CW_];
-  int Cc[2 * CHC * CWC];
-  int T[1024];
-  int r[3][132], rf[3][132];  // substituted / prediction references
-  int dc[3];
-  int P32[1024], LV32[1024], R32[1024];
-  int PC[512], LVC[512], RC[512];
-  int IP32[1024], IPC[512];  // the quad's slot predictions, joined
-  int LV32I[1024], R32I[1024], LVCI[512], RCI[512];
-  int P16[256], LV16[256], R16[256];
-  int P8[128], LV8[128], R8[128];
-  int wa[1024], wb[1024];
-  int acc[8];
-  float cost32, cost16;
-  int any_inter;
+  // staged inputs (bulk copies: 16-byte aligned, sizes multiples of 16);
+  // the original samples in the quads' tiling only: slot sl of quad q is
+  // the sub-block at x = 16 (sl & 1), y = 16 (sl >> 1) of o32y's tile q and
+  // at half that in o16c's tiles
+  alignas(16) int o32y[4096];  // [quad][32][32]
+  alignas(16) int o16c[2048];  // [cb, cr][quad][16][16]
+  alignas(16) int ipy[4096];   // [slot][16][16]
+  alignas(16) int ipc[2048];   // [slot][cb, cr][8][8]
+  // the DCT matrices T8 | T16 | T32 as signed bytes, four to a word, in
+  // the four layouts of the transform passes (k1_tp); one bulk copy of the
+  // wrapper's table
+  alignas(16) int Tp[4 * 336];
+  uint64_t bar;
+  alignas(4) u8 l16av[16 * 65], c8av[16 * 33], l32av[4 * 129], c16av[4 * 65];
+  int m16[16], m32[4];
+  u8 iv[16], qok[4], m32in[4], use32[4];
+  alignas(16) short C[K1_CN];    // [CH_][CW_] and padding
+  alignas(16) short Cc[K1_CCN];  // [cb, cr][CHC][CWC] and padding
+  // substituted / prediction references and DC values: the slots', the
+  // 32x32 candidate's
+  short r[3][132], rf[3][132], r32[3][132], rf32[3][132];
+  int dc[3], dc32[3];
+  // the chains' int16 work buffers (layouts in k1_chain): the slots' and
+  // the trial's, the 32x32 candidate's
+  alignas(16) short wa[1536];
+  alignas(16) short wb[1536];
+  alignas(16) short wa32[1536];
+  alignas(16) short wb32[1536];
+  // [luma | cb | cr] layouts: predictions, levels, recons
+  int P32[1536], PS[384], IPQ[1536];
+  int LV32[1536], LVS[384], LVI[1536];
+  short R32[1536], RI[1536];
+  int part[K1_NCHAIN][K1_MAXWARPS][6];  // per warp: SSD y/cb/cr, bits
+  int psy[48];                          // psy term of each 8x8 tile
+  float cost[K1_NCHAIN];                // the chains' RD costs (no psy)
+  int psyc[K1_NCHAIN];                  // and psy terms
+  int dqmax[3][3];  // k1_dequant_max per plane (y, cb, cr) and log2 size - 3
+  int sel, tu32;
 };
+
+#if defined(__CUDACC__) && defined(K1_STAGE_CLOCKS)
+// Stage clocks: the build of tools/profile_k1_stages.py (-DK1_STAGE_CLOCKS),
+// the option's only use; nothing outside this block depends on it.  Every
+// block barrier of the first K1_STAMP_BLOCKS blocks also stamps its source
+// line and clock64() (thread 0, after the barrier); line 0 marks the start
+// of the lane, -1 its end.  k1_stage_clocks reads the last launch's stamps.
+#define K1_STAMPS 1024
+#define K1_STAMP_BLOCKS 16
+static __device__ int k1_stamp_n[K1_STAMP_BLOCKS];
+static __device__ int k1_stamp_line[K1_STAMP_BLOCKS * K1_STAMPS];
+static __device__ long long k1_stamp_t[K1_STAMP_BLOCKS * K1_STAMPS];
+KDEV void k1_mark(int line) {
+  const int b = blockIdx.x;
+  if (threadIdx.x == 0 && b < K1_STAMP_BLOCKS) {
+    if (line == 0) k1_stamp_n[b] = 0;
+    if (k1_stamp_n[b] < K1_STAMPS) {
+      const int i = b * K1_STAMPS + k1_stamp_n[b]++;
+      k1_stamp_line[i] = line;
+      k1_stamp_t[i] = clock64();
+    }
+  }
+}
+KDEV void k1_stamp(int line) {
+  __syncthreads();
+  k1_mark(line);
+}
+#undef KSYNC
+#define KSYNC() k1_stamp(__LINE__)
+// a team barrier; stamped when the team holds thread 0
+#define K1_TSYNC(t) (k_team_sync(t), k1_mark(__LINE__))
+#define K1_LANE_START() k1_stamp(0)
+#define K1_LANE_END() k1_stamp(-1)
+extern "C" int k1_stage_clocks(int* lines, long long* t) {
+  cudaError_t e = cudaMemcpyFromSymbol(lines, k1_stamp_line,
+                                       sizeof(k1_stamp_line));
+  if (e == cudaSuccess)
+    e = cudaMemcpyFromSymbol(t, k1_stamp_t, sizeof(k1_stamp_t));
+  return (int)e;
+}
+#else
+#define K1_TSYNC(t) k_team_sync(t)
+#define K1_LANE_START() ((void)0)
+#define K1_LANE_END() ((void)0)
+#endif
 
 // floor division / modulo by 6 (torch semantics for any sign)
 KDEV int k1_div6(int q) { return q >= 0 ? q / 6 : -((-q + 5) / 6); }
 KDEV int k1_mod6(int q) { return q - 6 * k1_div6(q); }
-KDEV int k1_log2(int n) { return n == 8 ? 3 : (n == 16 ? 4 : 5); }
+// word offset in K1Smem::Tp of layout `kind` of the 2^lg-point matrix T
+// (T[k][m]: frequency k, sample m), each byte one entry:
+//   0: [m4][k] = T[k][4 m4 .. 4 m4 + 3]   (forward rows, lane k)
+//   1: [k][m4] = T[k][4 m4 .. 4 m4 + 3]   (forward columns, shared row k)
+//   2: [m][k4] = T[4 k4 .. 4 k4 + 3][m]   (inverse columns, shared row m)
+//   3: [k4][m] = T[4 k4 .. 4 k4 + 3][m]   (inverse rows, lane m)
+KDEV int k1_tp(int kind, int lg) {
+  return kind * 336 + (lg == 3 ? 0 : (lg == 4 ? 16 : 80));
+}
 
 KDEV bool k1_filter_flag(int mode, int n, bool luma) {
   if (!luma || mode == 1) return false;
@@ -106,62 +219,110 @@ KDEV bool k1_filter_flag(int mode, int n, bool luma) {
 
 // --- reference samples ------------------------------------------------------
 
-// Gather the canonical reference vector of the n x n block at (lx0, ly0)
-// of buffer B (row stride `stride`; row/column 0 are the frontier), apply
-// the spec substitution with availability `av`, then the reference filter
-// or strong smoothing.  One thread.
-KDEV void k1_prep_ref(const int* B, int stride, int lx0, int ly0, int n,
-                      const u8* av, int* r, int* rf, int* dc, int mode,
+// The canonical reference vector of the N x N block at (lx0, ly0) of
+// buffer B (row stride `stride`; row/column 0 are the frontier): the spec
+// substitution with availability `av`, then the reference filter or strong
+// smoothing, and the DC value.  Called by one whole warp, which holds
+// sample k = c * KWS + lane in registers (chunk c): the gather, the
+// substitution by ballots and shuffles, the filter by shuffles, the DC sum
+// as a warp sum; only r and rf are stored.
+template <int N>
+KDEV void k1_prep_ref(const short* B, int stride, int lx0, int ly0,
+                      const u8* av, short* r, short* rf, int* dc, int mode,
                       bool luma, bool strong) {
-  const int R = 4 * n + 1;
-  int first = -1;
-  for (int k = 0; k < R; ++k)
-    if (av[k]) {
-      first = k;
-      break;
-    }
-#define K1_SAMPLE(k)                                  \
-  ((k) <= 2 * n ? B[(ly0 + 2 * n - (k)) * stride + lx0] \
-                : B[ly0 * stride + lx0 + 1 + ((k)-2 * n - 1)])
-  if (first < 0) {
-    for (int k = 0; k < R; ++k) r[k] = 128;
-  } else {
-    int cur = K1_SAMPLE(first);
-    for (int k = 0; k < R; ++k) {
-      if (av[k]) cur = K1_SAMPLE(k);
-      r[k] = cur;
-    }
+  constexpr int R = 4 * N + 1, NC = (R + KWS - 1) / KWS;
+  const int lane = KLANE;
+  int raw[NC], sub[NC];
+  unsigned bal[NC];
+  KUNROLL
+  for (int c = 0; c < NC; ++c) {  // gather
+    const int k = c * KWS + lane;
+    raw[c] = k >= R ? 0
+             : k <= 2 * N ? B[(ly0 + 2 * N - k) * stride + lx0]
+                          : B[ly0 * stride + lx0 + k - 2 * N];
+    bal[c] = k_ballot(k < R && av[k]);
   }
-#undef K1_SAMPLE
-  const bool filt = k1_filter_flag(mode, n, luma);
+  // substitution: the last available sample at or before k; before the
+  // first available one, that one; 128 when none is available
+  int carry = 128;
+  bool found = false;
+  KUNROLL
+  for (int c = 0; c < NC; ++c)
+    if (!found && bal[c]) {
+      carry = k_shfl(raw[c], k_lsb(bal[c]));
+      found = true;
+    }
+  const unsigned le = 0xffffffffu >> (31 - lane);  // lanes <= this one
+  KUNROLL
+  for (int c = 0; c < NC; ++c) {
+    const unsigned m = bal[c] & le;
+    const int got = k_shfl(raw[c], m ? k_msb(m) : 0);
+    sub[c] = m ? got : carry;
+    if (bal[c]) carry = k_shfl(raw[c], k_msb(bal[c]));
+  }
+  // the filter: [1 2 1] or strong smoothing, elementwise from neighbours
+  const bool filt = k1_filter_flag(mode, N, luma);
+  const int bl = k_shfl(sub[0], 0);
+  const int corner = k_shfl(sub[2 * N / KWS], 2 * N % KWS);
+  const int tr = k_shfl(sub[4 * N / KWS], 4 * N % KWS);
   bool use_strong = false;
-  if (luma && n == 32 && strong && filt) {
-    const int corner = r[64], bl = r[0], tr = r[128];
-    use_strong = k_abs(corner + tr - 2 * r[96]) < 8 &&
-                 k_abs(corner + bl - 2 * r[32]) < 8;
+  if constexpr (N == 32) {
+    const int r32 = k_shfl(sub[32 / KWS], 32 % KWS);
+    const int r96 = k_shfl(sub[96 / KWS], 96 % KWS);
+    use_strong = luma && strong && filt && k_abs(corner + tr - 2 * r96) < 8 &&
+                 k_abs(corner + bl - 2 * r32) < 8;
+  }
+  int sum = 0;
+  KUNROLL
+  for (int c = 0; c < NC; ++c) {
+    const int k = c * KWS + lane;
+    const int lo = c > 0 ? k_shfl(sub[c > 0 ? c - 1 : 0], KWS - 1) : 0;
+    const int up = k_shfl(sub[c], lane > 0 ? lane - 1 : 0);
+    const int hi = c + 1 < NC ? k_shfl(sub[c + 1 < NC ? c + 1 : c], 0) : 0;
+    const int dn = k_shfl(sub[c], lane < KWS - 1 ? lane + 1 : lane);
+    const int prv = lane == 0 ? lo : up, nxt = lane == KWS - 1 ? hi : dn;
+    int v;
     if (use_strong) {
-      rf[0] = bl;
-      for (int k = 1; k < 64; ++k)
-        rf[k] = (k * corner + (64 - k) * bl + 32) >> 6;
-      rf[64] = corner;
-      for (int j = 0; j < 63; ++j)
-        rf[65 + j] = ((63 - j) * corner + (j + 1) * tr + 32) >> 6;
-      rf[128] = tr;
-    }
-  }
-  if (!use_strong) {
-    if (filt) {
-      rf[0] = r[0];
-      rf[R - 1] = r[R - 1];
-      for (int k = 1; k < R - 1; ++k)
-        rf[k] = (r[k - 1] + 2 * r[k] + r[k + 1] + 2) >> 2;
+      if (k == 0)
+        v = bl;
+      else if (k < 64)
+        v = (k * corner + (64 - k) * bl + 32) >> 6;
+      else if (k == 64)
+        v = corner;
+      else if (k < 128)
+        v = ((128 - k) * corner + (k - 64) * tr + 32) >> 6;
+      else
+        v = tr;
+    } else if (filt && k > 0 && k < R - 1) {
+      v = (prv + 2 * sub[c] + nxt + 2) >> 2;
     } else {
-      for (int k = 0; k < R; ++k) rf[k] = r[k];
+      v = sub[c];
     }
+    if (k < R) {
+      r[k] = (short)sub[c];
+      rf[k] = (short)v;
+    }
+    if ((k >= N && k < 2 * N) || (k > 2 * N && k <= 3 * N)) sum += v;
   }
-  int s = 0;
-  for (int k = 0; k < n; ++k) s += rf[2 * n + 1 + k] + rf[2 * n - 1 - k];
-  *dc = (s + n) >> (k1_log2(n) + 1);
+  sum = k_warp_sum(sum);
+  if (lane == 0) *dc = (sum + N) >> (k_msb(N) + 1);
+}
+
+// Prepare the luma (N) and both chroma (N / 2) references of the block at
+// luma (x0, y0) into r, rf, dc: warp v of team t does plane v (on the host
+// the one thread does all).
+template <int N>
+KDEV void k1_prep3(K1Smem* s, const KTeam& t, int x0, int y0, const u8* avl,
+                   const u8* avc, int mode, bool strong, short (*r)[132],
+                   short (*rf)[132], int* dc) {
+  for (int v = KWARP - t.w0; v < 3; v += t.nw) {
+    if (v == 0)
+      k1_prep_ref<N>(s->C, CW_, x0, y0, avl, r[0], rf[0], &dc[0], mode, true,
+                     strong);
+    else
+      k1_prep_ref<N / 2>(s->Cc + (v - 1) * CHC * CWC, CWC, x0 / 2, y0 / 2,
+                         avc, r[v], rf[v], &dc[v], mode, false, false);
+  }
 }
 
 KDEV int k1_canon(int i, bool vertical, int n, int a) {
@@ -184,11 +345,11 @@ KDEV int k1_canon(int i, bool vertical, int n, int a) {
 }
 
 // One predicted sample (y, x) of mode `mode` from prepared references.
-KDEV int k1_pred_pixel(const int* r, const int* rf, int dc, int mode, int n,
-                       int y, int x, bool luma) {
+KDEV int k1_pred_pixel(const short* r, const short* rf, int dc, int mode,
+                       int n, int y, int x, bool luma) {
   int v;
   if (mode == 0) {
-    const int log2n = k1_log2(n);
+    const int log2n = k_msb(n);
     v = ((n - 1 - x) * rf[2 * n - 1 - y] + (x + 1) * rf[3 * n + 1] +
          (n - 1 - y) * rf[2 * n + 1 + x] + (y + 1) * rf[n - 1] + n) >>
         (log2n + 1);
@@ -222,7 +383,7 @@ KDEV int k1_pred_pixel(const int* r, const int* rf, int dc, int mode, int n,
   return v;
 }
 
-// --- transform / quant chain -------------------------------------------------
+// --- the joint transform / quant chain -----------------------------------------
 
 KDEV int k1_quant(int c, int qp, bool intra, int log2n) {
   const int qbits = 14 + k1_div6(qp) + (15 - 8 - log2n);
@@ -235,215 +396,219 @@ KDEV int k1_quant(int c, int qp, bool intra, int log2n) {
   return c < 0 ? -level : (c > 0 ? level : 0);
 }
 
-KDEV int k1_dequant(int l, int qp, int log2n) {
+// the level clip bound of k1_dequant (one division, once per lane)
+KDEV int k1_dequant_max(int qp, int log2n) {
+  const int scale_eff = (k1_iqs[k1_mod6(qp)] * 16) << k1_div6(qp);
+  return (32767 << (8 + log2n - 5)) / scale_eff + 1;
+}
+
+KDEV int k1_dequant(int l, int qp, int log2n, int lmax) {
   const int bd_shift = 8 + log2n - 5;
   const int scale_eff = (k1_iqs[k1_mod6(qp)] * 16) << k1_div6(qp);
-  const int lmax = (32767 << bd_shift) / scale_eff + 1;
   const int lv = l > lmax ? lmax : (l < -lmax ? -lmax : l);
   return k_clamp((lv * scale_eff + (1 << (bd_shift - 1))) >> bd_shift, -32768,
                  32767);
 }
 
-// Sign-hiding parity fix of one 4x4 group (gy, gx) of an n x n block.
-KDEV void k1_sign_hide_group(int* lv, int n, int gy, int gx) {
-  int first = 99, last = -1, val = 0, sumabs = 0, fpos = 0;
-  for (int y = 0; y < 4; ++y)
-    for (int x = 0; x < 4; ++x) {
-      const int pos = (gy * 4 + y) * n + gx * 4 + x;
-      const int v = lv[pos];
-      if (v != 0) {
-        const int rk = k1_diag4_rank[y * 4 + x];
-        if (rk < first) {
-          first = rk;
-          val = v;
-          fpos = pos;
-        }
-        if (rk > last) last = rk;
-      }
-      sumabs += k_abs(v);
-    }
-  const bool hide = (last - first) > 3;
-  const bool odd = (sumabs & 1) == 1;
-  if (hide && (odd != (val < 0))) lv[fpos] += val > 0 ? 1 : -1;
-}
-
-// nb blocks of n x n: orig[b] (global, contiguous n*n), pred / lv / rec in
-// shared memory at b * n * n.  rec = clip(pred + inverse(dequant(lv))).
-KDEV void k1_tq(K1Smem* s, int nb, int n, const int* const* orig,
-                const int* pred, int* lv, int* rec, const int* qp,
-                const bool* intra, bool sign_hide) {
-  const int NN = n * n, tot = nb * NN, log2n = k1_log2(n);
-  const int step = 32 / n * 32;  // row stride of T_n inside T32
-  const int sh1 = log2n - 1, sh2 = log2n + 6;
-  const int* T = s->T;
-  int* wa = s->wa;
-  int* wb = s->wb;
-  for (int i = KTID; i < tot; i += KNTH) {
-    const int b = i / NN, j = i - b * NN;
-    wa[i] = orig[b][j] - pred[i];
-  }
-  KSYNC();
-  for (int i = KTID; i < tot; i += KNTH) {  // rows: s1[k][row]
-    const int b = i / NN, rr = i - b * NN, k = rr / n, j = rr - k * n;
-    const int* t = T + k * step;
-    const int* x = wa + b * NN + j * n;
-    int acc = 0;
-    for (int m = 0; m < n; ++m) acc += t[m] * x[m];
-    wb[i] = (acc + (1 << (sh1 - 1))) >> sh1;
-  }
-  KSYNC();
-  for (int i = KTID; i < tot; i += KNTH) {  // columns, then quant
-    const int b = i / NN, rr = i - b * NN, k = rr / n, j = rr - k * n;
-    const int* t = T + k * step;
-    const int* x = wb + b * NN + j * n;
-    int acc = 0;
-    for (int m = 0; m < n; ++m) acc += t[m] * x[m];
-    lv[i] = k1_quant((acc + (1 << (sh2 - 1))) >> sh2, qp[b], intra[b], log2n);
-  }
-  KSYNC();
-  if (sign_hide) {
-    const int g = n / 4, ng = g * g;
-    for (int i = KTID; i < nb * ng; i += KNTH) {
-      const int b = i / ng, gi = i - b * ng;
-      k1_sign_hide_group(lv + b * NN, n, gi / g, gi % g);
-    }
-    KSYNC();
-  }
-  for (int i = KTID; i < tot; i += KNTH)
-    wa[i] = k1_dequant(lv[i], qp[i / NN], log2n);
-  KSYNC();
-  for (int i = KTID; i < tot; i += KNTH) {  // inverse columns: e1[y][u]
-    const int b = i / NN, rr = i - b * NN, y = rr / n, u = rr - y * n;
-    const int* x = wa + b * NN + u;
-    int acc = 0;
-    for (int v = 0; v < n; ++v) acc += T[v * step + y] * x[v * n];
-    wb[i] = k_clamp((acc + 64) >> 7, -32768, 32767);
-  }
-  KSYNC();
-  for (int i = KTID; i < tot; i += KNTH) {  // inverse rows
-    const int b = i / NN, rr = i - b * NN, y = rr / n, x = rr - y * n;
-    const int* e = wb + b * NN + y * n;
-    int acc = 0;
-    for (int u = 0; u < n; ++u) acc += T[u * step + x] * e[u];
-    const int res = k_clamp((acc + 2048) >> 12, -32768, 32767);
-    rec[i] = k_clamp(pred[i] + res, 0, 255);
-  }
-  KSYNC();
-}
-
-// --- RD costs ------------------------------------------------------------------
-
 KDEV int k1_level_bits(int v) {
   const int a = k_abs(v);
-  if (a == 0) return 0;
-  int msb = 0;
-  for (int k = 1; k < 16; ++k) msb += a >= (1 << k);
-  return 2 * msb + 3;
+  return a == 0 ? 0 : 2 * k_msb((unsigned)a) + 3;
 }
 
-// AC Hadamard energy of one 8x8 tile (row stride `stride`):
-// sa8d(tile, 0) - (sum(tile) >> 2).
-KDEV int k1_psy_energy8(const int* p, int stride) {
-  int t[8][8];
-  int sum = 0;
-  for (int y = 0; y < 8; ++y) {
-    int a[8];
-    for (int x = 0; x < 8; ++x) {
-      a[x] = p[y * stride + x];
-      sum += a[x];
-    }
-    int h[8];
-    for (int half = 0; half < 2; ++half) {
-      const int* q = a + 4 * half;
-      const int s01 = q[0] + q[1], d01 = q[0] - q[1];
-      const int s23 = q[2] + q[3], d23 = q[2] - q[3];
-      h[4 * half + 0] = s01 + s23;
-      h[4 * half + 1] = d01 + d23;
-      h[4 * half + 2] = s01 - s23;
-      h[4 * half + 3] = d01 - d23;
-    }
-    for (int x = 0; x < 4; ++x) {
-      t[y][x] = h[x] + h[4 + x];
-      t[y][4 + x] = h[x] - h[4 + x];
-    }
-  }
-  int sa = 0;
-  for (int x = 0; x < 8; ++x) {
-    int h[8];
-    for (int half = 0; half < 2; ++half) {
-      const int q0 = t[4 * half][x], q1 = t[4 * half + 1][x];
-      const int q2 = t[4 * half + 2][x], q3 = t[4 * half + 3][x];
-      const int s01 = q0 + q1, d01 = q0 - q1, s23 = q2 + q3, d23 = q2 - q3;
-      h[4 * half + 0] = s01 + s23;
-      h[4 * half + 1] = d01 + d23;
-      h[4 * half + 2] = s01 - s23;
-      h[4 * half + 3] = d01 - d23;
-    }
-    for (int y = 0; y < 4; ++y)
-      sa += k_abs(h[y] + h[4 + y]) + k_abs(h[y] - h[4 + y]);
-  }
-  return ((sa + 2) >> 2) - (sum >> 2);
+// One chain: the luma block (2^LG square) and its two chroma blocks
+// (2^(LG-1)), every buffer laid out [luma | cb | cr].
+struct K1Chain {
+  const int* pred;    // prediction (the caller left orig - pred in wa)
+  int* lv;            // levels
+  const int* org[3];  // original samples in the quads' tiling: row stride
+                      // 32 (luma), 16 (chroma)
+  short* rec[3];      // recon destinations and their row strides
+  int rs[3];
+  int* glv[3];  // global level outputs (slots) or null
+  int qp[3];
+  bool intra;
+  short* wa;  // the chain's work buffers
+  short* wb;
+};
+
+// a[b] by selects (no indexed load from the thread's stack)
+template <typename T>
+KDEV T k1_pick(const T (&a)[3], int b) {
+  return b == 0 ? a[0] : (b == 1 ? a[1] : a[2]);
 }
 
-// SSD + lam * (level bits + ovh) of one luma block (n) and its two chroma
-// blocks (n / 2), plus the psy term of the luma block in s->acc[6].
-// Returns the cost without psy; all threads get the same value.
-KDEV float k1_rd(K1Smem* s, int n, const int* oy, const int* ry,
-                 const int* lvy, const int* const* oc, const int* rc,
-                 const int* lvc, float ovh, float lam, bool psy) {
-  const int nc = n / 2, NN = n * n, NC = nc * nc;
-  if (KTID == 0)
-    for (int k = 0; k < 8; ++k) s->acc[k] = 0;
-  KSYNC();
-  int ssd = 0, bits = 0;
-  for (int i = KTID; i < NN; i += KNTH) {
-    const int d = ry[i] - oy[i];
-    ssd += d * d;
-    bits += k1_level_bits(lvy[i]);
+// Block of chain element i (0 luma, 1 cb, 2 cr) and the block's first
+// element.
+template <int LG>
+KDEV int k1_blk(int i) {
+  return i < (1 << (2 * LG)) ? 0 : 1 + ((i - (1 << (2 * LG))) >> (2 * LG - 2));
+}
+template <int LG>
+KDEV int k1_base(int b) {
+  return b == 0 ? 0 : (1 << (2 * LG)) + ((b - 1) << (2 * LG - 2));
+}
+
+// The four transform passes, one output element `off` of a 2^lg block
+// each, as int16 x int8 dot products (k_dp2a: two multiply-adds an
+// instruction) on int16 data.  The reduction runs over pairs of
+// neighbouring int16 values in one word: the row of the forward and
+// inverse row passes is contiguous, and the forward rows and the dequant
+// write their outputs in the pair layout P of the column passes
+// (k1_ppos).  Across the lanes of a warp one operand is shared (broadcast)
+// and the other is read at consecutive words: no bank conflicts.
+
+// index of element (y, x) of a 2^lg block in the pair layout P: rows 2p
+// and 2p + 1 interleaved, so that word p * 2^lg + x holds (y = 2p, 2p + 1)
+KDEV int k1_ppos(int lg, int y, int x) {
+  return ((y >> 1) << (lg + 1)) + 2 * x + (y & 1);
+}
+
+template <int lg>
+KDEV int k1_fwd_row(const K1Smem* s, const short* x, int off) {  // [y][k]
+  constexpr int n = 1 << lg;
+  const int y = off >> lg, k = off & (n - 1);
+  const short* d = x + (y << lg);
+  const int* t = s->Tp + k1_tp(0, lg) + k;
+  int acc = 0;
+  KUNROLL
+  for (int m4 = 0; m4 < n / 4; ++m4) {
+    const KI2 v = k_ld4s(d + 4 * m4);
+    const int w = t[m4 * n];
+    acc = k_dp2a_hi(v.hi, w, k_dp2a_lo(v.lo, w, acc));
   }
-  KADD(&s->acc[0], ssd);
-  KADD(&s->acc[3], bits);
-  for (int i = KTID; i < 2 * NC; i += KNTH) {
-    const int p = i / NC, j = i - p * NC;
-    const int d = rc[i] - oc[p][j];
-    KADD(&s->acc[1 + p], d * d);
-    KADD(&s->acc[4 + p], k1_level_bits(lvc[i]));
+  return (acc + (1 << (lg - 2))) >> (lg - 1);
+}
+template <int lg>
+KDEV int k1_fwd_col(const K1Smem* s, const short* xp, int off) {  // [v][u]
+  constexpr int n = 1 << lg;
+  const int v = off >> lg, u = off & (n - 1);
+  const int* t = s->Tp + k1_tp(1, lg) + v * (n / 4);
+  int acc = 0;
+  KUNROLL
+  for (int m4 = 0; m4 < n / 4; ++m4) {
+    const int w = t[m4];
+    acc = k_dp2a_lo(k_ld2s(xp + 2 * m4 * 2 * n + 2 * u), w, acc);
+    acc = k_dp2a_hi(k_ld2s(xp + (2 * m4 + 1) * 2 * n + 2 * u), w, acc);
   }
-  // coded 4x4 groups: 2 bits each
-  const int gy = n / 4, gc = nc / 4;
-  for (int i = KTID; i < gy * gy + 2 * gc * gc; i += KNTH) {
-    const int* lv;
-    int w, g, p;
-    if (i < gy * gy) {
-      lv = lvy; w = n; g = i; p = -1;
-    } else {
-      const int k = i - gy * gy;
-      p = k / (gc * gc);
-      g = k - p * gc * gc;
-      lv = lvc + p * NC; w = nc;
-    }
-    const int gw = w / 4, y0 = (g / gw) * 4, x0 = (g % gw) * 4;
-    int nz = 0;
-    for (int y = 0; y < 4; ++y)
-      for (int x = 0; x < 4; ++x) nz |= lv[(y0 + y) * w + x0 + x] != 0;
-    if (nz) KADD(&s->acc[p < 0 ? 3 : 4 + p], 2);
+  return (acc + (1 << (lg + 5))) >> (lg + 6);
+}
+template <int lg>
+KDEV int k1_inv_col(const K1Smem* s, const short* xp, int off) {  // [y][u]
+  constexpr int n = 1 << lg;
+  const int y = off >> lg, u = off & (n - 1);
+  const int* t = s->Tp + k1_tp(2, lg) + y * (n / 4);
+  int acc = 0;
+  KUNROLL
+  for (int v4 = 0; v4 < n / 4; ++v4) {
+    const int w = t[v4];
+    acc = k_dp2a_lo(k_ld2s(xp + 2 * v4 * 2 * n + 2 * u), w, acc);
+    acc = k_dp2a_hi(k_ld2s(xp + (2 * v4 + 1) * 2 * n + 2 * u), w, acc);
   }
-  if (psy) {
-    const int t = n / 8;
-    for (int i = KTID; i < t * t; i += KNTH) {
-      const int y0 = (i / t) * 8, x0 = (i % t) * 8;
-      const int eo = k1_psy_energy8(oy + y0 * n + x0, n);
-      const int er = k1_psy_energy8(ry + y0 * n + x0, n);
-      KADD(&s->acc[6], k_abs(eo - er));
-    }
+  return k_clamp((acc + 64) >> 7, -32768, 32767);
+}
+template <int lg>
+KDEV int k1_inv_row(const K1Smem* s, const short* e, int off) {  // [y][x]
+  constexpr int n = 1 << lg;
+  const int y = off >> lg, x = off & (n - 1);
+  const short* d = e + (y << lg);
+  const int* t = s->Tp + k1_tp(3, lg) + x;
+  int acc = 0;
+  KUNROLL
+  for (int u4 = 0; u4 < n / 4; ++u4) {
+    const KI2 v = k_ld4s(d + 4 * u4);
+    const int w = t[u4 * n];
+    acc = k_dp2a_hi(v.hi, w, k_dp2a_lo(v.lo, w, acc));
   }
-  KSYNC();
-  const float fbits = ((k_i2f(s->acc[3]) + k_i2f(s->acc[4])) +
-                       k_i2f(s->acc[5])) + ovh;
-  const float dist = (k_i2f(s->acc[0]) + k_i2f(s->acc[1])) + k_i2f(s->acc[2]);
-  const float cost = KFMA(lam, fbits, dist);
-  KSYNC();  // acc is reused by the next call
-  return cost;
+  return k_clamp((acc + 2048) >> 12, -32768, 32767);
+}
+
+KDEV void k1_add3(int* a0, int* a1, int* a2, int b, int v) {
+  if (b == 0)
+    *a0 += v;
+  else if (b == 1)
+    *a1 += v;
+  else
+    *a2 += v;
+}
+
+// rec = clip(pred + inverse(dequant(sign_hide(quant(forward(wa)))))), the
+// level outputs, and, when `rd`, the chain's SSD and bit sums per warp in
+// part[] (the psy terms of a quad's chains are taken later, together).
+// Run by team t: five team barriers; the per-warp sums run after the last
+// one.  Every pass is one element per thread; a warp never straddles two
+// blocks.
+template <int LG>
+KDEV void k1_chain(K1Smem* s, const KTeam& t, const K1Chain& c,
+                   bool sign_hide, bool rd, int (*part)[6]) {
+  constexpr int tot = 6 << (2 * (LG - 1));
+  short* wa = c.wa;  // the residual, natural layout
+  short* wb = c.wb;  // the forward rows' output, pair layout
+  for (int i = t.tid; i < tot; i += t.nth) {  // forward rows
+    const int b = k1_blk<LG>(i), base = k1_base<LG>(b), off = i - base;
+    const int lg = b == 0 ? LG : LG - 1;
+    wb[base + k1_ppos(lg, off >> lg, off & ((1 << lg) - 1))] =
+        (short)(b == 0 ? k1_fwd_row<LG>(s, wa, i)
+                       : k1_fwd_row<LG - 1>(s, wa + base, off));
+  }
+  K1_TSYNC(t);
+  for (int i = t.tid; i < tot; i += t.nth) {  // forward columns, quant
+    const int b = k1_blk<LG>(i), base = k1_base<LG>(b);
+    const int v = b == 0 ? k1_fwd_col<LG>(s, wb, i)
+                         : k1_fwd_col<LG - 1>(s, wb + base, i - base);
+    c.lv[i] = k1_quant(v, k1_pick(c.qp, b), c.intra, b == 0 ? LG : LG - 1);
+  }
+  K1_TSYNC(t);
+  int s0 = 0, s1 = 0, s2 = 0, b0 = 0, b1 = 0, b2 = 0;
+  for (int e = t.tid; e < tot; e += t.nth) {  // sign hiding, bits, dequant
+    // elements in 4x4 group order: 16 consecutive lanes, one rank each
+    const int b = k1_blk<LG>(e), base = k1_base<LG>(b);
+    const int lg = b == 0 ? LG : LG - 1, nb = 1 << lg;
+    const int g = (e - base) >> 4, rank = e & 15;
+    const int gy = g >> (lg - 2), gx = g & ((nb >> 2) - 1);
+    const int p = k_diag4_pos(rank);
+    const int pos = (gy * 4 + (p >> 2)) * nb + gx * 4 + (p & 3);
+    bool any;
+    const int l = k_sign_hide16(c.lv[base + pos], rank, sign_hide,
+                                c.lv + base + (gy * nb + gx) * 4, nb, &any);
+    c.lv[base + pos] = l;
+    wa[base + k1_ppos(lg, pos >> lg, pos & (nb - 1))] =  // pair layout
+        (short)k1_dequant(l, k1_pick(c.qp, b), lg, s->dqmax[b][lg - 3]);
+    int* glv = k1_pick(c.glv, b);
+    if (glv) glv[pos] = l;
+    k1_add3(&b0, &b1, &b2, b, k1_level_bits(l) + (rank == 0 && any ? 2 : 0));
+  }
+  K1_TSYNC(t);
+  for (int i = t.tid; i < tot; i += t.nth) {  // inverse columns: natural
+    const int b = k1_blk<LG>(i), base = k1_base<LG>(b);
+    wb[i] = (short)(b == 0 ? k1_inv_col<LG>(s, wa, i)
+                           : k1_inv_col<LG - 1>(s, wa + base, i - base));
+  }
+  K1_TSYNC(t);
+  for (int i = t.tid; i < tot; i += t.nth) {  // inverse rows, recon, SSD
+    const int b = k1_blk<LG>(i), base = k1_base<LG>(b), off = i - base;
+    const int lg = b == 0 ? LG : LG - 1;
+    const int res = b == 0 ? k1_inv_row<LG>(s, wb, i)
+                           : k1_inv_row<LG - 1>(s, wb + base, off);
+    const int rec = k_clamp(c.pred[i] + res, 0, 255);
+    const int y = off >> lg, x = off & ((1 << lg) - 1);
+    k1_pick(c.rec, b)[y * k1_pick(c.rs, b) + x] = (short)rec;
+    const int d = rec - k1_pick(c.org, b)[y * (b == 0 ? 32 : 16) + x];
+    k1_add3(&s0, &s1, &s2, b, d * d);
+  }
+  K1_TSYNC(t);
+  if (!rd) return;
+  const int v[6] = {s0, s1, s2, b0, b1, b2};
+  for (int k = 0; k < 6; ++k) {
+    const int w = k_warp_sum(v[k]);
+    if (KLANE == 0) part[KWARP][k] = w;
+  }
+}
+
+// Float RD cost of chain sums t (the plain step's order and roundings).
+KDEV float k1_cost(const int* t, float ovh, float lam) {
+  const float fbits = ((k_i2f(t[3]) + k_i2f(t[4])) + k_i2f(t[5])) + ovh;
+  const float dist = (k_i2f(t[0]) + k_i2f(t[1])) + k_i2f(t[2]);
+  return KFMA(lam, fbits, dist);
 }
 
 // --- the lane ------------------------------------------------------------------
@@ -460,199 +625,287 @@ KDEV void k1_lane(K1Smem* s, const K1Args& a, int l) {
   const int qpc[2] = {a.qp_cb[l], a.qp_cr[l]};
   const float lam = decide ? a.lam[l] : 0.0f;
   const float plam = psy ? a.plam[l] : 0.0f;
-  const int* rowfc[2] = {a.rowfb, a.rowfr};
-  const int* colfc[2] = {a.colfb, a.colfr};
-  const int* cornfc[2] = {a.cornfb, a.cornfr};
+  const KTeam all = k_team(0, K1_MAXWARPS, 0);
+  const KTeam ts = k_team(0, K1_SLOT_WARPS, 1);
+  const KTeam tq = k_team(K1_SLOT_WARPS, K1_MAXWARPS - K1_SLOT_WARPS, 2);
 
-  for (int i = KTID; i < 1024; i += KNTH) s->T[i] = a.T32[i];
-  for (int i = KTID; i < CH_ * CW_; i += KNTH) {
-    const int y = i / CW_, x = i % CW_;
-    int v = 0;
-    if (y == 0 && x == 0)
-      v = a.cornf[cx * 2 + par];
-    else if (y == 0)
-      v = x <= 64 ? a.rowf[cx * 64 + x - 1] : a.rowf[cx1 * 64 + x - 65];
-    else if (x == 0 && y <= 64)
-      v = a.colf[cy * 64 + y - 1];
-    s->C[i] = v;
+  // staging.  Thread 0 issues the bulk copies (sample tiles, inter
+  // predictions, transform matrices); the availability flags arrive by
+  // 4-byte asynchronous copies; all threads clear the recon buffers and,
+  // after a barrier, load the frontiers into them.
+  if (KTID == 0) {
+    const uint32_t nb = 4u * (4096 + 1024 + 1024 + 4 * 336) +
+                        (inter ? 4u * (4096 + 2048) : 0u);
+    k_mbar_init(&s->bar);
+    k_mbar_expect(&s->bar, nb);
+    k_bulk_load(s->o32y, a.o32y + (int64_t)l * 4096, 16384, &s->bar);
+    k_bulk_load(s->o16c, a.o16cb + (int64_t)l * 1024, 4096, &s->bar);
+    k_bulk_load(s->o16c + 1024, a.o16cr + (int64_t)l * 1024, 4096, &s->bar);
+    k_bulk_load(s->Tp, a.Tp, 4 * 4 * 336, &s->bar);
+    if (inter) {
+      k_bulk_load(s->ipy, a.ipy + (int64_t)l * 4096, 16384, &s->bar);
+      k_bulk_load(s->ipc, a.ipc + (int64_t)l * 2048, 8192, &s->bar);
+    }
   }
-  for (int i = KTID; i < 2 * CHC * CWC; i += KNTH) {
-    const int p = i / (CHC * CWC), k = i % (CHC * CWC);
-    const int y = k / CWC, x = k % CWC;
-    int v = 0;
-    if (y == 0 && x == 0)
-      v = cornfc[p][cx * 2 + par];
-    else if (y == 0)
-      v = x <= 32 ? rowfc[p][cx * 32 + x - 1] : rowfc[p][cx1 * 32 + x - 33];
-    else if (x == 0 && y <= 32)
-      v = colfc[p][cy * 32 + y - 1];
-    s->Cc[i] = v;
+  for (int w = KTID; w < 260 + 132 + 129 + 65; w += KNTH) {  // 4-byte words
+    if (w < 260)
+      k_copy4_async(s->l16av + 4 * w, a.l16_av + l * 1040 + 4 * w);
+    else if (w < 392)
+      k_copy4_async(s->c8av + 4 * (w - 260), a.c8_av + l * 528 + 4 * (w - 260));
+    else if (w < 521)
+      k_copy4_async(s->l32av + 4 * (w - 392), a.l32_av + l * 516 + 4 * (w - 392));
+    else
+      k_copy4_async(s->c16av + 4 * (w - 521), a.c16_av + l * 260 + 4 * (w - 521));
   }
+  for (int i = KTID; i < 16; i += KNTH) {
+    s->m16[i] = a.m16[l * 16 + i];
+    s->iv[i] = inter && a.inter[l * 16 + i];
+  }
+  for (int i = KTID; i < 4; i += KNTH) {
+    s->m32[i] = a.m32[l * 4 + i];
+    s->qok[i] = a.quad_ok[l * 4 + i];
+    s->m32in[i] = inter && decide && a.m32in[l * 4 + i];
+    s->use32[i] = a.use32[l * 4 + i];
+  }
+  for (int i = KTID; i < 9; i += KNTH) {
+    const int b = i / 3, qp = b == 0 ? qpy : (b == 1 ? qpc[0] : qpc[1]);
+    s->dqmax[b][i - 3 * b] = k1_dequant_max(qp, 3 + i - 3 * b);
+  }
+  k_zero16(s->C, K1_CN / 8);
+  k_zero16(s->Cc, K1_CCN / 8);
   KSYNC();
-
-  const bool all_intra[2] = {true, true};
-  const bool no_intra[2] = {false, false};
+  // the frontiers: luma row 0 (128), column 0 (64), corner; per chroma
+  // plane row 0 (64), column 0 (32), corner
+  for (int f = KTID; f < 193 + 2 * 97; f += KNTH) {
+    short* d;
+    int v;
+    if (f < 193) {
+      if (f < 128) {
+        d = s->C + 1 + f;
+        v = f < 64 ? a.rowf[cx * 64 + f] : a.rowf[cx1 * 64 + f - 64];
+      } else if (f < 192) {
+        d = s->C + (f - 127) * CW_;
+        v = a.colf[cy * 64 + f - 128];
+      } else {
+        d = s->C;
+        v = a.cornf[cx * 2 + par];
+      }
+    } else {
+      const int p = (f - 193) / 97, g = f - 193 - 97 * p;
+      const int* rowfc = p ? a.rowfr : a.rowfb;
+      short* Cp = s->Cc + p * CHC * CWC;
+      if (g < 64) {
+        d = Cp + 1 + g;
+        v = g < 32 ? rowfc[cx * 32 + g] : rowfc[cx1 * 32 + g - 32];
+      } else if (g < 96) {
+        d = Cp + (g - 63) * CWC;
+        v = (p ? a.colfr : a.colfb)[cy * 32 + g - 64];
+      } else {
+        d = Cp;
+        v = (p ? a.cornfr : a.cornfb)[cx * 2 + par];
+      }
+    }
+    *d = (short)v;
+  }
+  k_copy_async_wait();
+  KSYNC();
+  k_mbar_wait(&s->bar, 0);
 
   for (int q = 0; q < 4; ++q) {
     const int qx = (q & 1) * 32, qy = (q >> 1) * 32;
-    const int m32 = a.m32[l * 4 + q];
-    const int* o32 = a.o32y + (int64_t)(l * 4 + q) * 1024;
-    const int* oc32[2] = {a.o16cb + (int64_t)(l * 4 + q) * 256,
-                          a.o16cr + (int64_t)(l * 4 + q) * 256};
-    // 32x32 intra candidate: luma and both chroma planes
-    for (int v = KTID; v < 3; v += KNTH) {
-      if (v == 0)
-        k1_prep_ref(s->C, CW_, qx, qy, 32, a.l32_av + (l * 4 + q) * 129,
-                    s->r[0], s->rf[0], &s->dc[0], m32, true, strong);
-      else
-        k1_prep_ref(s->Cc + (v - 1) * CHC * CWC, CWC, qx / 2, qy / 2, 16,
-                    a.c16_av + (l * 4 + q) * 65, s->r[v], s->rf[v],
-                    &s->dc[v], m32, false, false);
-    }
-    KSYNC();
-    for (int i = KTID; i < 1024 + 512; i += KNTH) {
-      if (i < 1024)
-        s->P32[i] = k1_pred_pixel(s->r[0], s->rf[0], s->dc[0], m32, 32,
-                                  i / 32, i % 32, true);
-      else {
-        const int k = i - 1024, p = k / 256, j = k % 256;
-        s->PC[k] = k1_pred_pixel(s->r[1 + p], s->rf[1 + p], s->dc[1 + p], m32,
-                                 16, j / 16, j % 16, false);
+    const int m32 = s->m32[q];
+    const int* o32 = s->o32y + q * 1024;
+    const int* oc32[2] = {s->o16c + q * 256, s->o16c + 1024 + q * 256};
+    // The 32x32 intra candidate (team tq) and the four 16x16 slots (team
+    // ts) read the quad's neighbours and write disjoint buffers, so the
+    // two teams run side by side until the block barrier after them.
+    if (k_in(tq)) {  // 32x32 intra candidate: luma and both chroma planes
+      k1_prep3<32>(s, tq, qx, qy, s->l32av + q * 129, s->c16av + q * 65, m32,
+                   strong, s->r32, s->rf32, s->dc32);
+      K1_TSYNC(tq);
+      for (int i = tq.tid; i < 1536; i += tq.nth) {
+        int v, o;
+        if (i < 1024) {
+          v = k1_pred_pixel(s->r32[0], s->rf32[0], s->dc32[0], m32, 32,
+                            i >> 5, i & 31, true);
+          o = o32[i];
+        } else {
+          const int k = i - 1024, p = k >> 8, j = k & 255;
+          v = k1_pred_pixel(s->r32[1 + p], s->rf32[1 + p], s->dc32[1 + p],
+                            m32, 16, j >> 4, j & 15, false);
+          o = oc32[p][j];
+        }
+        s->P32[i] = v;
+        s->wa32[i] = (short)(o - v);
       }
+      K1_TSYNC(tq);
+      K1Chain c32 = {s->P32, s->LV32, {o32, oc32[0], oc32[1]},
+                     {s->R32, s->R32 + 1024, s->R32 + 1280}, {32, 16, 16},
+                     {0, 0, 0}, {qpy, qpc[0], qpc[1]}, true, s->wa32,
+                     s->wb32};
+      k1_chain<5>(s, tq, c32, sh, decide, s->part[0]);
     }
-    KSYNC();
-    const int* o32p[1] = {o32};
-    k1_tq(s, 1, 32, o32p, s->P32, s->LV32, s->R32, &qpy, all_intra, sh);
-    k1_tq(s, 2, 16, oc32, s->PC, s->LVC, s->RC, qpc, all_intra, sh);
-    if (decide) {
-      float c32 = k1_rd(s, 32, o32, s->R32, s->LV32, oc32, s->RC, s->LVC,
-                        12.0f, lam, psy);
-      if (psy) c32 = KFMA(plam, k_i2f(s->acc[6]), c32);
-      if (KTID == 0) {
-        s->cost32 = c32;
-        s->cost16 = 0.0f;
-        s->any_inter = 0;
-      }
-    }
-    KSYNC();
 
-    for (int sl = 0; sl < 4; ++sl) {
+    for (int sl = 0; sl < 4 && k_in(ts); ++sl) {
       const int i = q * 4 + sl;
       const int ox = (sl & 1) * 16, oy = (sl >> 1) * 16;
       const int sx = qx + ox, sy = qy + oy;
-      const int m = a.m16[l * 16 + i];
-      const bool iv = inter && a.inter[l * 16 + i];
-      const int* o16 = a.o16y + (int64_t)(l * 16 + i) * 256;
-      const int* oc8[2] = {a.o8c + (int64_t)((l * 16 + i) * 2) * 64,
-                           a.o8c + (int64_t)((l * 16 + i) * 2 + 1) * 64};
+      const int m = s->m16[i];
+      const bool iv = s->iv[i];
+      const int* o16 = o32 + oy * 32 + ox;  // row stride 32
+      const int* oc8[2] = {oc32[0] + oy / 2 * 16 + ox / 2,
+                           oc32[1] + oy / 2 * 16 + ox / 2};  // stride 16
       if (!iv) {
-        for (int v = KTID; v < 3; v += KNTH) {
-          if (v == 0)
-            k1_prep_ref(s->C, CW_, sx, sy, 16, a.l16_av + (l * 16 + i) * 65,
-                        s->r[0], s->rf[0], &s->dc[0], m, true, false);
-          else
-            k1_prep_ref(s->Cc + (v - 1) * CHC * CWC, CWC, sx / 2, sy / 2, 8,
-                        a.c8_av + (l * 16 + i) * 33, s->r[v], s->rf[v],
-                        &s->dc[v], m, false, false);
-        }
-        KSYNC();
+        k1_prep3<16>(s, ts, sx, sy, s->l16av + i * 65, s->c8av + i * 33, m,
+                     false, s->r, s->rf, s->dc);
+        K1_TSYNC(ts);
       }
-      for (int k = KTID; k < 256 + 128; k += KNTH) {
+      for (int k = ts.tid; k < 384; k += ts.nth) {
+        int v, o;
         if (k < 256) {
-          const int y = k / 16, x = k % 16;
-          const int v = iv ? a.ipy[(int64_t)(l * 16 + i) * 256 + k]
-                           : k1_pred_pixel(s->r[0], s->rf[0], s->dc[0], m, 16,
-                                           y, x, true);
-          s->P16[k] = v;
-          s->IP32[(oy + y) * 32 + ox + x] = v;
+          const int y = k >> 4, x = k & 15;
+          v = iv ? s->ipy[i * 256 + k]
+                 : k1_pred_pixel(s->r[0], s->rf[0], s->dc[0], m, 16, y, x,
+                                 true);
+          s->IPQ[(oy + y) * 32 + ox + x] = v;
+          o = o16[y * 32 + x];
         } else {
-          const int kk = k - 256, p = kk / 64, j = kk % 64, y = j / 8,
-                    x = j % 8;
-          const int v =
-              iv ? a.ipc[(int64_t)((l * 16 + i) * 2 + p) * 64 + j]
+          const int kk = k - 256, p = kk >> 6, j = kk & 63;
+          const int y = j >> 3, x = j & 7;
+          v = iv ? s->ipc[(i * 2 + p) * 64 + j]
                  : k1_pred_pixel(s->r[1 + p], s->rf[1 + p], s->dc[1 + p], m,
                                  8, y, x, false);
-          s->P8[kk] = v;
-          s->IPC[p * 256 + (oy / 2 + y) * 16 + ox / 2 + x] = v;
+          s->IPQ[1024 + p * 256 + (oy / 2 + y) * 16 + ox / 2 + x] = v;
+          o = oc8[p][y * 16 + x];
         }
+        s->PS[k] = v;
+        s->wa[k] = (short)(o - v);
       }
-      KSYNC();
-      const bool intra1[1] = {!iv};
-      const bool intra2[2] = {!iv, !iv};
-      const int* o16p[1] = {o16};
-      k1_tq(s, 1, 16, o16p, s->P16, s->LV16, s->R16, &qpy, intra1, sh);
-      k1_tq(s, 2, 8, oc8, s->P8, s->LV8, s->R8, qpc, intra2, sh);
-      for (int k = KTID; k < 256 + 128; k += KNTH) {
-        if (k < 256) {
-          a.lv16[(int64_t)(i * L + l) * 256 + k] = s->LV16[k];
-          s->C[(1 + sy + k / 16) * CW_ + 1 + sx + k % 16] = s->R16[k];
-        } else {
-          const int kk = k - 256, p = kk / 64, j = kk % 64;
-          a.lv8[(int64_t)(i * 2 * L + p * L + l) * 64 + j] = s->LV8[kk];
-          s->Cc[p * CHC * CWC + (1 + sy / 2 + j / 8) * CWC + 1 + sx / 2 +
-                j % 8] = s->R8[kk];
-        }
-      }
-      KSYNC();
-      if (decide) {
-        const float c = k1_rd(s, 16, o16, s->R16, s->LV16, oc8, s->R8,
-                              s->LV8, 9.0f, lam, psy);
-        float c16 = s->cost16 + c;
-        if (psy) c16 = KFMA(plam, k_i2f(s->acc[6]), c16);
-        KSYNC();
-        if (KTID == 0) {
-          s->cost16 = c16;
-          s->any_inter |= iv;
-        }
-        KSYNC();
-      }
+      K1_TSYNC(ts);
+      K1Chain cs = {s->PS,
+                    s->LVS,
+                    {o16, oc8[0], oc8[1]},
+                    {s->C + (1 + sy) * CW_ + 1 + sx,
+                     s->Cc + (1 + sy / 2) * CWC + 1 + sx / 2,
+                     s->Cc + CHC * CWC + (1 + sy / 2) * CWC + 1 + sx / 2},
+                    {CW_, CWC, CWC},
+                    {a.lv16 + (int64_t)(i * L + l) * 256,
+                     a.lv8 + (int64_t)(i * 2 * L + l) * 64,
+                     a.lv8 + (int64_t)(i * 2 * L + L + l) * 64},
+                    {qpy, qpc[0], qpc[1]},
+                    !iv,
+                    s->wa,
+                    s->wb};
+      k1_chain<4>(s, ts, cs, sh, decide, s->part[1 + sl]);
     }
+    KSYNC();
 
-    bool u32;
-    if (decide) {
-      u32 = a.quad_ok[l * 4 + q] && (s->cost32 < s->cost16);
-      if (inter) u32 = u32 && !s->any_inter;
-    } else {
-      u32 = a.use32[l * 4 + q];
+    const bool trial = s->m32in[q];
+    if (trial) {  // inter TU32 trial of the joined slot predictions
+      for (int i = KTID; i < 1536; i += KNTH)
+        s->wa[i] = (short)((i < 1024 ? o32[i]
+                                     : oc32[(i - 1024) >> 8][(i - 1024) & 255]) -
+                           s->IPQ[i]);
+      KSYNC();
+      K1Chain ct = {s->IPQ, s->LVI, {o32, oc32[0], oc32[1]},
+                    {s->RI, s->RI + 1024, s->RI + 1280}, {32, 16, 16},
+                    {0, 0, 0}, {qpy, qpc[0], qpc[1]}, false, s->wa, s->wb};
+      k1_chain<5>(s, all, ct, sh, true, s->part[5]);
     }
-    bool tu32 = false;
-    if (inter && decide && a.m32in[l * 4 + q]) {
-      const int* o32p[1] = {o32};
-      k1_tq(s, 1, 32, o32p, s->IP32, s->LV32I, s->R32I, &qpy, no_intra, sh);
-      k1_tq(s, 2, 16, oc32, s->IPC, s->LVCI, s->RCI, qpc, no_intra, sh);
-      float ci = k1_rd(s, 32, o32, s->R32I, s->LV32I, oc32, s->RCI, s->LVCI,
-                       12.0f, lam, psy);
-      if (psy) ci = KFMA(plam, k_i2f(s->acc[6]), ci);
-      tu32 = ci < s->cost16;
+    if (decide && psy) {  // the psy terms of the quad's chains, 8x8 tiles:
+      // 0-15 the 32x32 candidate, 16-31 the slots (4 each), 32-47 the trial
+      for (int i = KTID; i < (trial ? 48 : 32) * K8LANES; i += KNTH) {
+        const int t = i / K8LANES, row = i - t * K8LANES;
+        int e;
+        if (t < 16 || t >= 32) {
+          const int ty = (t >> 2) & 3, tx = t & 3;
+          e = k_psy8(o32 + ty * 256 + tx * 8, 32,
+                     (t < 16 ? s->R32 : s->RI) + ty * 256 + tx * 8, 32, row);
+        } else {
+          const int sl = (t - 16) >> 2, ty = (t >> 1) & 1, tx = t & 1;
+          const int ox = (sl & 1) * 16 + tx * 8, oy = (sl >> 1) * 16 + ty * 8;
+          e = k_psy8(o32 + oy * 32 + ox, 32,
+                     s->C + (1 + qy + oy) * CW_ + 1 + qx + ox, CW_, row);
+        }
+        if (row == 0) s->psy[t] = e;
+      }
     }
-    const bool sel = u32 || tu32;
-    const int* lvf = tu32 ? s->LV32I : s->LV32;
-    const int* recf = tu32 ? s->R32I : s->R32;
-    const int* lvcf = tu32 ? s->LVCI : s->LVC;
-    const int* reccf = tu32 ? s->RCI : s->RC;
-    for (int k = KTID; k < 1024 + 512; k += KNTH) {
+    KSYNC();
+    if (KWARP == 0) {  // one warp: lane c sums chain c and costs it (the
+      // plain step's roundings); lane 0 then takes the decision
+      if (decide)
+        for (int c = KLANE; c < K1_NCHAIN; c += KWS) {
+          const KTeam& tc = c == 0 ? tq : (c < 5 ? ts : all);
+          int t[6];
+          for (int k = 0; k < 6; ++k) {  // over the warps that ran chain c
+            int v = 0;
+            for (int w = tc.w0; w < tc.w0 + tc.nw; ++w) v += s->part[c][w][k];
+            t[k] = v;
+          }
+          int ps = 0;
+          if (psy) {
+            const int t0 = c == 0 ? 0 : (c < 5 ? 12 + 4 * c : 32);
+            for (int i = t0; i < t0 + (c == 0 || c == 5 ? 16 : 4); ++i)
+              ps += s->psy[i];
+          }
+          s->cost[c] = k1_cost(t, c == 0 || c == 5 ? 12.0f : 9.0f, lam);
+          s->psyc[c] = ps;
+        }
+      KSYNCWARP();
+      if (KLANE == 0) {
+        bool u32, tu32 = false;
+        if (decide) {
+          float c32 = s->cost[0];
+          if (psy) c32 = KFMA(plam, k_i2f(s->psyc[0]), c32);
+          float cost16 = 0.0f;
+          bool any_inter = false;
+          for (int sl = 0; sl < 4; ++sl) {
+            float c16 = cost16 + s->cost[1 + sl];
+            if (psy) c16 = KFMA(plam, k_i2f(s->psyc[1 + sl]), c16);
+            cost16 = c16;
+            any_inter = any_inter || s->iv[q * 4 + sl];
+          }
+          u32 = s->qok[q] && (c32 < cost16);
+          if (inter) u32 = u32 && !any_inter;
+          if (trial) {
+            float ci = s->cost[5];
+            if (psy) ci = KFMA(plam, k_i2f(s->psyc[5]), ci);
+            tu32 = ci < cost16;
+          }
+        } else {
+          u32 = s->use32[q];
+        }
+        s->sel = u32 || tu32;
+        s->tu32 = tu32;
+      }
+    }
+    KSYNC();
+    const bool sel = s->sel, tu32 = s->tu32;
+    const int* lvf = tu32 ? s->LVI : s->LV32;
+    const short* recf = tu32 ? s->RI : s->R32;
+    for (int k = KTID; k < 1536; k += KNTH) {
       if (k < 1024) {
         a.lv32[(int64_t)(q * L + l) * 1024 + k] = lvf[k];
-        if (sel) s->C[(1 + qy + k / 32) * CW_ + 1 + qx + k % 32] = recf[k];
+        if (sel) s->C[(1 + qy + (k >> 5)) * CW_ + 1 + qx + (k & 31)] = recf[k];
       } else {
-        const int kk = k - 1024, p = kk / 256, j = kk % 256;
-        a.lvc16[(int64_t)(q * 2 * L + p * L + l) * 256 + j] = lvcf[kk];
+        const int kk = k - 1024, p = kk >> 8, j = kk & 255;
+        a.lvc16[(int64_t)(q * 2 * L + p * L + l) * 256 + j] = lvf[k];
         if (sel)
-          s->Cc[p * CHC * CWC + (1 + qy / 2 + j / 16) * CWC + 1 + qx / 2 +
-                j % 16] = reccf[kk];
+          s->Cc[p * CHC * CWC + (1 + qy / 2 + (j >> 4)) * CWC + 1 + qx / 2 +
+                (j & 15)] = recf[k];
       }
     }
     if (KTID == 0) a.sel32[q * L + l] = sel;
     KSYNC();
   }
 
-  // outputs: the CTU's tiles and the new frontiers
+  // outputs: the CTU's tiles, then the frontiers and corners in place
   for (int k = KTID; k < 4096; k += KNTH)
-    a.int_y[(int64_t)l * 4096 + k] = s->C[(1 + k / 64) * CW_ + 1 + k % 64];
+    a.int_y[(int64_t)l * 4096 + k] = s->C[(1 + (k >> 6)) * CW_ + 1 + (k & 63)];
   for (int k = KTID; k < 2048; k += KNTH) {
-    const int p = k / 1024, j = k % 1024;
+    const int p = k >> 10, j = k & 1023;
     a.int_c[(int64_t)(p * L + l) * 1024 + j] =
-        s->Cc[p * CHC * CWC + (1 + j / 32) * CWC + 1 + j % 32];
+        s->Cc[p * CHC * CWC + (1 + (j >> 5)) * CWC + 1 + (j & 31)];
   }
   for (int k = KTID; k < 64; k += KNTH) {
     a.nrowf[cx * 64 + k] = s->C[64 * CW_ + 1 + k];
@@ -661,9 +914,15 @@ KDEV void k1_lane(K1Smem* s, const K1Args& a, int l) {
   int* nrowc[2] = {a.nrowfb, a.nrowfr};
   int* ncolc[2] = {a.ncolfb, a.ncolfr};
   for (int k = KTID; k < 64; k += KNTH) {
-    const int p = k / 32, j = k % 32;
+    const int p = k >> 5, j = k & 31;
     nrowc[p][cx * 32 + j] = s->Cc[p * CHC * CWC + 32 * CWC + 1 + j];
     ncolc[p][cy * 32 + j] = s->Cc[p * CHC * CWC + (1 + j) * CWC + 32];
+  }
+  if (KTID == 0) {
+    const int slot = (cx + 1) * 2 + (cy & 1);
+    a.cornf[slot] = s->C[64 * CW_ + 64];
+    a.cornfb[slot] = s->Cc[32 * CWC + 32];
+    a.cornfr[slot] = s->Cc[CHC * CWC + 32 * CWC + 32];
   }
 }
 
@@ -675,7 +934,6 @@ static void k1_unpack(K1Args* a, void* const* p, int L, int cw, int ch,
   a->m16 = NEXT(const int*); a->m32 = NEXT(const int*);
   a->qp_y = NEXT(const int*); a->qp_cb = NEXT(const int*);
   a->qp_cr = NEXT(const int*);
-  a->o16y = NEXT(const int*); a->o8c = NEXT(const int*);
   a->o32y = NEXT(const int*); a->o16cb = NEXT(const int*);
   a->o16cr = NEXT(const int*);
   a->l16_av = NEXT(const u8*); a->c8_av = NEXT(const u8*);
@@ -686,26 +944,28 @@ static void k1_unpack(K1Args* a, void* const* p, int L, int cw, int ch,
   a->ipy = NEXT(const int*); a->ipc = NEXT(const int*);
   a->m32in = NEXT(const u8*);
   a->rowf = NEXT(const int*); a->colf = NEXT(const int*);
-  a->cornf = NEXT(const int*); a->rowfb = NEXT(const int*);
-  a->colfb = NEXT(const int*); a->cornfb = NEXT(const int*);
+  a->cornf = NEXT(int*); a->rowfb = NEXT(const int*);
+  a->colfb = NEXT(const int*); a->cornfb = NEXT(int*);
   a->rowfr = NEXT(const int*); a->colfr = NEXT(const int*);
-  a->cornfr = NEXT(const int*);
+  a->cornfr = NEXT(int*);
   a->lv16 = NEXT(int*); a->lv8 = NEXT(int*); a->lv32 = NEXT(int*);
   a->lvc16 = NEXT(int*); a->sel32 = NEXT(int*); a->int_y = NEXT(int*);
   a->int_c = NEXT(int*);
   a->nrowf = NEXT(int*); a->ncolf = NEXT(int*); a->nrowfb = NEXT(int*);
   a->ncolfb = NEXT(int*); a->nrowfr = NEXT(int*); a->ncolfr = NEXT(int*);
-  a->T32 = NEXT(const int*);
+  a->Tp = NEXT(const int*);
 #undef NEXT
   a->L = L; a->cw = cw; a->ch = ch; a->flags = flags;
 }
 
-#define K1_NPTRS 47
+#define K1_NPTRS 45
 
 #ifdef __CUDACC__
-__global__ void __launch_bounds__(256) k1_kernel(K1Args a) {
-  extern __shared__ int k1_smem[];
+__global__ void __launch_bounds__(K1_THREADS) k1_kernel(K1Args a) {
+  extern __shared__ __align__(16) unsigned char k1_smem[];
+  K1_LANE_START();
   k1_lane((K1Smem*)k1_smem, a, blockIdx.x);
+  K1_LANE_END();
 }
 
 extern "C" int k1_ctu_step(void* const* p, int np, int L, int cw, int ch,
@@ -721,7 +981,7 @@ extern "C" int k1_ctu_step(void* const* p, int np, int L, int cw, int ch,
     if (e != cudaSuccess) return (int)e;
     attr_set = true;
   }
-  k1_kernel<<<L, 256, sizeof(K1Smem), (cudaStream_t)stream>>>(a);
+  k1_kernel<<<L, K1_THREADS, sizeof(K1Smem), (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 

@@ -23,9 +23,8 @@ import functools
 import numpy as np
 import torch
 
-from x265_tpu.common.geometry import PictureGeometry, intra_neighbor_coords
-
 from .._util import f32, fma32
+from ..common.geometry import PictureGeometry, intra_neighbor_coords
 from ..common.rdcost import level_bits
 from ..ops.cost import psy_cost
 from ..ops.intra import filter_flag

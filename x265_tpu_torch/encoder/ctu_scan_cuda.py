@@ -5,24 +5,22 @@ kernel body ``kernel`` at :494, ``pallas_call`` at :927).  Source:
 ``x265_tpu_torch/csrc/k1_ctu_step.cu``; plain version: ``CtuScan.make_step``
 (``ctu_scan.py``), which the wrapper runs for tensors on the CPU.
 
-Design.  One 256-thread block per lane CTU of the level (L = 15 at 1080p,
-62 levels per frame).  The lane's reconstruction buffers -- luma ``C``
-97x129 and chroma ``Cc`` 2x49x65 int32 -- and the work buffers of the TU
-chains stay in dynamic shared memory for the whole CTU (``sizeof(K1Smem)``
-= 132,516 bytes by the struct's layout, so the launch raises the block's
-dynamic shared memory limit), and the CTU's
-4 quadrants x 4 slots run in z-order inside the block: reference assembly
-and substitution, the angular formula per pixel (no 35-mode weight
-tensor), integer transforms, quant/sign-hide/dequant, recon, the SSD +
-lambda*bits RD compares with the psy term, and the inter TU32 trial.
-What bounds it on an H100: one level puts at most 15 blocks on 132 SMs,
-and each block walks ~60 dependent stages separated by barriers, so the
-kernel is latency-bound, not bandwidth-bound (~60 KB of inputs per lane,
-counted from the shapes).
-Measured on an H100 80GB HBM3 at 700 W: the 62-level 1080p scan takes
-41.10 ms through K1 against 14634.72 ms through the plain step (PERF.md).
-A persistent kernel over all levels and wider per-CTU parallelism are
-later work.
+Design.  One 768-thread block per lane CTU of the level (L = 15 at 1080p,
+62 levels per frame).  The lane's inputs are staged in shared memory once
+(bulk asynchronous copies for the sample tiles), its reconstruction
+buffers (luma 97x129 and chroma 2x49x65 int16) stay there for the whole
+CTU, and the CTU's 4 quadrants x 4 slots run in z-order inside the block,
+each candidate as one joint luma + chroma TU chain of five barrier-separated
+stages; the source's header comment has the details.  What bounds it on an
+H100: one level puts at most 15 blocks on 132 SMs and each block is one
+chain of dependent stages, so the kernel is bound by the latency of one
+CTU, not by its bytes or its integer MACs (``chip_smoke.py`` prints the
+bound beside the measured time).
+
+State.  The kernel writes the new frontier rows, columns and corner
+samples into the carry tensors in place (the lanes of a level touch
+disjoint entries), so ``launch`` returns the carry it was given; the plain
+step returns new tensors with the same contents.
 
 Exactness.  All pixel math is integer.  The float costs follow the
 reference's rounding: SSD and bit counts converted to float32, sums in
@@ -47,9 +45,12 @@ from ..ops._dct_matrix import T32
 #: kernel launch, and nowhere else)
 LAUNCHES = 0
 
-_IN_KEYS = ("cx", "cy", "m16", "m32", "qp_y", "qp_cb", "qp_cr", "o16y",
-            "o8c", "o32y", "o16cb", "o16cr", "l16_av", "c8_av", "l32_av",
-            "c16_av", "quad_ok")
+#: the level inputs K1 reads; of the original samples only the quads'
+#: tiling (the slots' o16y / o8c hold the same samples as its sub-blocks)
+_IN_KEYS = ("cx", "cy", "m16", "m32", "qp_y", "qp_cb", "qp_cr", "o32y",
+            "o16cb", "o16cr", "l16_av", "c8_av", "l32_av", "c16_av",
+            "quad_ok")
+_BULK_KEYS = ("o32y", "o16cb", "o16cr")
 
 
 def ctu_step(scan, inter: bool, decide32: bool, carry, xs, plain):
@@ -65,6 +66,22 @@ def launch(lib, scan, inter: bool, decide32: bool, carry, xs):
     CUDA tensors; the host build of the same source on CPU tensors, which
     is how the CPU tests reach the kernel's arithmetic)."""
     global LAUNCHES
+    args, ys = kernel_args(scan, inter, decide32, carry, xs)
+    rc = lib.k1_ctu_step(*args)
+    if rc != 0:
+        raise RuntimeError(
+            f"K1 launch failed: {lib.k_error_string(rc).decode()}")
+    LAUNCHES += 1
+    lv16, lv8, lv32, lvc16, sel32, int_y, int_c = ys
+    return carry, (lv16, lv8, lv32, lvc16, sel32.to(torch.bool), int_y,
+                   int_c)
+
+
+def kernel_args(scan, inter: bool, decide32: bool, carry, xs):
+    """Check the level's tensors and allocate its outputs; returns the
+    arguments of the C entry point ``k1_ctu_step`` and the outputs ``ys``
+    that a launch fills.  The arguments hold raw pointers: the caller keeps
+    ``carry``, ``xs`` and ``ys`` alive while it uses them."""
     dev = xs["cx"].device
 
     def _check(name, x, dtype, shape):
@@ -84,34 +101,38 @@ def launch(lib, scan, inter: bool, decide32: bool, carry, xs):
     cw, ch = g.ctbs_w, g.ctbs_h
     i32, b8, f32 = torch.int32, torch.bool, torch.float32
     shapes = dict(cx=(L,), cy=(L,), m16=(L, 16), m32=(L, 4), qp_y=(L,),
-                  qp_cb=(L,), qp_cr=(L,), o16y=(L, 16, 16, 16),
-                  o8c=(L, 16, 2, 8, 8), o32y=(L, 4, 32, 32),
+                  qp_cb=(L,), qp_cr=(L,), o32y=(L, 4, 32, 32),
                   o16cb=(L, 4, 16, 16), o16cr=(L, 4, 16, 16),
                   l16_av=(L, 16, 65), c8_av=(L, 16, 33), l32_av=(L, 4, 129),
                   c16_av=(L, 4, 65), quad_ok=(L, 4))
     for k in _IN_KEYS:
         _check(k, xs[k], b8 if k.endswith("_av") or k == "quad_ok" else i32,
                shapes[k])
-    dummy_f = torch.zeros((L,), dtype=f32, device=dev)
-    dummy_b = torch.zeros((L, 4), dtype=b8, device=dev)
-    lam = xs["lam"] if decide32 else dummy_f
-    plam = xs["plam"] if psy else dummy_f
-    use32 = dummy_b if decide32 else xs["use32"]
+    dummy = _dummies(scan, dev, L)
+    lam = xs["lam"] if decide32 else dummy["f"]
+    plam = xs["plam"] if psy else dummy["f"]
+    use32 = dummy["b4"] if decide32 else xs["use32"]
     _check("lam", lam, f32, (L,))
     _check("plam", plam, f32, (L,))
     _check("use32", use32, b8, (L, 4))
     if inter:
         iv, ipy, ipc = xs["inter"], xs["ipy"], xs["ipc"]
-        m32in = xs["m32_in"] if decide32 else dummy_b
+        m32in = xs["m32_in"] if decide32 else dummy["b4"]
         _check("inter", iv, b8, (L, 16))
         _check("ipy", ipy, i32, (L, 16, 16, 16))
         _check("ipc", ipc, i32, (L, 16, 2, 8, 8))
         _check("m32_in", m32in, b8, (L, 4))
+        bulk = _BULK_KEYS + ("ipy", "ipc")
     else:
-        iv = torch.zeros((L, 16), dtype=b8, device=dev)
-        ipy = torch.zeros((1,), dtype=i32, device=dev)
-        ipc = ipy
-        m32in = dummy_b
+        iv, ipy, ipc, m32in = dummy["b16"], dummy["i1"], dummy["i1"], \
+            dummy["b4"]
+        bulk = _BULK_KEYS
+    for k in bulk:   # the kernel stages these with 16-byte bulk copies
+        if xs[k].data_ptr() % 16:
+            raise ValueError(f"K1 input {k} is not 16-byte aligned")
+    for k in ("l16_av", "c8_av", "l32_av", "c16_av"):  # 4-byte copies
+        if xs[k].data_ptr() % 4:
+            raise ValueError(f"K1 input {k} is not 4-byte aligned")
     (rowf, colf, cornf, rowfb, colfb, cornfb, rowfr, colfr, cornfr) = carry
     for nm, x, shp in (("rowf", rowf, (cw + 1, 64)), ("colf", colf,
                                                         (ch + 1, 64)),
@@ -131,30 +152,53 @@ def launch(lib, scan, inter: bool, decide32: bool, carry, xs):
     lv32, lvc16 = out(4, L, 32, 32), out(4, 2 * L, 16, 16)
     sel32 = out(4, L)
     int_y, int_c = out(L, 64, 64), out(2 * L, 32, 32)
-    new = [x.clone() for x in (rowf, colf, rowfb, colfb, rowfr, colfr)]
+    # the new frontiers and corners are written into the carry in place
     ptrs = [xs[k] for k in _IN_KEYS] + [
         lam, plam, use32, iv, ipy, ipc, m32in,
         rowf, colf, cornf, rowfb, colfb, cornfb, rowfr, colfr, cornfr,
-        lv16, lv8, lv32, lvc16, sel32, int_y, int_c] + new + [
-        dev_table("t32", lambda: T32.astype(np.int32), dev)]
+        lv16, lv8, lv32, lvc16, sel32, int_y, int_c,
+        rowf, colf, rowfb, colfb, rowfr, colfr,
+        dev_table("k1_tr_tt", _transform_tables, dev)]
     arr = (ctypes.c_void_p * len(ptrs))(*[p.data_ptr() for p in ptrs])
     flags = ((1 if inter else 0) | (2 if decide32 else 0) | (4 if psy else 0)
              | (8 if scan.sign_hide else 0) | (16 if scan.strong else 0))
     stream = (torch.cuda.current_stream(dev).cuda_stream
               if dev.type == "cuda" else 0)
-    rc = lib.k1_ctu_step(arr, len(ptrs), L, cw, ch, flags,
-                         ctypes.c_void_p(stream))
-    if rc != 0:
-        raise RuntimeError(
-            f"K1 launch failed: {lib.k_error_string(rc).decode()}")
-    LAUNCHES += 1
-    rowf, colf, rowfb, colfb, rowfr, colfr = new
-    cx, cy = xs["cx"].long(), xs["cy"].long()
-    # corner carry (parity-slotted): the lane's new bottom-right sample
-    cornf, cornfb, cornfr = cornf.clone(), cornfb.clone(), cornfr.clone()
-    cornf[cx + 1, cy & 1] = rowf[cx, 63]
-    cornfb[cx + 1, cy & 1] = rowfb[cx, 31]
-    cornfr[cx + 1, cy & 1] = rowfr[cx, 31]
-    ys = (lv16, lv8, lv32, lvc16, sel32.to(torch.bool), int_y, int_c)
-    return (rowf, colf, cornf, rowfb, colfb, cornfb, rowfr, colfr,
-            cornfr), ys
+    ys = (lv16, lv8, lv32, lvc16, sel32, int_y, int_c)
+    return (arr, len(ptrs), L, cw, ch, flags, ctypes.c_void_p(stream)), ys
+
+
+def _transform_tables():
+    """The DCT matrices T8, T16, T32 (T[k][m]: rows k * 2^(5 - lg) of T32,
+    first 2^lg columns) as signed bytes, four to an int32 word, in the four
+    layouts of K1's transform passes (``k1_tp`` in the source), each layout
+    T8 | T16 | T32: 4 x 336 words that K1 stages with one bulk copy."""
+    def words(a):               # [..., 4] int8 -> [...] int32 (little-endian)
+        return np.ascontiguousarray(a.astype(np.int8)).view("<i4")[..., 0]
+
+    kinds = [[], [], [], []]
+    for lg in (3, 4, 5):
+        t = T32[::1 << (5 - lg), :1 << lg].astype(np.int64)
+        n = 1 << lg
+        rows = t.reshape(n, n // 4, 4)           # [k][m4][4]
+        cols = t.T.reshape(n, n // 4, 4)         # [m][k4][4]
+        kinds[0].append(words(rows.transpose(1, 0, 2)))   # [m4][k]
+        kinds[1].append(words(rows))                      # [k][m4]
+        kinds[2].append(words(cols))                      # [m][k4]
+        kinds[3].append(words(cols.transpose(1, 0, 2)))   # [k4][m]
+    return np.concatenate([w.ravel() for k in kinds for w in k]).astype(
+        np.int32)
+
+
+def _dummies(scan, dev, L):
+    """Zero stand-ins for the inputs a configuration does not use, made
+    once per scan object, device and lane count."""
+    cache = scan.__dict__.setdefault("_k1_dummies", {})
+    key = (str(dev), L)
+    if key not in cache:
+        cache[key] = dict(
+            f=torch.zeros((L,), dtype=torch.float32, device=dev),
+            b4=torch.zeros((L, 4), dtype=torch.bool, device=dev),
+            b16=torch.zeros((L, 16), dtype=torch.bool, device=dev),
+            i1=torch.zeros((1,), dtype=torch.int32, device=dev))
+    return cache[key]

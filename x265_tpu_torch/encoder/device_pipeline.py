@@ -20,17 +20,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from x265_tpu.cabac.ctu import _CHROMA_QP_MAP
-from x265_tpu.ops.deblock import edge_masks_np
-from x265_tpu.ops.sao import eo_valid_masks_np
-
 from .._util import dev_table, f32, fma32
+from ..cabac.ctu import _CHROMA_QP_MAP
 from ..ops.cost import satd
-from ..ops.deblock import deblock_picture
+from ..ops.deblock import deblock_picture, edge_masks_np
 from ..ops.interp import (mc_chroma_batch, mc_chroma_batch_ps,
                           mc_luma_batch, mc_luma_batch_ps)
 from ..ops.intra import predict_all_modes, substitute_references
-from ..ops.sao import sao_apply_plane, sao_estimate_plane
+from ..ops.sao import (eo_valid_masks_np, sao_apply_plane,
+                       sao_estimate_plane)
 from .me_cuda import mv_cost, refine
 
 # float32(1/6): XLA folds ``/ 6.0`` into a multiply by the inverse

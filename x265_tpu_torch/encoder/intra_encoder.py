@@ -8,7 +8,8 @@ then scatters the syntax, derives merge/AMVP/skip (native C), entropy-codes
 with the native CABAC serializer, and appends the hash SEI.
 
 Scope: ``bframes == 0`` through ``encode_frame`` / ``push_frame`` with the
-lookahead off, 8-bit, 64x64 CTBs.  B frames, the lookahead (cuTree,
+lookahead off, 8-bit, 64x64 CTBs, on the card by default
+(``device="cuda"``; the tests pass ``device="cpu"``).  B frames, the lookahead (cuTree,
 b-adapt), 10-bit, RDOQ, noise reduction and lossless raise
 ``NotImplementedError``.
 """
@@ -21,22 +22,28 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from x265_tpu.cabac.ctu import (MODE_INTER, MODE_INTRA, CtuCoder, PicSyntax,
-                                chroma_qp)
-from x265_tpu.cabac.engine import CabacEncoder
-from x265_tpu.cabac.tables import init_context_states
-from x265_tpu.common.bitstream import (NAL_IDR_W_RADL, NAL_PPS, NAL_SPS,
-                                       NAL_SUFFIX_SEI, NAL_TRAIL_R, NAL_VPS,
-                                       wrap_nal)
-from x265_tpu.common.geometry import PictureGeometry
-from x265_tpu.common.headers import (PPS, SPS, VPS, SLICE_I, SLICE_P,
-                                     SliceHeader, write_pps,
-                                     write_slice_header, write_sps,
-                                     write_vps)
-from x265_tpu.common.params import Params
-from x265_tpu.common.sei import (SEI_DECODED_PICTURE_HASH,
-                                 picture_hash_payload, write_sei_rbsp)
-from x265_tpu.ops.deblock import _chroma_qp_arr
+from ..cabac.ctu import MODE_INTER, MODE_INTRA, PicSyntax, chroma_qp
+from ..common.bitstream import (NAL_AUD, NAL_IDR_W_RADL, NAL_PPS,
+                                NAL_PREFIX_SEI, NAL_SPS, NAL_SUFFIX_SEI,
+                                NAL_TRAIL_R, NAL_VPS, BitWriter, wrap_nal)
+from ..common.geometry import PictureGeometry, intra_neighbor_coords
+from ..common.headers import (PPS, SPS, VPS, SLICE_I, SLICE_P,
+                              ProfileTierLevel, ShortTermRPS, SliceHeader,
+                              write_pps, write_slice_header, write_sps,
+                              write_vps)
+from ..common.level import determine_level, enforce_level
+from ..common.params import HASH_CHECKSUM, Params, unsupported_param_warnings
+from ..common.sei import (SEI_CONTENT_LIGHT_LEVEL, SEI_DECODED_PICTURE_HASH,
+                          SEI_MASTERING_DISPLAY, SEI_USER_DATA_UNREGISTERED,
+                          content_light_level_payload,
+                          mastering_display_payload, picture_hash_payload,
+                          write_sei_rbsp)
+from ..native import derive_inter_syntax_native, encode_slice_data_native
+from ..ops.deblock import _chroma_qp_arr
+
+# name and version written into the info SEI: the reference's, so that the
+# headers (and the whole stream) are byte-identical to x265_tpu's
+_INFO_SEI_NAME = "x265_tpu 0.1.0"
 
 
 @dataclass
@@ -107,31 +114,6 @@ def pad_plane(p: np.ndarray, h: int, w: int) -> np.ndarray:
     return out
 
 
-def cu_leaves(ps: PicSyntax, ctu_addr: int, log2_min_cb: int = 3):
-    """(x0, y0, log2_size) of the CUs of a CTU in z-order (a copy of
-    ``x265_tpu.common.recon.cu_leaves``, whose module needs JAX)."""
-    g = ps.geom
-    out = []
-
-    def rec(x0, y0, log2_size, depth):
-        size = 1 << log2_size
-        if x0 >= g.width or y0 >= g.height:
-            return
-        fits = x0 + size <= g.width and y0 + size <= g.height
-        split = ps.depth[y0 >> 2, x0 >> 2] > depth or not fits
-        if split and log2_size > log2_min_cb:
-            half = size >> 1
-            for i in range(4):
-                rec(x0 + (i & 1) * half, y0 + (i >> 1) * half,
-                    log2_size - 1, depth + 1)
-        else:
-            out.append((x0, y0, log2_size))
-
-    x0, y0 = g.ctu_origin(ctu_addr)
-    rec(x0, y0, g.log2_ctb, 0)
-    return out
-
-
 def check_supported(params: Params) -> None:
     """Raise NotImplementedError for configurations the port lacks."""
     bad = []
@@ -153,16 +135,16 @@ def check_supported(params: Params) -> None:
 
 
 class Encoder:
-    """HEVC encoder (I/P slices) whose device work runs on ``device``."""
+    """HEVC encoder (I/P slices) whose device work runs on ``device``
+    (the card unless the caller asks for the CPU)."""
 
-    def __init__(self, params: Params, device):
+    def __init__(self, params: Params, device="cuda"):
         check_supported(params)
         self.device = torch.device(device)
         self.params = params
         w, h = params.source_width, params.source_height
         assert w > 0 and h > 0
         if params.log_level >= 1:
-            from x265_tpu.common.params import unsupported_param_warnings
             for msg in unsupported_param_warnings(params):
                 print(msg, file=_sys.stderr)
         align = 16
@@ -172,8 +154,6 @@ class Encoder:
         self.geom = PictureGeometry(cw, ch, log2_ctb, 3)
         self.bit_depth = params.internal_bit_depth
 
-        from x265_tpu.common.headers import ProfileTierLevel
-        from x265_tpu.common.level import determine_level, enforce_level
         level_idc, tier = determine_level(
             cw, ch, params.fps_num, params.fps_denom,
             bitrate_kbps=max(params.bitrate, params.vbv_max_bitrate),
@@ -301,27 +281,19 @@ class Encoder:
                + wrap_nal(NAL_PPS, write_pps(self.pps)))
         hdr_seis = []
         if self.params.master_display:
-            from x265_tpu.common.sei import (SEI_MASTERING_DISPLAY,
-                                             mastering_display_payload)
             hdr_seis.append((SEI_MASTERING_DISPLAY,
                              mastering_display_payload(
                                  self.params.master_display)))
         if self.params.max_cll:
-            from x265_tpu.common.sei import (SEI_CONTENT_LIGHT_LEVEL,
-                                             content_light_level_payload)
             cll, fall = (int(v) for v in self.params.max_cll.split(","))
             hdr_seis.append((SEI_CONTENT_LIGHT_LEVEL,
                              content_light_level_payload(cll, fall)))
         if hdr_seis:
-            from x265_tpu.common.bitstream import NAL_PREFIX_SEI as _PFX
-            out += wrap_nal(_PFX, write_sei_rbsp(hdr_seis),
+            out += wrap_nal(NAL_PREFIX_SEI, write_sei_rbsp(hdr_seis),
                             long_start_code=False)
         if self.params.emit_info_sei:
-            from x265_tpu import __version__
-            from x265_tpu.common.bitstream import NAL_PREFIX_SEI
-            from x265_tpu.common.sei import SEI_USER_DATA_UNREGISTERED
             uuid = bytes(range(16))
-            info = (f"x265_tpu {__version__} - TPU-native HEVC encoder - "
+            info = (f"{_INFO_SEI_NAME} - TPU-native HEVC encoder - "
                     f"qp={self.params.qp} ctu={self.params.ctu_size}"
                     ).encode()
             sei = write_sei_rbsp([(SEI_USER_DATA_UNREGISTERED,
@@ -348,7 +320,6 @@ class Encoder:
         t = self._mode_tables.get(key)
         if t is not None:
             return t
-        from x265_tpu.common.geometry import intra_neighbor_coords
         g = self.geom
         ridx = np.zeros((gh * gw, 4 * n + 1), np.int64)
         avails = np.zeros((gh * gw, 4 * n + 1), bool)
@@ -550,7 +521,6 @@ class Encoder:
             self.dpb[poc] = coded_rec
 
         if p.decoded_picture_hash:
-            from x265_tpu.common.params import HASH_CHECKSUM
             if p.decoded_picture_hash == HASH_CHECKSUM:
                 payload = bytes([2]) + b"".join(
                     int(c).to_bytes(4, "big") for c in checksums)
@@ -564,7 +534,6 @@ class Encoder:
         if p.repeat_headers and kind == "I" and self.frames_encoded > 0:
             au = self.headers() + au
         if p.aud:
-            from x265_tpu.common.bitstream import NAL_AUD, BitWriter
             bw = BitWriter()
             bw.write(1 if is_p else 0, 3)
             bw.rbsp_trailing_bits()
@@ -795,72 +764,14 @@ class Encoder:
     # -- P-frame syntax derivation -------------------------------------------
 
     def _derive_inter_all(self, ps):
-        """Merge/AMVP/skip derivation over all inter CU leaves (native C,
-        Python spec loops when the toolchain is missing); TMVP col
-        picture attached here, in entropy order."""
+        """Merge/AMVP/skip derivation over all inter CU leaves (native C);
+        TMVP col picture attached here, in entropy order."""
         if self.params.temporal_mvp and ps.ref_pocs_l0 and ps.col is None:
             col = self._col_store.get(ps.ref_pocs_l0[0])
             if col is not None:
                 ps.temporal_mvp = True
                 ps.col = col
-        from x265_tpu.native import derive_inter_syntax_native
-        if derive_inter_syntax_native(ps):
-            return
-        self._derive_inter_syntax(ps)
-        self._derive_skip(ps)
-
-    def _derive_inter_syntax(self, ps):
-        from x265_tpu.common.motion import (MotionCand, amvp_candidates,
-                                            merge_candidates)
-
-        g = self.geom
-        for ctu in range(g.n_ctbs):
-            for (x0, y0, log2_cb) in cu_leaves(ps, ctu):
-                y4, x4 = y0 >> 2, x0 >> 2
-                if ps.pred_mode[y4, x4] == MODE_INTRA:
-                    continue
-                n = 1 << log2_cb
-                d = int(ps.inter_dir[y4, x4]) or 1
-                me = MotionCand(
-                    d,
-                    (int(ps.mv0[y4, x4, 0]), int(ps.mv0[y4, x4, 1])),
-                    int(ps.ref_idx0[y4, x4]),
-                    (int(ps.mv1[y4, x4, 0]), int(ps.mv1[y4, x4, 1])),
-                    int(ps.ref_idx1[y4, x4]))
-                cands = merge_candidates(ps, x0, y0, n, n,
-                                         ps.max_merge_cand)
-                keys = [c.key() for c in cands]
-                if me.key() in keys:
-                    idx = keys.index(me.key())
-                    ps.set_region(ps.merge_flag, x0, y0, n, 1)
-                    ps.set_region(ps.merge_idx, x0, y0, n, idx)
-                    continue
-                mv = me.mv0
-                amvp = amvp_candidates(ps, x0, y0, n, n, 0, me.ref0)
-                costs = [abs(mv[0] - c[0]) + abs(mv[1] - c[1])
-                         for c in amvp]
-                mvp = int(np.argmin(costs))
-                ps.set_region(ps.mvp_flag, x0, y0, n, mvp)
-                ps.mvd[y4:(y0 + n) >> 2, x4:(x0 + n) >> 2] = (
-                    mv[0] - amvp[mvp][0], mv[1] - amvp[mvp][1])
-
-    def _derive_skip(self, ps):
-        g = self.geom
-        for ctu in range(g.n_ctbs):
-            for (x0, y0, log2_cb) in cu_leaves(ps, ctu):
-                y4, x4 = y0 >> 2, x0 >> 2
-                if ps.pred_mode[y4, x4] == MODE_INTRA or \
-                        not ps.merge_flag[y4, x4]:
-                    continue
-                n = 1 << log2_cb
-                c = n >> 1
-                if (ps.coeff_y[y0:y0 + n, x0:x0 + n].any()
-                        or ps.coeff_cb[y0 >> 1:(y0 >> 1) + c,
-                                       x0 >> 1:(x0 >> 1) + c].any()
-                        or ps.coeff_cr[y0 >> 1:(y0 >> 1) + c,
-                                       x0 >> 1:(x0 >> 1) + c].any()):
-                    continue
-                ps.set_region(ps.skip, x0, y0, n, 1)
+        derive_inter_syntax_native(ps)
 
     def _store_col_motion(self, ps, poc: int) -> None:
         """Retain this picture's final motion field for TMVP."""
@@ -878,19 +789,16 @@ class Encoder:
 
     def _entropy_encode(self, ps: PicSyntax, slice_type: int = SLICE_I,
                         poc: int = 0) -> bytes:
-        from x265_tpu.common.headers import ShortTermRPS
         if self.params.temporal_mvp:
             if slice_type == SLICE_I:
                 self._col_store.clear()
             self._store_col_motion(ps, poc)
 
-        g = self.geom
         sao_on = bool(self.sps.sao_enabled)
         if slice_type == SLICE_I:
             sh = SliceHeader(slice_type=SLICE_I, slice_qp=self.qp,
                              sao_luma=int(sao_on), sao_chroma=int(sao_on))
             nal_type = NAL_IDR_W_RADL
-            init_type = 0
         else:
             keep = set(getattr(ps, "rps_keep", ()))
             act0 = [q for q in ps.ref_pocs_l0 if q is not None]
@@ -905,7 +813,6 @@ class Encoder:
                 delta_pocs_s1=[q - poc for q in s1_pocs],
                 used_s1=[0 for q in s1_pocs])
             nal_type = NAL_TRAIL_R
-            init_type = 1
             sh = SliceHeader(
                 slice_type=slice_type, slice_qp=self.qp,
                 sao_luma=int(sao_on), sao_chroma=int(sao_on),
@@ -926,7 +833,6 @@ class Encoder:
                                  * (n0 - 1))
         bw = write_slice_header(sh, self.sps, self.pps, nal_type)
 
-        from x265_tpu.native import encode_slice_data_native
         data = encode_slice_data_native(
             ps, self.qp, log2_min_cb=self.sps.log2_min_cb_size,
             log2_min_tb=self.sps.log2_min_tb_size,
@@ -935,20 +841,5 @@ class Encoder:
             sao_luma=sao_on, sao_chroma=sao_on,
             bit_depth=self.bit_depth,
             num_ref_l0=max(1, len(ps.ref_pocs_l0)), num_ref_l1=1)
-        if data is None:            # no C toolchain: the Python CABAC
-            ctx = init_context_states(init_type, self.qp)
-            enc = CabacEncoder(ctx=ctx)
-            coder = CtuCoder(ps, self.sps.log2_min_cb_size,
-                             self.sps.log2_min_tb_size,
-                             self.sps.log2_max_tb_size,
-                             slice_type=slice_type, sao_luma=sao_on,
-                             sao_chroma=sao_on, bit_depth=self.bit_depth,
-                             num_ref_l0=max(1, len(ps.ref_pocs_l0)),
-                             num_ref_l1=1, transquant_bypass=False)
-            for ctu in range(g.n_ctbs):
-                coder.encode_ctu(enc, ctu)
-                enc.encode_terminate(1 if ctu == g.n_ctbs - 1 else 0)
-            enc.bw.byte_alignment()
-            data = enc.bw.getvalue()
         rbsp = bw.getvalue() + data
         return wrap_nal(nal_type, rbsp)

@@ -23,6 +23,8 @@ from __future__ import annotations
 import math
 import os
 
+from ..common.params import RC_ABR, RC_CQP, RC_CRF
+
 
 def qp_to_qscale(qp: float) -> float:
     return 0.85 * 2.0 ** ((qp - 12.0) / 6.0)
@@ -58,7 +60,6 @@ class Predictor:
 
 class RateControl:
     def __init__(self, params):
-        from x265_tpu.common.params import RC_ABR, RC_CQP, RC_CRF
         self.p = params
         self.fps = params.fps_num / max(1, params.fps_denom)
         self.frame_duration = 1.0 / self.fps

@@ -3,17 +3,54 @@
 
 Vertical edges on the 8-px grid tile the plane exactly, so each direction
 is reshape -> batched segment filter -> reshape; the horizontal pass runs
-on the transposed output.  The spec tables and the static edge masks are
-the reference's own numpy helpers.
+on the transposed output.  The spec tables, the chroma QP map and the static
+edge masks are copies of the reference's numpy helpers.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from x265_tpu.ops.deblock import BETA_TABLE, TC_TABLE
-
 from .._util import dev_table
+from ..cabac.ctu import _CHROMA_QP_MAP
+
+# §8.7.2.5.3 Table 8-12: beta'(Q) and tc'(Q)
+BETA_TABLE = np.array(
+    [0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+     6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 20, 22, 24,
+     26, 28, 30, 32, 34, 36, 38, 40, 42, 44, 46, 48, 50, 52, 54, 56,
+     58, 60, 62, 64], dtype=np.int32)
+TC_TABLE = np.array(
+    [0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+     1, 1, 1, 1, 1, 1, 1, 1, 1, 2, 2, 2, 2, 3, 3, 3, 3, 4,
+     4, 4, 5, 5, 6, 6, 7, 8, 9, 10, 11, 13, 14, 16, 18, 20, 22, 24],
+    dtype=np.int32)
+
+
+def _chroma_qp_arr(qp: np.ndarray, offset: int) -> np.ndarray:
+    """Vectorized §8.6.1 chroma QP mapping (4:2:0) for per-edge QP maps."""
+    qpi = np.clip(qp + offset, -12, 57)
+    return np.where(qpi < 30, np.maximum(0, qpi),
+                    np.where(qpi > 43, qpi - 6,
+                             _CHROMA_QP_MAP[np.clip(qpi - 30, 0, 13)]))
+
+
+def edge_masks_np(geom, log2_ctb: int):
+    """Static 16-grid TU edge masks over the PADDED plane, with picture
+    (coded-size) boundary edges excluded.  [h4p, w4p] bool x2 + a mask of
+    4x4 units inside the coded picture (for BS gating)."""
+    ph = geom.ctbs_h << log2_ctb
+    pw = geom.ctbs_w << log2_ctb
+    h4p, w4p = ph // 4, pw // 4
+    x4 = np.arange(w4p)[None, :]
+    y4 = np.arange(h4p)[:, None]
+    inside = (x4 * 4 < geom.width) & (y4 * 4 < geom.height)
+    ev = (x4 % 4 == 0) & (x4 > 0) & inside
+    eh = (y4 % 4 == 0) & (y4 > 0) & inside
+    return (np.broadcast_to(ev, (h4p, w4p)).copy(),
+            np.broadcast_to(eh, (h4p, w4p)).copy(),
+            np.broadcast_to(inside, (h4p, w4p)).copy())
 
 
 def _lookup(table, name, idx):

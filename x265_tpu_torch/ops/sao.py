@@ -9,9 +9,35 @@ summation order cannot change a result.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from x265_tpu.ops.sao import EO_NEIGHBORS
+# EO neighbor offsets per class: ((dy0, dx0), (dy1, dx1))
+EO_NEIGHBORS = [((0, -1), (0, 1)), ((-1, 0), (1, 0)),
+                ((-1, -1), (1, 1)), ((-1, 1), (1, -1))]
+
+
+def eo_valid_masks_np(ph, pw, coded_w, coded_h):
+    """Static per-class EO validity masks on the padded plane: the sample
+    and both its neighbors must lie inside the CODED picture (a copy of
+    the reference's numpy helper)."""
+    out = []
+    xx = np.arange(pw)[None, :]
+    yy = np.arange(ph)[:, None]
+    inside = (xx < coded_w) & (yy < coded_h)
+    for (dy0, dx0), (dy1, dx1) in EO_NEIGHBORS:
+        v = inside.copy()
+        for (dy, dx) in ((dy0, dx0), (dy1, dx1)):
+            if dy == -1:
+                v &= yy > 0
+            if dy == 1:
+                v &= yy < coded_h - 1
+            if dx == -1:
+                v &= xx > 0
+            if dx == 1:
+                v &= xx < coded_w - 1
+        out.append(np.broadcast_to(v, (ph, pw)).copy())
+    return np.stack(out), np.broadcast_to(inside, (ph, pw)).copy()
 
 
 def _eo_category(p, klass, valid):

@@ -1,12 +1,9 @@
 """The slice that ``chip_smoke.py`` encodes and ``tools/make_golden.py``
 digests: 1080p 8-bit at ``Params()`` defaults with ``bframes=0``, four
-frames (I P P P) of ``bench.synthetic_frame`` panning content, through the
+frames (I P P P) of ``synthetic_frame`` panning content, through the
 zero-latency ``Encoder.encode_frame``."""
 
 from __future__ import annotations
-
-import os
-import sys
 
 import numpy as np
 
@@ -18,14 +15,22 @@ def smoke_params() -> dict:
                 decoded_picture_hash=3)
 
 
-def smoke_frames(n: int = FRAMES) -> list:
-    """(Y, Cb, Cr) uint8 planes: the bench's synthetic frame panned 3 px
-    per frame, as ``bench.py`` makes them."""
-    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    if root not in sys.path:
-        sys.path.insert(0, root)
-    from bench import synthetic_frame
+def synthetic_frame(w, h, seed=0):
+    """Natural-ish content: smooth structures + texture + a little noise
+    (a copy of ``bench.synthetic_frame``, which made the golden digest)."""
+    rng = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    y = (120 + 60 * np.sin(xx / 41.0) * np.cos(yy / 29.0)
+         + 40 * np.sin((xx + yy) / 97.0)
+         + rng.randint(-6, 6, (h, w))).clip(0, 255).astype(np.uint8)
+    u = (128 + 40 * np.sin(xx[::2, ::2] / 53.0)).clip(0, 255).astype(np.uint8)
+    v = (128 + 40 * np.cos(yy[::2, ::2] / 67.0)).clip(0, 255).astype(np.uint8)
+    return y, u, v
 
+
+def smoke_frames(n: int = FRAMES) -> list:
+    """(Y, Cb, Cr) uint8 planes: the synthetic frame panned 3 px per
+    frame."""
     base = synthetic_frame(WIDTH, HEIGHT, 0)
     return [(np.roll(base[0], 3 * t, axis=1), base[1], base[2])
             for t in range(n)]
