@@ -13,8 +13,13 @@ Phases (each raises on failure; the script then exits non-zero):
      launch against one plain step (outputs and carry equal), K1's time
      for one launch with CUDA events (each on a fresh copy of the level's
      carry), the plain step's time, and the bound of that launch;
-  3. K2 against its plain torch version on the card: 8160 blocks, subme 2,
-     merange 57; q0, pred and cost must be equal;
+  3. K2 against its plain torch version on the card at 8160 blocks,
+     merange 57: q0, pred and cost must be equal on four seeded sets
+     (``k2_inputs``: random; flat, where every candidate ties; samples at
+     0 and 255; mvi at the range's edge, where candidates are masked and
+     tie among themselves), subme 2 (and 1, 0 on the last three); then
+     on the random set K2's one-launch time, the plain version's time and
+     the bound;
   4. the slice: 1080p IPPP (4 frames of panning synthetic content) at
      Params() defaults with bframes=0 through Encoder.encode_frame on the
      card; K1 must launch 62 x 4 times and K2 3 x 3 times, and the stream's
@@ -340,39 +345,94 @@ def check_k1(dev, lib):
     return res
 
 
-def check_k2(dev, lib):
-    """K2 vs the plain refine at the 1080p shapes (B = 8160)."""
+def k2_inputs(kind, B, mrq, seed):
+    """Seeded numpy inputs of K2 (W [B, 25, 25], ob [B, 16, 16], mvi and
+    pmv [B, 2], int32) and its lambda's qp (None: lambda 0), by ``kind``:
+      "random": noisy windows around random rows, search-range motion;
+      "flat": each window and source block one value, lambda 0 and mvi
+        inside the range, so every candidate of a round ties and the first
+        wins;
+      "extreme": every sample 0 or 255 (the clip and the filters' extreme
+        intermediates);
+      "edge": mvi at +-mrq and +-(mrq + 1), pmv = 4 * mvi: candidates
+        beyond the range cost 2^30, and at mrq + 1 all of a block's do
+        (ties among them); the others tie by symmetric mv bits."""
     import numpy as np
+    rng = np.random.RandomState(seed)
+    pmv = (4 * rng.randint(-(mrq - 8), mrq - 7, (B, 2))).astype(np.int32)
+    mvi = rng.randint(-mrq, mrq + 1, (B, 2)).astype(np.int32)
+    qp = 32
+    if kind == "random":
+        base = rng.randint(0, 256, (B, 1, 25))
+        W = np.clip(base + rng.randint(-20, 21, (B, 25, 25)), 0, 255)
+        ob = rng.randint(0, 256, (B, 16, 16))
+    elif kind == "flat":
+        W = np.broadcast_to(rng.randint(0, 256, (B, 1, 1)), (B, 25, 25))
+        ob = np.broadcast_to(rng.randint(0, 256, (B, 1, 1)), (B, 16, 16))
+        mvi = rng.randint(1 - mrq, mrq, (B, 2)).astype(np.int32)
+        qp = None
+    elif kind == "extreme":
+        W = 255 * rng.randint(0, 2, (B, 25, 25))
+        ob = 255 * rng.randint(0, 2, (B, 16, 16))
+    elif kind == "edge":
+        W = rng.randint(0, 256, (B, 25, 25))
+        ob = rng.randint(0, 256, (B, 16, 16))
+        mvi = (rng.choice([-1, 1], (B, 2))
+               * (mrq + rng.randint(0, 2, (B, 2)))).astype(np.int32)
+        pmv = 4 * mvi
+    else:
+        raise ValueError(kind)
+    i32 = np.int32
+    return (np.ascontiguousarray(W, i32), np.ascontiguousarray(ob, i32),
+            mvi.astype(i32), pmv.astype(i32), qp)
+
+
+def k2_case(kind, B, mrq, seed, dev):
+    """``k2_inputs`` as tensors on ``dev``, with the lambda as the
+    encoder's float32 scalar (0 where the kind has none)."""
+    import torch
+    from x265_tpu_torch.encoder.device_pipeline import me_lambda
+    W, ob, mvi, pmv, qp = k2_inputs(kind, B, mrq, seed)
+    lam = (me_lambda(qp) if qp is not None
+           else torch.zeros((), dtype=torch.float32))
+    return tuple(torch.as_tensor(a).to(dev) for a in (W, ob, mvi, pmv)) + (
+        lam.to(dev),)
+
+
+def check_k2(dev, lib):
+    """K2 vs the plain refine at the 1080p shapes (B = 8160, subme 2,
+    merange 57): exactness on the random, flat (ties), extreme and range-
+    edge sets, then on the random set the one-launch time, the plain
+    version's time and the bound."""
     import torch
     from x265_tpu_torch.encoder import me_cuda
-    from x265_tpu_torch.encoder.device_pipeline import me_lambda
 
-    rng = np.random.RandomState(2)
     B, mrq = 8160, 57
-    base = rng.randint(0, 256, (B, 1, 25)).astype(np.int32)
-    W = torch.as_tensor(np.clip(base + rng.randint(-20, 21, (B, 25, 25)),
-                                0, 255).astype(np.int32)).to(dev)
-    ob = torch.as_tensor(rng.randint(0, 256, (B, 16, 16)).astype(
-        np.int32)).to(dev)
-    mvi = torch.as_tensor(rng.randint(-mrq, mrq + 1, (B, 2)).astype(
-        np.int32)).to(dev)
-    pmv = torch.as_tensor((4 * rng.randint(-49, 50, (B, 2))).astype(
-        np.int32)).to(dev)
-    lam = me_lambda(32).to(dev)
-    k = me_cuda.launch(lib, W, ob, mvi, pmv, lam, 2, mrq)
-    p = me_cuda.refine_plain(W, ob, mvi, pmv, lam, 2, mrq)
-    torch.cuda.synchronize()
-    err = _max_abs_err(k, p)
+    err = 0.0
+    for seed, kind in enumerate(("random", "flat", "extreme", "edge")):
+        W, ob, mvi, pmv, lam = k2_case(kind, B, mrq, seed + 2, dev)
+        for subme in (2, 1, 0) if kind != "random" else (2,):
+            k = me_cuda.launch(lib, W, ob, mvi, pmv, lam, subme, mrq)
+            p = me_cuda.refine_plain(W, ob, mvi, pmv, lam, subme, mrq)
+            torch.cuda.synchronize()
+            e = _max_abs_err(k, p)
+            print(f"K2 {kind} subme {subme}: max_abs_err {e}", flush=True)
+            if e != 0.0:
+                _report_diff(f"K2 {kind} subme {subme}", k, p)
+            err = max(err, e)
+        if kind == "random":
+            keep = (W, ob, mvi, pmv, lam, k)
+    if err != 0.0:
+        raise AssertionError("K2 differs from the plain refine")
+    W, ob, mvi, pmv, lam, k = keep
     ms = _events_ms(lambda: me_cuda.launch(lib, W, ob, mvi, pmv, lam, 2,
-                                           mrq), 10)
+                                           mrq), 20)
     plain_ms = _events_ms(lambda: me_cuda.refine_plain(W, ob, mvi, pmv, lam,
                                                        2, mrq), 3)
     bound_ms, bound_by = k2_bound(W, ob, mvi, pmv, k, lam, mrq)
     print(f"K2: B={B} subme 2 merange {mrq}: {ms:.4f} ms kernel, "
           f"{plain_ms:.3f} ms plain, bound {bound_ms:.5f} ms ({bound_by}), "
           f"max_abs_err {err}", flush=True)
-    if err != 0.0:
-        raise AssertionError("K2 differs from the plain refine")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, err=err)
 

@@ -1,6 +1,7 @@
 """x265_tpu_torch motion search against x265_tpu's jnp search
 (``_inter_tools_builder(enc, allow_pallas=False)["me"]``), and K2's source
-(built for the host) against the plain refine, on the CPU at 192x128.
+(built for the host) against the plain refine and, inside the port's
+search, against that jnp search, on the CPU at 192x128.
 
 The reference picture is the reference encoder's own ME-extended DPB entry
 (``Encoder._extend_ref``), carried across with ``planes_to_torch``;
@@ -13,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 import x265_tpu.encoder as ref_encoder
 from bench import synthetic_frame
 from x265_tpu.common.params import Params as RefParams
@@ -41,8 +43,9 @@ def _scene():
     return orig, recon
 
 
-@pytest.mark.parametrize("subme", [0, 1, 2])
-def test_me_matches_reference(subme):
+def _me_pair(subme, refine=None):
+    """The reference's jnp search and the port's (with ``refine`` in place
+    of K2's wrapper when given) on the same scene."""
     kw = dict(source_width=W, source_height=H, bframes=0, me_range=16,
               subme=subme)
     er = ref_encoder.Encoder(RefParams(**kw))
@@ -57,12 +60,33 @@ def test_me_matches_reference(subme):
     qp = 32
     want = jax.jit(ref_tools(er, allow_pallas=False)["me"])(
         jnp.asarray(oy), jnp.asarray(ref_ext[0]), jnp.asarray(ob), qp)
-    got = dp._inter_tools_builder(ep)["me"](
-        torch.as_tensor(oy), ext[0], torch.as_tensor(ob), dp.me_lambda(qp))
+    real = dp.refine
+    if refine is not None:
+        dp.refine = refine
+    try:
+        got = dp._inter_tools_builder(ep)["me"](
+            torch.as_tensor(oy), ext[0], torch.as_tensor(ob),
+            dp.me_lambda(qp))
+    finally:
+        dp.refine = real
     for name, a, b in zip(("mv", "cost", "pred"), want, got):
         a, b = np.asarray(a), b.numpy()
         assert a.shape == b.shape, name
         assert np.array_equal(a, b), (name, int((a != b).sum()))
+
+
+@pytest.mark.parametrize("subme", [0, 1, 2])
+def test_me_matches_reference(subme):
+    _me_pair(subme)
+
+
+def test_me_with_host_k2_matches_reference():
+    """The port's search with K2's source (host build) as its refine equals
+    the reference's jnp search: ties the kernel to the reference."""
+    lib = load_host_library()
+    n0 = me_cuda.LAUNCHES
+    _me_pair(2, lambda *a: me_cuda.launch(lib, *a))
+    assert me_cuda.LAUNCHES == n0 + 1
 
 
 @pytest.mark.parametrize("subme", [0, 1, 2, 3])
@@ -90,3 +114,32 @@ def test_k2_source_matches_plain_refine(subme):
     for a, b in zip(want, me_cuda.refine(Wn, ob, mvi, pmv, lam, subme, mrq)):
         assert torch.equal(a, b)
     assert me_cuda.LAUNCHES == n0 + 1
+
+
+@pytest.mark.parametrize("subme", [0, 1, 2, 3])
+@pytest.mark.parametrize("kind", ["flat", "extreme", "edge"])
+def test_k2_source_edge_sets(kind, subme):
+    """K2's host build equals refine_plain on chip_smoke's tie, extreme and
+    range-edge sets (every candidate tied; samples 0/255; mvi at +-mrq and
+    +-(mrq + 1), masked candidates and ties among them)."""
+    mrq = 16
+    args = chip_smoke.k2_case(kind, 300, mrq, subme, "cpu")
+    want = me_cuda.refine_plain(*args, subme, mrq)
+    got = me_cuda.launch(load_host_library(), *args, subme, mrq)
+    for a, b in zip(want, got):
+        assert torch.equal(a, b)
+    if kind == "flat":                   # every round's first candidate
+        first = {0: (0, 0), 1: (-2, -2)}.get(subme, (-3, -3))
+        assert (got[0] == torch.tensor(first, dtype=torch.int32)).all()
+
+
+@pytest.mark.parametrize("B", [1, 7, 300])
+def test_k2_source_batch_sizes(B):
+    """Batch sizes that are no multiple of anything (B is the only grid
+    dimension)."""
+    mrq = 57
+    args = chip_smoke.k2_case("random", B, mrq, B, "cpu")
+    want = me_cuda.refine_plain(*args, 2, mrq)
+    got = me_cuda.launch(load_host_library(), *args, 2, mrq)
+    for a, b in zip(want, got):
+        assert torch.equal(a, b)

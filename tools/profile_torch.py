@@ -6,7 +6,8 @@ Three encodes of the chip_smoke slice (1080p, Params() defaults with
 bframes=0, encode_frame):
   1. warm-up;
   2. torch.profiler over CPU and CUDA: device time by kernel name, the
-     device-busy sum and the idle share of the wall time;
+     device-busy sum and the idle share of the wall time, and the port's
+     own kernels (K1, K2) with their time and launches whatever their rank;
   3. stage breakdown: the pipeline's stages are wrapped in
      ``torch.cuda.synchronize()`` timers (intra analysis, motion search,
      the CTU scan, the loop filters, the fetch, and the host's QP plan,
@@ -119,9 +120,14 @@ def main():
         prof_wall = _encode(frames)
     from torch.autograd import DeviceType
     by_kernel = defaultdict(float)
+    own = defaultdict(lambda: dict(ms=0.0, launches=0))
     for ev in prof.key_averages():
         if ev.device_type == DeviceType.CUDA:      # kernels and copies
             by_kernel[ev.key] += ev.self_device_time_total / 1e3   # ms
+            if ev.key.startswith(("k1_kernel", "k2_kernel")):
+                k = own[ev.key.split("(")[0]]
+                k["ms"] += ev.self_device_time_total / 1e3
+                k["launches"] += ev.count
     busy = sum(by_kernel.values())
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:25]
 
@@ -136,7 +142,8 @@ def main():
                wall_ms=prof_wall * 1e3, fps=args.frames / prof_wall,
                device_busy_ms=busy,
                idle_share=1.0 - busy / (prof_wall * 1e3),
-               kernels_ms=dict(top), staged_wall_ms=staged * 1e3,
+               kernels_ms=dict(top), port_kernels=dict(own),
+               staged_wall_ms=staged * 1e3,
                stages_ms=stages)
     os.makedirs(os.path.dirname(args.out), exist_ok=True)
     with open(args.out, "w") as f:
@@ -144,6 +151,8 @@ def main():
     print(f"{smi}: {args.frames} frames, profiled wall {prof_wall * 1e3:.1f}"
           f" ms ({args.frames / prof_wall:.3f} fps), device busy {busy:.1f}"
           f" ms, idle share {out['idle_share']:.3f}")
+    for k, v in sorted(own.items()):
+        print(f"  {k}: {v['ms']:.3f} ms over {v['launches']} launches")
     for k, v in top:
         print(f"  {v:10.3f} ms  {k[:100]}")
     print(f"stages (synchronised, wall {staged * 1e3:.1f} ms):")

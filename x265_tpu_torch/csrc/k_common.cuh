@@ -8,10 +8,10 @@
 // (one "thread" per block and per warp, blocks run one after another):
 // tests/test_torch_ctu_scan.py and tests/test_torch_me.py build it that way
 // with g++ and hold it against the plain torch versions on the CPU, where no
-// CUDA compiler exists.  Each device-only construct below (warp sums,
-// ballots, shuffles, vector loads, the asynchronous copies and the bulk
-// copy's mbarrier) has a host twin that gives the same result for one
-// thread.
+// CUDA compiler exists.  Each device-only construct below (warp and
+// half-warp sums, ballots, shuffles, byte permutes, dp2a / dp4a, vector
+// loads, the asynchronous copies and the bulk copy's mbarrier) has a host
+// twin that gives the same result for one thread.
 #pragma once
 
 #include <stddef.h>
@@ -30,10 +30,15 @@
 #define KWS 32
 // threads that share one 8x8 tile in k_psy8 (one row each)
 #define K8LANES 8
+// the block's aligned groups of 16 lanes (half-warps): this thread's group,
+// the number of groups, its lane in the group and the group's size
+#define KHALF ((int)(threadIdx.x >> 4))
+#define KNHALF ((int)(blockDim.x >> 4))
+#define KLANE16 ((int)(threadIdx.x & 15))
+#define KHS 16
 // one rounding, as XLA:CPU contracts `c + a * b` in the reference
 #define KFMA(a, b, c) __fmaf_rn((a), (b), (c))
 #define KUNROLL _Pragma("unroll")
-#define KADD(p, v) atomicAdd((p), (v))
 #define KCHECK(c) \
   do {            \
     if (!(c)) __trap(); \
@@ -52,9 +57,12 @@
 #define KNWARPS 1
 #define KWS 1
 #define K8LANES 1
+#define KHALF 0
+#define KNHALF 1
+#define KLANE16 0
+#define KHS 1
 #define KFMA(a, b, c) fmaf((a), (b), (c))
 #define KUNROLL
-#define KADD(p, v) (*(p) += (v))
 #define KCHECK(c) \
   do {            \
     if (!(c)) abort(); \
@@ -124,6 +132,36 @@ KDEV int k_warp_sum(int v) {
 #endif
 }
 
+// Minimum of v over the lanes of the calling warp (all 32 lanes call it);
+// every lane gets it.  Host: the one thread's own value.
+KDEV unsigned k_warp_min(unsigned v) {
+#ifdef __CUDACC__
+  return __reduce_min_sync(0xffffffffu, v);
+#else
+  return v;
+#endif
+}
+
+// The bits of a float as an unsigned int, and back.
+KDEV unsigned k_fbits(float f) {
+#ifdef __CUDACC__
+  return __float_as_uint(f);
+#else
+  unsigned u;
+  memcpy(&u, &f, 4);
+  return u;
+#endif
+}
+KDEV float k_bitsf(unsigned u) {
+#ifdef __CUDACC__
+  return __uint_as_float(u);
+#else
+  float f;
+  memcpy(&f, &u, 4);
+  return f;
+#endif
+}
+
 // Ballot of p over the calling warp (all 32 lanes call it): bit j is set
 // when lane j's p holds.  Host: p of the one lane.
 KDEV unsigned k_ballot(bool p) {
@@ -141,6 +179,46 @@ KDEV int k_shfl(int v, int j) {
 #else
   (void)j;
   return v;
+#endif
+}
+
+// Sum of v over the 16 lanes of the calling half-warp (all 16 call it; the
+// other half may be elsewhere); every lane gets the sum.  Host: v.
+KDEV int k_sum16(int v) {
+#ifdef __CUDACC__
+  const unsigned m = 0xffffu << (threadIdx.x & 16);
+  for (int s = 8; s > 0; s >>= 1) v += __shfl_xor_sync(m, v, s, 16);
+  return v;
+#else
+  return v;
+#endif
+}
+
+// Bytes of the 8-byte value (b:a) picked by the four nibbles of sel, byte 0
+// of the result by the lowest (PTX prmt, __byte_perm).
+KDEV unsigned k_prmt(unsigned a, unsigned b, unsigned sel) {
+#ifdef __CUDACC__
+  return __byte_perm(a, b, sel);
+#else
+  const uint64_t ab = (uint64_t)a | ((uint64_t)b << 32);
+  unsigned r = 0;
+  for (int n = 0; n < 4; ++n)
+    r |= (unsigned)((ab >> (8 * ((sel >> (4 * n)) & 7))) & 0xff) << (8 * n);
+  return r;
+#endif
+}
+
+// c + sum of the unsigned bytes of a times the signed bytes of b.  Device:
+// one dp4a instruction (PTX dp4a.u32.s32).
+KDEV int k_dp4a_us(unsigned a, int b, int c) {
+#ifdef __CUDACC__
+  int d;
+  asm("dp4a.u32.s32 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+  return d;
+#else
+  for (int n = 0; n < 4; ++n)
+    c += (int)((a >> (8 * n)) & 0xff) * (int)(int8_t)((b >> (8 * n)) & 0xff);
+  return c;
 #endif
 }
 

@@ -15,17 +15,21 @@ under strict ``<``); per candidate the exact 8-tap separable luma MC
 lam * (mv_bits(dy) + mv_bits(dx)) against the seed-median pmv, with
 candidates beyond 4*merange qpel masked to 2^30.
 
-Design.  One 256-thread block per 16x16 block, one thread per output
-pixel; the block's 25x25 window, its source block, the horizontal filter
-pass and the best prediction so far stay in shared memory, and the
-candidates run one after another (the 16 4x4 Hadamards on 16 threads,
-summed with shared atomics).  Bound on an H100: per 1080p reference the
-algorithm needs 8160 blocks x 18 candidates x (368 + 256) 8-tap sums,
-~7e8 integer multiply-adds, against ~30 MB of window reads (both counted
-from the shapes, not measured), so neither bytes nor operations bound it; each block walks 18 dependent candidate stages with
-three barriers each (latency).  Measured on an H100 80GB HBM3 at 700 W:
-0.336 ms per launch at B = 8160 against 22.854 ms for ``refine_plain``
-(PERF.md).
+Design (v2; the ``.cu`` header has the details).  One 160-thread block
+per 16x16 block, 5 block barriers at subme 2.  The window, the source
+block and the 14 mv_bits entries a block can read are staged by 4-byte
+cp.async; the horizontal pass runs once per block for every phase the
+block needs (dp4a of the 8-bit samples); round 1 fills the full-pel, H, V
+and HV planes its 9 candidates share (dp2a on int16 row pairs) and reads
+each candidate from them; round 2 filters its 8 new candidates' samples
+and reuses the round-1 winner as its center.  One half-warp per
+candidate sums the SATD of its sixteen 4x4 Hadamards by shuffles; the
+argmin is a warp reduction of (cost, k), the lower k winning equal costs.
+Bound on an H100: its operations (``chip_smoke.k2_bound``: ~21 us a
+launch at B = 8160, the bytes ~11 us).  Measured on an H100 80GB HBM3 at
+700 W (``chip_smoke.py``): ~0.07 ms a launch at B = 8160, subme 2,
+merange 57, against v1's 0.34 ms and ~25-50 ms for ``refine_plain``;
+``tools/profile_k2_stages.py`` shows where a block's cycles go.
 Costs round as the reference: ``__fmaf_rn(lam, bits, satd)``, mv_bits from
 the committed float32 table (no device log2).
 """
