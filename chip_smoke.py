@@ -12,19 +12,31 @@ Phases (each raises on failure; the script then exits non-zero):
      output equal), then the busiest level alone (L = 15 real lanes): one
      launch against one plain step (outputs and carry equal), K1's time
      for one launch with CUDA events (each on a fresh copy of the level's
-     carry), the plain step's time, and the bound of that launch;
+     carry), the plain step's time, and the bound of that launch; then the
+     same busiest level of a batched scan of two frames (F = 2, 30 lanes
+     in one launch, each frame its own frontiers): outputs and both
+     frames' carries equal to the plain step, its one-launch time, the
+     plain step's time and the bound;
   3. K2 against its plain torch version on the card at 8160 blocks,
      merange 57: q0, pred and cost must be equal on four seeded sets
      (``k2_inputs``: random; flat, where every candidate ties; samples at
      0 and 255; mvi at the range's edge, where candidates are masked and
      tie among themselves), subme 2 (and 1, 0 on the last three); then
      on the random set K2's one-launch time, the plain version's time and
-     the bound;
-  4. the slice: 1080p IPPP (4 frames of panning synthetic content) at
+     the bound; then the blocks of two frames in one launch (B = 16320,
+     each half with its own lambda, as a batched B dispatch gives them):
+     equal to the plain version, with time and bound;
+  4. the IPPP slice: 1080p (4 frames of panning synthetic content) at
      Params() defaults with bframes=0 through Encoder.encode_frame on the
      card; K1 must launch 62 x 4 times and K2 3 x 3 times, and the stream's
      MD5 must equal the golden digest of x265_tpu's own encode
-     (x265_tpu_torch/data/golden_1080p_ippp.json, tools/make_golden.py).
+     (x265_tpu_torch/data/golden_1080p_ippp.json, tools/make_golden.py);
+  5. the B slice: the same content, 6 frames, bframes=4 with b-pyramid and
+     the lookahead off, through push_frame / flush (encode order I0 P5 B3
+     B1+B2 B4: the reference B, one batched dispatch of two Bs, one single
+     B); K1 must launch 62 x 5 times (the batched pair shares its 62) and
+     K2 9 times (3 for P5, 2 for each B dispatch), and the MD5 and size
+     must equal x265_tpu_torch/data/golden_1080p_b.json.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 
@@ -219,7 +231,9 @@ def k2_bound(W, ob, mvi, pmv, outs, lam, mrq):
         cq = [tuple(c) for c, ok in zip(cands[np.all(keys == key, 1)][0],
                                         key[2:]) if ok]
         ops += n * (_k2_interp_ops(cq) + len(cq) * (256 + 16 * 96))
-    nbytes = _nbytes([W, ob, mvi, pmv] + list(outs))
+    # a lambda per block (blocks of several frames) is read once each
+    nbytes = _nbytes([W, ob, mvi, pmv] + list(outs)) + (
+        4 * lam.numel() if lam.numel() > 1 else 0)
     return _bound(nbytes, ops, INT32_OPS_PER_S)
 
 
@@ -248,14 +262,14 @@ def _capture_level(li, run):
 def k1_inputs(dev):
     """Seeded random inputs of the 1080p CTU scan, psy-rd 2.0.  Returns
     ``(scan, li, n_real, go)``: the busiest wavefront level ``li`` with its
-    ``n_real`` real lanes, and ``go(cfg, route)`` that runs the 62-level
-    scan, ``cfg`` "I" or "P", ``route`` "kernel" or "plain"."""
+    ``n_real`` real lanes, and ``go(cfg, route, frames=1)`` that runs the
+    62-level scan, ``cfg`` "I" or "P", ``route`` "kernel" or "plain", of
+    one frame or of two frames batched (the second from its own seed)."""
     import numpy as np
     import torch
     from x265_tpu_torch.common.geometry import PictureGeometry
     from x265_tpu_torch.encoder.ctu_scan import CtuScan
 
-    rng = np.random.RandomState(1)
     g = PictureGeometry(1920, 1088, 6, 3)
     ph, pw = g.ctbs_h << 6, g.ctbs_w << 6
     b16, b32, nctb = (ph // 16) * (pw // 16), (ph // 32) * (pw // 32), \
@@ -264,84 +278,110 @@ def k1_inputs(dev):
     def T(a):
         return torch.as_tensor(a).to(dev)
 
-    oy = T(rng.randint(0, 256, (ph, pw)).astype(np.uint8))
-    ocb = T(rng.randint(0, 256, (ph // 2, pw // 2)).astype(np.uint8))
-    ocr = T(rng.randint(0, 256, (ph // 2, pw // 2)).astype(np.uint8))
-    qp = T(rng.randint(24, 40, nctb).astype(np.int32))
-    lam = T((0.85 * 2.0 ** (rng.randint(24, 40, nctb) / 3.0 - 4.0)
-             ).astype(np.float32))
-    modes = T(rng.randint(0, 35, b16).astype(np.int32))
-    mode32 = T(rng.randint(0, 35, b32).astype(np.int32))
-    use32 = torch.zeros((b32,), dtype=torch.bool, device=dev)
-    inter = dict(is_inter=T(rng.rand(b16) < 0.7),
-                 ipred_y=T(rng.randint(0, 256, (b16, 16, 16)).astype(
-                     np.int32)),
-                 ipred_cb=T(rng.randint(0, 256, (b16, 8, 8)).astype(
-                     np.int32)),
-                 ipred_cr=T(rng.randint(0, 256, (b16, 8, 8)).astype(
-                     np.int32)),
-                 m32_in=T(rng.rand(b32) < 0.4))
+    def frame(seed):
+        rng = np.random.RandomState(seed)
+        x = dict(
+            oy=T(rng.randint(0, 256, (ph, pw)).astype(np.uint8)),
+            ocb=T(rng.randint(0, 256, (ph // 2, pw // 2)).astype(np.uint8)),
+            ocr=T(rng.randint(0, 256, (ph // 2, pw // 2)).astype(np.uint8)),
+            qp=T(rng.randint(24, 40, nctb).astype(np.int32)),
+            lam=T((0.85 * 2.0 ** (rng.randint(24, 40, nctb) / 3.0 - 4.0)
+                   ).astype(np.float32)),
+            modes=T(rng.randint(0, 35, b16).astype(np.int32)),
+            mode32=T(rng.randint(0, 35, b32).astype(np.int32)),
+            use32=torch.zeros((b32,), dtype=torch.bool, device=dev),
+            is_inter=T(rng.rand(b16) < 0.7),
+            ipred_y=T(rng.randint(0, 256, (b16, 16, 16)).astype(np.int32)),
+            ipred_cb=T(rng.randint(0, 256, (b16, 8, 8)).astype(np.int32)),
+            ipred_cr=T(rng.randint(0, 256, (b16, 8, 8)).astype(np.int32)),
+            m32_in=T(rng.rand(b32) < 0.4))
+        return x
+
+    one = frame(1)
+    two = {k: torch.stack([v, w]) for (k, v), w in zip(
+        one.items(), frame(2).values())}
     scan = CtuScan(g, bit_depth=8, sign_hide=True,
                    strong_intra_smoothing=True, psy_rd=2.0)
     real = (scan.t["xs"]["ctu"] < nctb).sum(1)
     li = int(real.argmax())
+    inter_keys = ("is_inter", "ipred_y", "ipred_cb", "ipred_cr", "m32_in")
 
-    def go(cfg, route):
+    def go(cfg, route, frames=1):
+        x = one if frames == 1 else two
         fn = scan.scan_fn(inter=cfg == "P", decide32=True,
                           allow_kernel=route == "kernel")
-        return fn(oy, ocb, ocr, modes, mode32, use32, qp, qp, qp, lam=lam,
-                  **(inter if cfg == "P" else {}))
+        return fn(x["oy"], x["ocb"], x["ocr"], x["modes"], x["mode32"],
+                  x["use32"], x["qp"], x["qp"], x["qp"], lam=x["lam"],
+                  **({k: x[k] for k in inter_keys} if cfg == "P" else {}))
 
     return scan, li, int(real[li]), go
 
 
-def check_k1(dev, lib):
-    """K1 vs the plain step: full scans of random 1080p inputs, then the
-    busiest level alone (equality, one-launch time, bound)."""
+def _k1_level(lib, scan, li, is_p, run, label):
+    """K1 at wavefront level ``li`` of ``run()``, alone: one launch against
+    one plain step on the level's carry (outputs and carry equal), the
+    one-launch time, the plain step's time and the bound."""
     import torch
     from x265_tpu_torch.encoder import ctu_scan_cuda
+
+    _out, lvl = _capture_level(li, run)
+    xs, carry0, plain = lvl["xs"], lvl["carry"], lvl["plain"]
+    ck = tuple(c.clone() for c in carry0)
+    carry_k, ys_k = ctu_scan_cuda.launch(lib, scan, is_p, True, ck, xs)
+    carry_p, ys_p = plain(tuple(c.clone() for c in carry0), xs)
+    torch.cuda.synchronize()
+    err = max(_max_abs_err(carry_k, carry_p), _max_abs_err(ys_k, ys_p))
+    if err != 0.0:
+        _report_diff(f"{label} carry", carry_k, carry_p)
+        _report_diff(f"{label} outputs", ys_k, ys_p)
+    ms = k1_launch_ms(lib, scan, is_p, xs, carry0, 50)
+    plain_ms = _events_ms(lambda: plain(carry0, xs), 3)
+    bound_ms, bound_by = k1_level_bound(xs, ys_k, is_p)
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, err=err, L=xs["cx"].shape[0],
+                F=carry0[0].shape[0])
+
+
+def check_k1(dev, lib):
+    """K1 vs the plain step: full scans of random 1080p inputs, then the
+    busiest level alone (equality, one-launch time, bound), for one frame
+    and for two frames batched."""
+    import torch
 
     scan, li, n_real, run = k1_inputs(dev)
     res = {}
     for cfg in ("I", "P"):
         is_p = cfg == "P"
 
-        def go(route, cfg=cfg):
-            return run(cfg, route)
+        def go(route, frames=1, cfg=cfg):
+            return run(cfg, route, frames)
 
-        out_k, lvl = _capture_level(li, lambda: go("kernel"))
+        out_k = go("kernel")
         out_p = go("plain")
         torch.cuda.synchronize()
         scan_err = _max_abs_err(out_k, out_p)
+        if scan_err != 0.0:
+            _report_diff("scan", out_k, out_p)
         scan_ms = _events_ms(lambda: go("kernel"), 2)
         scan_plain_ms = _events_ms(lambda: go("plain"), 1)
         print(f"K1 {cfg}: 62-level scan {scan_ms:.3f} ms kernel, "
               f"{scan_plain_ms:.3f} ms plain, max_abs_err {scan_err}",
               flush=True)
-        # the busiest level alone
-        xs, carry0, plain = lvl["xs"], lvl["carry"], lvl["plain"]
-        ck = tuple(c.clone() for c in carry0)
-        carry_k, ys_k = ctu_scan_cuda.launch(lib, scan, is_p, True, ck, xs)
-        carry_p, ys_p = plain(tuple(c.clone() for c in carry0), xs)
-        torch.cuda.synchronize()
-        lvl_err = max(_max_abs_err(carry_k, carry_p),
-                      _max_abs_err(ys_k, ys_p))
-        ms = k1_launch_ms(lib, scan, is_p, xs, carry0, 50)
-        plain_ms = _events_ms(lambda: plain(carry0, xs), 3)
-        bound_ms, bound_by = k1_level_bound(xs, ys_k, is_p)
-        L = xs["cx"].shape[0]
-        print(f"K1 {cfg}: level {li} (L = {L}, {n_real} real lanes): "
-              f"{ms:.4f} ms per launch, plain step {plain_ms:.3f} ms, bound "
-              f"{bound_ms:.5f} ms ({bound_by}), max_abs_err {lvl_err}",
-              flush=True)
-        if scan_err != 0.0 or lvl_err != 0.0:
-            _report_diff("scan", out_k, out_p)
-            _report_diff("level carry", carry_k, carry_p)
-            _report_diff("level outputs", ys_k, ys_p)
+        # the busiest level alone: one frame, then two frames batched
+        one = _k1_level(lib, scan, li, is_p, lambda: go("kernel"),
+                        f"K1 {cfg} level")
+        two = _k1_level(lib, scan, li, is_p,
+                        lambda: go("kernel", frames=2), f"K1 {cfg} F=2 level")
+        for r in (one, two):
+            print(f"K1 {cfg}: level {li} (F = {r['F']}, L = {r['L']}, "
+                  f"{r['F'] * n_real} real lanes): {r['ms']:.4f} ms per "
+                  f"launch, plain step {r['plain_ms']:.3f} ms, bound "
+                  f"{r['bound_ms']:.5f} ms ({r['bound_by']}), max_abs_err "
+                  f"{r['err']}", flush=True)
+        if scan_err != 0.0 or one["err"] != 0.0 or two["err"] != 0.0:
             raise AssertionError(f"K1 differs from the plain step ({cfg})")
-        res[cfg] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                        bound_by=bound_by, err=max(scan_err, lvl_err),
-                        scan_ms=scan_ms, scan_plain_ms=scan_plain_ms)
+        res[cfg] = dict(one, scan_ms=scan_ms, scan_plain_ms=scan_plain_ms,
+                        F2=two)
     return res
 
 
@@ -433,8 +473,33 @@ def check_k2(dev, lib):
     print(f"K2: B={B} subme 2 merange {mrq}: {ms:.4f} ms kernel, "
           f"{plain_ms:.3f} ms plain, bound {bound_ms:.5f} ms ({bound_by}), "
           f"max_abs_err {err}", flush=True)
+    # two frames' blocks in one launch, each frame with its own lambda
+    from x265_tpu_torch.encoder.device_pipeline import me_lambda
+    W, ob, mvi, pmv, _lam = k2_case("random", 2 * B, mrq, 6, dev)
+    half = W.shape[0] // 2
+    lam2 = torch.cat([me_lambda(q).to(dev).expand(half) for q in (32, 35)])
+    k = me_cuda.launch(lib, W, ob, mvi, pmv, lam2, 2, mrq)
+    p = me_cuda.refine_plain(W, ob, mvi, pmv, lam2, 2, mrq)
+    torch.cuda.synchronize()
+    err2 = _max_abs_err(k, p)
+    if err2 != 0.0:
+        _report_diff("K2 two lambdas", k, p)
+        raise AssertionError("K2 differs from the plain refine (two "
+                             "lambdas)")
+    ms2 = _events_ms(lambda: me_cuda.launch(lib, W, ob, mvi, pmv, lam2, 2,
+                                            mrq), 20)
+    plain_ms2 = _events_ms(lambda: me_cuda.refine_plain(
+        W, ob, mvi, pmv, lam2, 2, mrq), 3)
+    bound_ms2, bound_by2 = k2_bound(W, ob, mvi, pmv, k, lam2, mrq)
+    print(f"K2: B={W.shape[0]} (two frames, two lambdas) subme 2 merange "
+          f"{mrq}: "
+          f"{ms2:.4f} ms kernel, {plain_ms2:.3f} ms plain, bound "
+          f"{bound_ms2:.5f} ms ({bound_by2}), max_abs_err {err2}",
+          flush=True)
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, err=err)
+                bound_by=bound_by, err=max(err, err2),
+                F2=dict(ms=ms2, plain_ms=plain_ms2, bound_ms=bound_ms2,
+                        bound_by=bound_by2, err=err2, B=W.shape[0]))
 
 
 def encode_slice(dev):
@@ -455,6 +520,28 @@ def encode_slice(dev):
         secs.append(time.time() - t0)
         aus.append(au)
     return aus, secs
+
+
+def encode_b_slice(dev):
+    """The 1080p B slice through push_frame / flush; returns the stream's
+    access units (headers first), the encode-order POCs, and the wall
+    seconds of each push_frame call and of flush with the POCs each
+    returned."""
+    import torch
+    from x265_tpu_torch import Encoder, Params
+    from x265_tpu_torch.smoke_config import smoke_frames_b, smoke_params_b
+
+    enc = Encoder(Params(**smoke_params_b()), device=dev)
+    efs, calls = [], []
+    for planes in smoke_frames_b() + [None]:
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = enc.flush() if planes is None else enc.push_frame(planes)
+        torch.cuda.synchronize()
+        calls.append((time.time() - t0, [ef.poc for ef in out]))
+        efs += out
+    return ([enc.headers()] + [ef.au for ef in efs], [ef.poc for ef in efs],
+            calls)
 
 
 def main():
@@ -511,22 +598,57 @@ def main():
     if md5 != golden["md5"] or len(stream) != golden["total_bytes"]:
         raise AssertionError("stream differs from x265_tpu's golden")
 
+    # phase 5: the B slice
+    with open(os.path.join(ROOT, "x265_tpu_torch", "data",
+                           "golden_1080p_b.json")) as f:
+        golden_b = json.load(f)
+    encode_b_slice(dev)                     # warm: first-call allocations
+    ctu_scan_cuda.LAUNCHES = 0
+    me_cuda.LAUNCHES = 0
+    aus_b, pocs, calls = encode_b_slice(dev)
+    n1b, n2b = ctu_scan_cuda.LAUNCHES, me_cuda.LAUNCHES
+    stream_b = b"".join(aus_b)
+    md5_b = hashlib.md5(stream_b).hexdigest()
+    wall_b = sum(c[0] for c in calls)
+    print(f"slice 1080p B (bframes=4, b-pyramid) on {smi}: bytes per AU "
+          f"{[len(a) for a in aus_b]}, encode-order POCs {pocs}, "
+          f"{len(pocs) / wall_b:.3f} fps", flush=True)
+    for i, (sec, out) in enumerate(calls):
+        what = "flush" if i == len(calls) - 1 else f"push_frame {i}"
+        print(f"  {what}: {sec:.3f} s, returned POCs {out}", flush=True)
+    print(f"launches: K1 {n1b} (want {62 * 5}), K2 {n2b} (want 9); md5 "
+          f"{md5_b} (golden {golden_b['md5']})", flush=True)
+    if n1b != 62 * 5 or n2b != 9:
+        raise AssertionError("the B slice did not run through K1/K2 as "
+                             "expected")
+    if (md5_b != golden_b["md5"] or len(stream_b) != golden_b["total_bytes"]
+            or pocs != golden_b["encode_pocs"]):
+        raise AssertionError("B stream differs from x265_tpu's golden")
+
     kp = k1["P"]
     print(json.dumps({"kernels": [
         dict(name="K1 ctu_step", route="cuda",
              source="x265_tpu_torch/csrc/k1_ctu_step.cu",
              replaces="x265_tpu/encoder/ctu_scan_pallas.py:72",
-             launches=n1, max_abs_err=max(k1["I"]["err"], kp["err"]),
+             launches=n1 + n1b, max_abs_err=max(
+                 k1["I"]["err"], kp["err"], kp["F2"]["err"],
+                 k1["I"]["F2"]["err"]),
              ms=kp["ms"], plain_ms=kp["plain_ms"], bound_ms=kp["bound_ms"],
              bound_by=kp["bound_by"], library_ms=None,
+             launches_ippp=n1, launches_b=n1b,
              ms_I=k1["I"]["ms"], scan_ms_P=kp["scan_ms"],
-             scan_ms_I=k1["I"]["scan_ms"]),
+             scan_ms_I=k1["I"]["scan_ms"], ms_F2_P=kp["F2"]["ms"],
+             plain_ms_F2_P=kp["F2"]["plain_ms"],
+             bound_ms_F2_P=kp["F2"]["bound_ms"], ms_F2_I=k1["I"]["F2"]["ms"]),
         dict(name="K2 subpel_refine", route="cuda",
              source="x265_tpu_torch/csrc/k2_subpel_refine.cu",
              replaces="x265_tpu/encoder/me_pallas.py:71",
-             launches=n2, max_abs_err=k2["err"], ms=k2["ms"],
+             launches=n2 + n2b, max_abs_err=k2["err"], ms=k2["ms"],
              plain_ms=k2["plain_ms"], bound_ms=k2["bound_ms"],
-             bound_by=k2["bound_by"], library_ms=None)]}),
+             bound_by=k2["bound_by"], library_ms=None,
+             launches_ippp=n2, launches_b=n2b, ms_F2=k2["F2"]["ms"],
+             plain_ms_F2=k2["F2"]["plain_ms"],
+             bound_ms_F2=k2["F2"]["bound_ms"])]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

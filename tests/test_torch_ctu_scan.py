@@ -3,6 +3,8 @@ for the host) against the port's plain step, on the CPU at 192x128
 (5 wavefront levels, 2 lanes at most); the pattern of
 tools/check_pallas_scan.py.  All 12 outputs must be equal."""
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -15,6 +17,7 @@ from x265_tpu_torch.build import load_host_library
 from x265_tpu_torch.common.geometry import PictureGeometry
 from x265_tpu_torch.encoder import ctu_scan_cuda
 from x265_tpu_torch.encoder.ctu_scan import CtuScan
+from torch_threads import one_torch_thread  # noqa: F401
 
 NAMES = ("rec_y rec_cb rec_cr lv16 lv8cb lv8cr lv32 lv16cb lv16cr use32 "
          "tu8 nr").split()
@@ -48,6 +51,10 @@ def _run(scan, arr, x, cfg, decide):
     fn = scan.scan_fn(inter=cfg == "P", decide32=decide)
     if arr is jnp:
         fn = jax.jit(fn)
+    return _call(fn, arr, x, cfg, decide)
+
+
+def _call(fn, arr, x, cfg, decide):
     a = {k: (jnp.asarray(v) if arr is jnp else torch.as_tensor(v))
          for k, v in x.items()}
     use32 = a["use32"] if not decide else (
@@ -70,14 +77,25 @@ def _assert_same(want, got):
         assert np.array_equal(a, b), (nm, int((a != b).sum()))
 
 
-@pytest.mark.parametrize("cfg,psy,sign_hide", [("I", 0.0, False),
-                                               ("P", 2.0, True)])
+@functools.lru_cache(maxsize=None)
+def _ref_scan(w, h, cfg, psy, sign_hide):
+    """The reference's jitted decide32 scan, traced once per module and
+    configuration."""
+    scan = RefScan(RefGeometry(w, h, 6, 3), bit_depth=8, sign_hide=sign_hide,
+                   strong_intra_smoothing=True, psy_rd=psy)
+    return jax.jit(scan.scan_fn(inter=cfg == "P", decide32=True))
+
+
+CONFIGS = [("I", 0.0, False), ("P", 2.0, True)]
+
+
+@pytest.mark.parametrize("cfg,psy,sign_hide", CONFIGS)
 def test_scan_matches_reference(cfg, psy, sign_hide):
     g, x = _inputs()
     kw = dict(bit_depth=8, sign_hide=sign_hide, strong_intra_smoothing=True,
               psy_rd=psy)
-    want = _run(RefScan(RefGeometry(g.width, g.height, 6, 3), **kw), jnp, x,
-                cfg, True)
+    want = _call(_ref_scan(g.width, g.height, cfg, psy, sign_hide), jnp, x,
+                 cfg, True)
     got = _run(CtuScan(g, **kw), torch, x, cfg, True)
     _assert_same(want, got)
 
@@ -115,3 +133,56 @@ def test_cpu_tensors_take_the_plain_step():
     assert ctu_scan_cuda.LAUNCHES == n0
     with pytest.raises(NotImplementedError):
         CtuScan(g, bit_depth=8, rdoq=True)
+
+
+def _run_batch(scan, xs, cfg, decide):
+    """The port's scan over a batch of frames (inputs stacked on a leading
+    frame dimension); returns one output list per frame."""
+    fn = scan.scan_fn(inter=cfg == "P", decide32=decide)
+    a = {k: torch.as_tensor(np.stack([x[k] for x in xs])) for k in xs[0]}
+    use32 = a["use32"] if not decide else torch.zeros_like(a["use32"])
+    kw = {}
+    if cfg == "P":
+        kw = {k: a[k] for k in ("is_inter", "ipred_y", "ipred_cb",
+                                "ipred_cr", "m32_in")}
+    out = fn(a["oy"], a["ocb"], a["ocr"], a["modes"], a["mode32"], use32,
+             a["qp"], a["qp"], a["qp"], lam=a["lam"], **kw)
+    return [[None if o is None else np.asarray(o[f]) for o in out]
+            for f in range(len(xs))]
+
+
+@pytest.mark.parametrize("cfg,psy,sign_hide", CONFIGS)
+def test_batched_scan_matches_reference_frames(cfg, psy, sign_hide):
+    """Two frames in one batched scan (each level one step over both
+    frames' lanes, each frame its own frontiers) equal two single-frame
+    reference scans."""
+    g, x0 = _inputs(seed=7)
+    _g, x1 = _inputs(seed=8)
+    kw = dict(bit_depth=8, sign_hide=sign_hide, strong_intra_smoothing=True,
+              psy_rd=psy)
+    ref = _ref_scan(g.width, g.height, cfg, psy, sign_hide)
+    got = _run_batch(CtuScan(g, **kw), [x0, x1], cfg, True)
+    for x, frame in zip((x0, x1), got):
+        _assert_same(_call(ref, jnp, x, cfg, True), frame)
+
+
+@pytest.mark.parametrize("cfg,decide", [("I", True), ("P", True),
+                                        ("P", False)])
+def test_k1_source_batched_lanes(monkeypatch, cfg, decide):
+    """K1's host build over the F x L lanes of two frames, one launch per
+    level, equals the plain step on the same batched carry."""
+    lib = load_host_library()
+    g, x0 = _inputs(seed=11)
+    _g, x1 = _inputs(seed=12)
+    scan = CtuScan(g, bit_depth=8, sign_hide=True,
+                   strong_intra_smoothing=True, psy_rd=2.0)
+    want = _run_batch(scan, [x0, x1], cfg, decide)
+    n0 = ctu_scan_cuda.LAUNCHES
+    monkeypatch.setattr(
+        ctu_scan_cuda, "ctu_step",
+        lambda s, inter, d, carry, xs, plain: ctu_scan_cuda.launch(
+            lib, s, inter, d, carry, xs))
+    got = _run_batch(scan, [x0, x1], cfg, decide)
+    assert ctu_scan_cuda.LAUNCHES - n0 == scan.t["n_levels"]
+    for w, gg in zip(want, got):
+        _assert_same(w, gg)

@@ -16,6 +16,7 @@ from x265_tpu.decoder import decode_annexb
 from x265_tpu_torch import Params
 from x265_tpu_torch.encoder import ctu_scan_cuda, me_cuda
 from x265_tpu_torch.encoder.intra_encoder import Encoder
+from torch_threads import one_torch_thread  # noqa: F401
 
 W, H, N = 192, 128, 3
 
@@ -57,7 +58,7 @@ def test_ipp_stream_is_byte_identical():
     assert all(p.hash_ok for p in pics)
 
 
-@pytest.mark.parametrize("kw", [dict(bframes=2), dict(internal_bit_depth=10),
+@pytest.mark.parametrize("kw", [dict(hrd=True), dict(internal_bit_depth=10),
                                 dict(rdoq_level=1), dict(lossless=True),
                                 dict(ctu_size=32),
                                 dict(noise_reduction_inter=100)])
@@ -74,3 +75,12 @@ def test_lookahead_path_raises():
                   device="cpu")
     with pytest.raises(NotImplementedError):
         enc.push_frame(_frames()[0])
+
+
+def test_encode_frame_refuses_bframes():
+    """B frames reorder the output: encode_frame raises as x265_tpu's does
+    (push_frame / flush is the B path)."""
+    enc = Encoder(Params(source_width=W, source_height=H, bframes=2,
+                         rc_lookahead=0), device="cpu")
+    with pytest.raises(ValueError):
+        enc.encode_frame(_frames()[0])

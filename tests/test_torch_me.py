@@ -25,6 +25,7 @@ from x265_tpu_torch.convert import planes_to_torch
 from x265_tpu_torch.encoder import device_pipeline as dp
 from x265_tpu_torch.encoder import me_cuda
 from x265_tpu_torch.encoder.intra_encoder import Encoder
+from torch_threads import one_torch_thread  # noqa: F401
 
 W, H = 192, 128
 
@@ -143,3 +144,25 @@ def test_k2_source_batch_sizes(B):
     got = me_cuda.launch(load_host_library(), *args, 2, mrq)
     for a, b in zip(want, got):
         assert torch.equal(a, b)
+
+
+def test_k2_source_lambda_per_block():
+    """Two frames' blocks in one launch, each with its frame's lambda:
+    K2's host build equals refine_plain with the per-block lambda, and
+    that equals refine_plain on each frame's blocks with its own scalar."""
+    mrq = 57
+    W, ob, mvi, pmv, _lam = chip_smoke.k2_case("random", 300, mrq, 5, "cpu")
+    lams = [dp.me_lambda(27), dp.me_lambda(38)]
+    lam = torch.cat([lams[0].expand(150), lams[1].expand(150)])
+    want = me_cuda.refine_plain(W, ob, mvi, pmv, lam, 2, mrq)
+    got = me_cuda.launch(load_host_library(), W, ob, mvi, pmv, lam, 2, mrq)
+    for a, b in zip(want, got):
+        assert torch.equal(a, b)
+    for f, sl in enumerate((slice(0, 150), slice(150, 300))):
+        one = me_cuda.refine_plain(W[sl], ob[sl], mvi[sl], pmv[sl], lams[f],
+                                   2, mrq)
+        for a, b in zip(one, want):
+            assert torch.equal(a, b[sl])
+    # the two lambdas decide differently somewhere
+    cut = me_cuda.refine_plain(W, ob, mvi, pmv, lams[0], 2, mrq)[0]
+    assert not torch.equal(cut, want[0])

@@ -1,7 +1,8 @@
 """x265_tpu_torch without JAX and without x265_tpu, as on the GPU machine:
 in a fresh process where ``import jax`` and ``import x265_tpu`` both fail,
-the port imports and encodes a 128x64 I P pair on the CPU, and the stream
-has the expected structure."""
+the port imports and encodes a 128x64 I P pair, then one B mini-GOP
+(I0 P3 B1 B2, the two Bs batched) on the CPU, and the streams have the
+expected structure."""
 
 import os
 import subprocess
@@ -14,6 +15,8 @@ import sys
 sys.modules["jax"] = None          # any `import jax` now raises ImportError
 sys.modules["x265_tpu"] = None     # and so does any `import x265_tpu...`
 sys.path.insert(0, ROOT)
+import torch
+torch.set_num_threads(1)           # the suite's workers share the cores
 import numpy as np
 import x265_tpu_torch
 from x265_tpu_torch import Encoder, Params
@@ -31,9 +34,21 @@ for au, rec in aus:
     assert au.startswith(b"\x00\x00\x00\x01") and len(au) > 100
     assert [p.shape for p in rec] == [(64, 128), (32, 64), (32, 64)]
 assert [enc.last_slice_type_str] == ["P"]
+encb = Encoder(Params(source_width=128, source_height=64, bframes=2,
+                      b_pyramid=False, rc_lookahead=0, me_range=16,
+                      decoded_picture_hash=3), device="cpu")
+efs = []
+for t in range(4):
+    efs += encb.push_frame((np.roll(y, 2 * t, axis=1), c[0], c[1]))
+efs += encb.flush()
+assert [(ef.poc, ef.kind) for ef in efs] == [(0, "I"), (3, "P"), (1, "B"),
+                                             (2, "B")]
+assert all(ef.au.startswith(b"\x00\x00\x00\x01") for ef in efs)
+assert all(ef.recon[0].shape == (64, 128) for ef in efs)
 assert not any(m == "jax" or m.startswith(("jax.", "x265_tpu."))
                for m in sys.modules if sys.modules[m] is not None)
-print("NOJAX-OK", len(hdr), [len(au) for au, _ in aus])
+print("NOJAX-OK", len(hdr), [len(au) for au, _ in aus],
+      [len(ef.au) for ef in efs])
 """
 
 

@@ -32,6 +32,7 @@ from x265_tpu_torch.ops import intra as p_intra
 from x265_tpu_torch.ops import quantize as p_quant
 from x265_tpu_torch.ops import sao as p_sao
 from x265_tpu_torch.ops import transforms as p_tr
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _t(a):
@@ -112,9 +113,17 @@ def test_costs(n):
         p_cost.psy_cost(_t(a), _t(b)))
 
 
-@pytest.mark.parametrize("kind", ["luma", "luma_ps", "chroma", "chroma_ps"])
+@pytest.mark.parametrize("kind", ["luma", "luma_ps", "chroma", "chroma_ps",
+                                  "bi_avg"])
 def test_interp(kind):
     rng = np.random.RandomState(len(kind))
+    if kind == "bi_avg":
+        # two 14-bit predictions of the whole range (the clip both ways)
+        p0, p1 = (rng.randint(-10000, 26000, (12, 16, 16)).astype(np.int32)
+                  for _ in range(2))
+        _eq(r_interp.bi_avg(jnp.asarray(p0), jnp.asarray(p1), 8),
+            p_interp.bi_avg(_t(p0), _t(p1), 8))
+        return
     luma = kind.startswith("luma")
     n, taps, phases = (16, 8, 4) if luma else (8, 4, 8)
     win = rng.randint(0, 256, (12, n + taps - 1, n + taps - 1)).astype(

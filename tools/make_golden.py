@@ -1,8 +1,12 @@
-"""Write the golden digest of the 1080p IPPP slice that ``chip_smoke.py``
-holds the port's stream against: ``x265_tpu`` (the JAX reference) encodes
+"""Write the golden digests of the 1080p slices that ``chip_smoke.py``
+holds the port's streams against: ``x265_tpu`` (the JAX reference) encodes
 the same frames with the same parameters on the CPU, and the MD5, the total
-size and the size of each access unit go to
-``x265_tpu_torch/data/golden_1080p_ippp.json``.
+size, the size of each access unit and the encode-order POCs go to
+
+* ``x265_tpu_torch/data/golden_1080p_ippp.json``: the IPPP slice through
+  ``Encoder.encode_frame`` (~2 min);
+* ``x265_tpu_torch/data/golden_1080p_b.json``: the B slice (b-pyramid,
+  lookahead off) through ``push_frame`` / ``flush``.
 
     JAX_PLATFORMS=cpu python tools/make_golden.py
 """
@@ -15,31 +19,51 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-OUT = os.path.join(ROOT, "x265_tpu_torch", "data", "golden_1080p_ippp.json")
+DATA = os.path.join(ROOT, "x265_tpu_torch", "data")
 
 
-def main():
-    from x265_tpu.common.params import Params
-    from x265_tpu.encoder import Encoder
-    from x265_tpu_torch.smoke_config import smoke_frames, smoke_params
-
-    p = Params(**smoke_params())
-    enc = Encoder(p)
-    aus = [enc.headers()]
-    for planes in smoke_frames():
-        au, _rec = enc.encode_frame(planes)
-        aus.append(au)
+def _write(name, params, aus, pocs):
     stream = b"".join(aus)
-    out = dict(params=smoke_params(), frames=len(aus) - 1,
+    out = dict(params=params, frames=len(aus) - 1,
                md5=hashlib.md5(stream).hexdigest(),
                total_bytes=len(stream),
                au_bytes=[len(a) for a in aus],
                made_by="x265_tpu on the CPU (tools/make_golden.py)")
-    with open(OUT, "w") as f:
+    if pocs is not None:
+        out["encode_pocs"] = pocs
+    with open(os.path.join(DATA, name), "w") as f:
         json.dump(out, f, indent=1)
         f.write("\n")
     print(json.dumps(out))
 
 
+def ippp():
+    from x265_tpu.common.params import Params
+    from x265_tpu.encoder import Encoder
+    from x265_tpu_torch.smoke_config import smoke_frames, smoke_params
+
+    enc = Encoder(Params(**smoke_params()))
+    aus = [enc.headers()]
+    for planes in smoke_frames():
+        au, _rec = enc.encode_frame(planes)
+        aus.append(au)
+    _write("golden_1080p_ippp.json", smoke_params(), aus, None)
+
+
+def bslice():
+    from x265_tpu.common.params import Params
+    from x265_tpu.encoder import Encoder
+    from x265_tpu_torch.smoke_config import smoke_frames_b, smoke_params_b
+
+    enc = Encoder(Params(**smoke_params_b()))
+    efs = []
+    for planes in smoke_frames_b():
+        efs += enc.push_frame(planes)
+    efs += enc.flush()
+    _write("golden_1080p_b.json", smoke_params_b(),
+           [enc.headers()] + [ef.au for ef in efs], [ef.poc for ef in efs])
+
+
 if __name__ == "__main__":
-    main()
+    ippp()
+    bslice()

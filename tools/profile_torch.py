@@ -1,9 +1,12 @@
-"""Where the time of x265_tpu_torch's 1080p IPPP slice goes, on one GPU.
+"""Where the time of x265_tpu_torch's 1080p slices goes, on one GPU.
 
-    python3 tools/profile_torch.py [--frames 4] [--out chiprun_out/profile.json]
+    python3 tools/profile_torch.py [--slice ippp|b] [--frames N]
+                                   [--out chiprun_out/profile.json]
 
-Three encodes of the chip_smoke slice (1080p, Params() defaults with
-bframes=0, encode_frame):
+Three encodes of a chip_smoke slice (1080p, Params() defaults): ``ippp``
+(bframes=0, 4 frames through encode_frame) or ``b`` (bframes=4 with
+b-pyramid and the lookahead off, 6 frames through push_frame / flush:
+I0 P5 B3 B1+B2 B4):
   1. warm-up;
   2. torch.profiler over CPU and CUDA: device time by kernel name, the
      device-busy sum and the idle share of the wall time, and the port's
@@ -56,7 +59,8 @@ def _instrument(stats):
     def tools(enc):
         t = dict(itb(enc))
         t["me"] = _timed(stats, "motion search (incl. K2)", t["me"])
-        for k in ("eval_mv", "eval_mv_ps", "chroma_pred"):
+        for k in ("eval_mv", "eval_mv_ps", "chroma_pred", "chroma_pred_ps",
+                  "bi_avg"):
             t[k] = _timed(stats, "inter MC / uniformization", t[k])
         return t
     dp._inter_tools_builder = tools
@@ -82,24 +86,32 @@ def _instrument(stats):
                                          weights.analyse_luma_weight)
 
 
-def _encode(frames):
+def _encode(frames, bslice):
     import torch
     from x265_tpu_torch import Encoder, Params
-    from x265_tpu_torch.smoke_config import smoke_params
+    from x265_tpu_torch.smoke_config import smoke_params, smoke_params_b
 
-    enc = Encoder(Params(**smoke_params()), device="cuda")
+    params = smoke_params_b() if bslice else smoke_params()
+    enc = Encoder(Params(**params), device="cuda")
     enc.headers()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for planes in frames:
-        enc.encode_frame(planes)
+        if bslice:
+            enc.push_frame(planes)
+        else:
+            enc.encode_frame(planes)
+    if bslice:
+        enc.flush()
     torch.cuda.synchronize()
     return time.perf_counter() - t0
 
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--frames", type=int, default=4)
+    ap.add_argument("--slice", choices=("ippp", "b"), default="ippp")
+    ap.add_argument("--frames", type=int, default=None,
+                    help="frames to encode (4 for ippp, 6 for b)")
     ap.add_argument("--out", default=os.path.join(ROOT, "chiprun_out",
                                                   "profile.json"))
     args = ap.parse_args()
@@ -108,16 +120,19 @@ def main():
         raise SystemExit("profile_torch: no CUDA device")
     from torch.profiler import ProfilerActivity, profile
     from x265_tpu_torch.smoke_config import smoke_frames
+    bslice = args.slice == "b"
+    if args.frames is None:
+        args.frames = 6 if bslice else 4
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     frames = smoke_frames(args.frames)
-    warm = _encode(frames)
+    warm = _encode(frames, bslice)
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        prof_wall = _encode(frames)
+        prof_wall = _encode(frames, bslice)
     from torch.autograd import DeviceType
     by_kernel = defaultdict(float)
     own = defaultdict(lambda: dict(ms=0.0, launches=0))
@@ -133,12 +148,13 @@ def main():
 
     stats = defaultdict(float)
     _instrument(stats)
-    staged = _encode(frames)
+    staged = _encode(frames, bslice)
     stages = {k: v * 1e3 for k, v in sorted(stats.items(),
                                             key=lambda kv: -kv[1])}
     stages["other"] = staged * 1e3 - sum(stages.values())
 
-    out = dict(device=smi, frames=args.frames, warm_s=warm,
+    out = dict(device=smi, slice=args.slice, frames=args.frames,
+               warm_s=warm,
                wall_ms=prof_wall * 1e3, fps=args.frames / prof_wall,
                device_busy_ms=busy,
                idle_share=1.0 - busy / (prof_wall * 1e3),
@@ -148,9 +164,9 @@ def main():
     os.makedirs(os.path.dirname(args.out), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(out, f, indent=1)
-    print(f"{smi}: {args.frames} frames, profiled wall {prof_wall * 1e3:.1f}"
-          f" ms ({args.frames / prof_wall:.3f} fps), device busy {busy:.1f}"
-          f" ms, idle share {out['idle_share']:.3f}")
+    print(f"{smi}: {args.slice} {args.frames} frames, profiled wall "
+          f"{prof_wall * 1e3:.1f} ms ({args.frames / prof_wall:.3f} fps), "
+          f"device busy {busy:.1f} ms, idle share {out['idle_share']:.3f}")
     for k, v in sorted(own.items()):
         print(f"  {k}: {v['ms']:.3f} ms over {v['launches']} launches")
     for k, v in top:

@@ -82,11 +82,12 @@ def _build(compiler: list, flags: list, tag: str) -> str:
 def _bind(path: str):
     lib = ctypes.CDLL(path)
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.k1_ctu_step.argtypes = [ctypes.POINTER(vp), ci, ci, ci, ci, ci, vp]
+    lib.k1_ctu_step.argtypes = [ctypes.POINTER(vp), ci, ci, ci, ci, ci, ci,
+                                vp]
     lib.k1_ctu_step.restype = ci
     lib.k1_smem_bytes.argtypes = []
     lib.k1_smem_bytes.restype = ci
-    lib.k2_subpel_refine.argtypes = [vp] * 9 + [ci, ci, ci, vp]
+    lib.k2_subpel_refine.argtypes = [vp] * 9 + [ci, ci, ci, ci, vp]
     lib.k2_subpel_refine.restype = ci
     lib.k_error_string.argtypes = [ci]
     lib.k_error_string.restype = ctypes.c_char_p

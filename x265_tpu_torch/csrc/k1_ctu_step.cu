@@ -48,7 +48,12 @@
 //     cx + 2 cy = const, so a lane writes rowf[cx], colf[cy] and
 //     corn[cx + 1][cy & 1], which no other real lane of the level reads
 //     (dummy lanes, cx == cw, all compute the same values from nothing but
-//     padding, and no real lane depends on what they write).
+//     padding, and no real lane depends on what they write);
+//   * one launch may carry the lanes of F frames (the batched B frames of
+//     a mini-GOP): L = F x the level's lanes, frame-major, and each frame
+//     has its own frontiers, so lane l reads and writes only those of
+//     frame l / (L / F).  The level of a frame puts at most 15 blocks on
+//     132 SMs, so F frames' lanes cost about one frame's launch.
 // The int16 buffers hold what the plain step holds in int32: residuals of
 // 8-bit samples and predictions, the forward rows' outputs (at most
 // 255 * 64 * n >> (log2 n - 1) = 32640), clipped dequant levels and
@@ -99,7 +104,7 @@ struct K1Args {
   int *lv16, *lv8, *lv32, *lvc16, *sel32, *int_y, *int_c;
   int *nrowf, *ncolf, *nrowfb, *ncolfb, *nrowfr, *ncolfr;
   const int* Tp;  // the packed transform matrices (see K1Smem::Tp)
-  int L, cw, ch, flags;
+  int L, F, cw, ch, flags;  // L lanes of F frames, frame-major
 };
 
 // chains of one quad: the 32x32 candidate, four slots, the TU32 trial
@@ -619,6 +624,12 @@ KDEV void k1_lane(K1Smem* s, const K1Args& a, int l) {
   const bool psy = a.flags & K1_PSY, sh = a.flags & K1_SIGN_HIDE;
   const bool strong = a.flags & K1_STRONG;
   const int cx = a.cx[l], cy = a.cy[l];
+  // the lane's frame: lanes are frame-major, L / F to a frame; its
+  // frontiers lie at these offsets of rows [F][cw + 1][64 | 32], columns
+  // [F][ch + 1][64 | 32] and corners [F][cw + 2][2]
+  const int frame = l / (L / a.F);
+  const int rowst = frame * (a.cw + 1), colst = frame * (a.ch + 1);
+  const int cornst = frame * (a.cw + 2) * 2;
   const int cx1 = cx + 1 < a.cw ? cx + 1 : a.cw;
   const int par = (cy - 1) & 1;
   const int qpy = a.qp_y[l];
@@ -682,27 +693,27 @@ KDEV void k1_lane(K1Smem* s, const K1Args& a, int l) {
     if (f < 193) {
       if (f < 128) {
         d = s->C + 1 + f;
-        v = f < 64 ? a.rowf[cx * 64 + f] : a.rowf[cx1 * 64 + f - 64];
+        v = a.rowf[rowst * 64 + (f < 64 ? cx * 64 + f : cx1 * 64 + f - 64)];
       } else if (f < 192) {
         d = s->C + (f - 127) * CW_;
-        v = a.colf[cy * 64 + f - 128];
+        v = a.colf[colst * 64 + cy * 64 + f - 128];
       } else {
         d = s->C;
-        v = a.cornf[cx * 2 + par];
+        v = a.cornf[cornst + cx * 2 + par];
       }
     } else {
       const int p = (f - 193) / 97, g = f - 193 - 97 * p;
-      const int* rowfc = p ? a.rowfr : a.rowfb;
+      const int* rowfc = (p ? a.rowfr : a.rowfb) + rowst * 32;
       short* Cp = s->Cc + p * CHC * CWC;
       if (g < 64) {
         d = Cp + 1 + g;
         v = g < 32 ? rowfc[cx * 32 + g] : rowfc[cx1 * 32 + g - 32];
       } else if (g < 96) {
         d = Cp + (g - 63) * CWC;
-        v = (p ? a.colfr : a.colfb)[cy * 32 + g - 64];
+        v = (p ? a.colfr : a.colfb)[colst * 32 + cy * 32 + g - 64];
       } else {
         d = Cp;
-        v = (p ? a.cornfr : a.cornfb)[cx * 2 + par];
+        v = (p ? a.cornfr : a.cornfb)[cornst + cx * 2 + par];
       }
     }
     *d = (short)v;
@@ -908,26 +919,26 @@ KDEV void k1_lane(K1Smem* s, const K1Args& a, int l) {
         s->Cc[p * CHC * CWC + (1 + (j >> 5)) * CWC + 1 + (j & 31)];
   }
   for (int k = KTID; k < 64; k += KNTH) {
-    a.nrowf[cx * 64 + k] = s->C[64 * CW_ + 1 + k];
-    a.ncolf[cy * 64 + k] = s->C[(1 + k) * CW_ + 64];
+    a.nrowf[rowst * 64 + cx * 64 + k] = s->C[64 * CW_ + 1 + k];
+    a.ncolf[colst * 64 + cy * 64 + k] = s->C[(1 + k) * CW_ + 64];
   }
-  int* nrowc[2] = {a.nrowfb, a.nrowfr};
-  int* ncolc[2] = {a.ncolfb, a.ncolfr};
+  int* nrowc[2] = {a.nrowfb + rowst * 32, a.nrowfr + rowst * 32};
+  int* ncolc[2] = {a.ncolfb + colst * 32, a.ncolfr + colst * 32};
   for (int k = KTID; k < 64; k += KNTH) {
     const int p = k >> 5, j = k & 31;
     nrowc[p][cx * 32 + j] = s->Cc[p * CHC * CWC + 32 * CWC + 1 + j];
     ncolc[p][cy * 32 + j] = s->Cc[p * CHC * CWC + (1 + j) * CWC + 32];
   }
   if (KTID == 0) {
-    const int slot = (cx + 1) * 2 + (cy & 1);
+    const int slot = cornst + (cx + 1) * 2 + (cy & 1);
     a.cornf[slot] = s->C[64 * CW_ + 64];
     a.cornfb[slot] = s->Cc[32 * CWC + 32];
     a.cornfr[slot] = s->Cc[CHC * CWC + 32 * CWC + 32];
   }
 }
 
-static void k1_unpack(K1Args* a, void* const* p, int L, int cw, int ch,
-                      int flags) {
+static void k1_unpack(K1Args* a, void* const* p, int L, int F, int cw,
+                      int ch, int flags) {
   int k = 0;
 #define NEXT(T) ((T)p[k++])
   a->cx = NEXT(const int*); a->cy = NEXT(const int*);
@@ -955,7 +966,7 @@ static void k1_unpack(K1Args* a, void* const* p, int L, int cw, int ch,
   a->ncolfb = NEXT(int*); a->nrowfr = NEXT(int*); a->ncolfr = NEXT(int*);
   a->Tp = NEXT(const int*);
 #undef NEXT
-  a->L = L; a->cw = cw; a->ch = ch; a->flags = flags;
+  a->L = L; a->F = F; a->cw = cw; a->ch = ch; a->flags = flags;
 }
 
 #define K1_NPTRS 45
@@ -968,11 +979,11 @@ __global__ void __launch_bounds__(K1_THREADS) k1_kernel(K1Args a) {
   K1_LANE_END();
 }
 
-extern "C" int k1_ctu_step(void* const* p, int np, int L, int cw, int ch,
-                           int flags, void* stream) {
-  if (np != K1_NPTRS) return -1;
+extern "C" int k1_ctu_step(void* const* p, int np, int L, int F, int cw,
+                           int ch, int flags, void* stream) {
+  if (np != K1_NPTRS || F < 1 || L % F) return -1;
   K1Args a;
-  k1_unpack(&a, p, L, cw, ch, flags);
+  k1_unpack(&a, p, L, F, cw, ch, flags);
   static bool attr_set = false;
   if (!attr_set) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -987,12 +998,12 @@ extern "C" int k1_ctu_step(void* const* p, int np, int L, int cw, int ch,
 
 extern "C" int k1_smem_bytes() { return (int)sizeof(K1Smem); }
 #else
-extern "C" int k1_ctu_step(void* const* p, int np, int L, int cw, int ch,
-                           int flags, void* stream) {
+extern "C" int k1_ctu_step(void* const* p, int np, int L, int F, int cw,
+                           int ch, int flags, void* stream) {
   (void)stream;
-  if (np != K1_NPTRS) return -1;
+  if (np != K1_NPTRS || F < 1 || L % F) return -1;
   K1Args a;
-  k1_unpack(&a, p, L, cw, ch, flags);
+  k1_unpack(&a, p, L, F, cw, ch, flags);
   K1Smem* s = (K1Smem*)malloc(sizeof(K1Smem));
   for (int l = 0; l < L; ++l) k1_lane(s, a, l);
   free(s);

@@ -11,9 +11,12 @@
 // >= 2: step 2 then step 1 around the winner).  Each candidate: the exact
 // separable 8-tap luma MC (horizontal sums, then vertical, +2048 >> 12,
 // clip 0..255), the 4x4 Hadamard SATD ((sum |H d H^T| + 1) >> 1 per 4x4),
-// cost = fma(lam, bits(dy) + bits(dx), satd) with bits from the float32
-// mv_bits table and d = mvi * 4 + q - pmv; candidates beyond 4 * mrq qpel
-// cost 2^30.  The first of equal costs wins.
+// cost = fma(lam, bits(dy) + bits(dx), satd) with the block's lambda
+// (lam[b * lam_stride]: stride 1 when a launch carries the blocks of
+// several frames, each with its frame's lambda; 0 for one lambda), bits
+// from the float32 mv_bits table and
+// d = mvi * 4 + q - pmv; candidates beyond 4 * mrq qpel cost 2^30.  The
+// first of equal costs wins.
 //
 // What bounds it on an H100: its operations.  At the 1080p shapes (B =
 // 8160 blocks a reference) the interpolation, each filtered sample that a
@@ -27,10 +30,11 @@
 // candidate of a round (9, then 8), and the shared passes (120 horizontal
 // tasks, 297 plane tasks) take one or two strides of the block:
 //   * staging: every thread copies its own words of the window (two rows
-//     of one column), of the source block and of the 14 mv_bits entries
-//     the block's candidates can read with 4-byte cp.async, waits for its
-//     own copies and lays the window out as bytes (rows 0..23, the only
-//     ones |q| <= 3 reaches) and as int16 row pairs;
+//     of one column), of the source block, of the 14 mv_bits entries
+//     the block's candidates can read and of its lambda (in shared memory
+//     it holds no register) with 4-byte cp.async, waits for its own
+//     copies and lays the window out as bytes (rows 0..23, the only ones
+//     |q| <= 3 reaches) and as int16 row pairs;
 //   * each round's candidates are evaluated together from shared filtered
 //     samples.  Horizontal pass: dp4a of 8-bit samples (unsigned) and
 //     signed taps, two per sample, for the phases the block needs (2; and
@@ -149,6 +153,7 @@ struct K2Smem {
   short Hp[4][K2_ROWS / 2 * K2_HS * 2];
   float cost[2][9];
   float bits[2][7];           // mv bits of mv * 4 + q - pmv, q = -3..3
+  float lam;                  // the block's lambda
   // the round-1 planes (fy, fx) = (0, 0), (0, 2), (2, 0), (2, 2): final
   // samples of candidate q at row iy1 + y, column ix1 + x
   u8 P[4][17 * K2_PS];
@@ -157,7 +162,6 @@ struct K2Smem {
 
 struct K2Blk {
   int mvy, mvx, pmvy, pmvx, mrq;
-  float lam;
 };
 
 // index in the mv_bits table of the component d = mv * 4 + q - pmv; where
@@ -174,16 +178,16 @@ KDEV float k2_cost(const K2Smem* s, int satd, int qy, int qx,
   if (k_abs(mqy) > 4 * k.mrq || k_abs(mqx) > 4 * k.mrq) return 1073741824.0f;
   KCHECK(k_abs(mqy - k.pmvy) < K2_MVB && k_abs(mqx - k.pmvx) < K2_MVB);
   const float bits = s->bits[0][qy + 3] + s->bits[1][qx + 3];
-  return KFMA(k.lam, bits, k_i2f(satd));
+  return KFMA(s->lam, bits, k_i2f(satd));
 }
 
-// Copy the block's window rows 0..23, its source block and the 14 mv_bits
-// entries its candidates can read in (cp.async, each thread its own
-// words), then lay the window out as bytes (Wb) and as the phase-0 row
+// Copy the block's window rows 0..23, its source block, the 14 mv_bits
+// entries its candidates can read and its lambda in (cp.async, each thread
+// its own words), then lay the window out as bytes (Wb) and as the phase-0 row
 // pairs (Hp[0]) from the words this thread copied itself; one block
 // barrier after it covers all of it.
 KDEV void k2_stage(K2Smem* s, const int* W, const int* ob, const float* mvb,
-                   const K2Blk& k) {
+                   const float* lam, const K2Blk& k) {
   u8* wb = (u8*)s->Wb;
   const int npair = K2_ROWS / 2 * K2_WIN;  // 300 >= 256 >= 14
   for (int t = KTID; t < npair; t += KNTH) {
@@ -197,6 +201,7 @@ KDEV void k2_stage(K2Smem* s, const int* W, const int* ob, const float* mvb,
                     mvb + (t < 7 ? k2_bits_index(k.mvy, q, k.pmvy)
                                  : k2_bits_index(k.mvx, q, k.pmvx)));
     }
+    if (t == 14) k_copy4_async(&s->lam, lam);
   }
   k_copy_async_wait();
   for (int t = KTID; t < npair; t += KNTH) {
@@ -378,11 +383,11 @@ KDEV const u8* k2_plane(K2Smem* s, int qy, int qx) {
 KDEV void k2_block(K2Smem* s, int b, const int* W, const int* ob,
                    const int* mvi, const int* pmv, const float* lam_p,
                    const float* mvb, int* q0, int* pred, float* cost,
-                   int subme, int mrq) {
+                   int subme, int mrq, int lam_stride) {
   const K2Blk blk{mvi[2 * b], mvi[2 * b + 1], pmv[2 * b], pmv[2 * b + 1],
-                  mrq, lam_p[0]};
+                  mrq};
   k2_stage(s, W + (int64_t)b * K2_WIN * K2_WIN, ob + (int64_t)b * K2_N * K2_N,
-           mvb, blk);
+           mvb, lam_p + (int64_t)b * lam_stride, blk);
   KSYNC();
   if (subme >= 1) {
     k2_hpass(s, subme);
@@ -460,11 +465,11 @@ KDEV void k2_block(K2Smem* s, int b, const int* W, const int* ob,
 __global__ void __launch_bounds__(K2_THREADS, 8)
     k2_kernel(const int* W, const int* ob, const int* mvi, const int* pmv,
               const float* lam, const float* mvb, int* q0, int* pred,
-              float* cost, int subme, int mrq) {
+              float* cost, int subme, int mrq, int lam_stride) {
   __shared__ __align__(16) K2Smem s;
   K2_BLOCK_START();
   k2_block(&s, blockIdx.x, W, ob, mvi, pmv, lam, mvb, q0, pred, cost, subme,
-           mrq);
+           mrq, lam_stride);
   K2_BLOCK_END();
 }
 
@@ -472,10 +477,10 @@ extern "C" int k2_subpel_refine(const int* W, const int* ob, const int* mvi,
                                 const int* pmv, const float* lam,
                                 const float* mvb, int* q0, int* pred,
                                 float* cost, int B, int subme, int mrq,
-                                void* stream) {
+                                int lam_stride, void* stream) {
   if (B > 0)
     k2_kernel<<<B, K2_THREADS, 0, (cudaStream_t)stream>>>(
-        W, ob, mvi, pmv, lam, mvb, q0, pred, cost, subme, mrq);
+        W, ob, mvi, pmv, lam, mvb, q0, pred, cost, subme, mrq, lam_stride);
   return (int)cudaGetLastError();
 }
 #else
@@ -483,11 +488,12 @@ extern "C" int k2_subpel_refine(const int* W, const int* ob, const int* mvi,
                                 const int* pmv, const float* lam,
                                 const float* mvb, int* q0, int* pred,
                                 float* cost, int B, int subme, int mrq,
-                                void* stream) {
+                                int lam_stride, void* stream) {
   (void)stream;
   K2Smem* s = (K2Smem*)malloc(sizeof(K2Smem));
   for (int b = 0; b < B; ++b)
-    k2_block(s, b, W, ob, mvi, pmv, lam, mvb, q0, pred, cost, subme, mrq);
+    k2_block(s, b, W, ob, mvi, pmv, lam, mvb, q0, pred, cost, subme, mrq,
+             lam_stride);
   free(s);
   return 0;
 }

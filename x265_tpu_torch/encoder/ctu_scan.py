@@ -222,10 +222,13 @@ class CtuScan:
         """Returns step(carry, xs) -> (carry, ys) for one wavefront level.
 
         carry: (rowf, colf, cornf, rowfb, colfb, cornfb, rowfr, colfr,
-        cornfr) frontier buffers.  xs: the level's [L, ...] lane inputs
-        (see ``CtuScan.level_inputs``).  ys: (lv16 [nslots, L, 16, 16],
-        lv8 [nslots, 2L, 8, 8], lv32 [nq, L, 32, 32], lvc16 [nq, 2L, 16,
-        16], sel32 [nq, L], int_y [L, ctb, ctb], int_c [2L, ctbc, ctbc])."""
+        cornfr) frontier buffers of F frames (rowf [F, cw + 1, ctb], colf
+        [F, ch + 1, ctb], cornf [F, cw + 2, 2], the chroma planes' at
+        ctb / 2).  xs: the level's [L, ...] lane inputs, frame-major (lane
+        l belongs to frame l // (L / F); see ``scan_fn``).  ys: (lv16
+        [nslots, L, 16, 16], lv8 [nslots, 2L, 8, 8], lv32 [nq, L, 32, 32],
+        lvc16 [nq, 2L, 16, 16], sel32 [nq, L], int_y [L, ctb, ctb], int_c
+        [2L, ctbc, ctbc])."""
         t = self.t
         bd = self.bit_depth
         g = t["geom"]
@@ -308,18 +311,21 @@ class CtuScan:
             ones_2l = torch.ones((2 * L,), dtype=torch.bool, device=dev)
             lv16_o, lv8_o, lv32_o, lvc16_o, u32_o = [], [], [], [], []
 
+            fi = torch.arange(L, device=dev) // (L // rowf.shape[0])
             cx1 = torch.clamp(cx + 1, max=cw)
             par = (cy - 1) & 1
             C = torch.zeros((L, CH_, CW_), dtype=torch.int32, device=dev)
-            C[:, 0, 1:1 + 2 * ctb] = torch.cat([rowf[cx], rowf[cx1]], 1)
-            C[:, 1:1 + ctb, 0] = colf[cy]
-            C[:, 0, 0] = cornf[cx, par]
+            C[:, 0, 1:1 + 2 * ctb] = torch.cat([rowf[fi, cx], rowf[fi, cx1]],
+                                               1)
+            C[:, 1:1 + ctb, 0] = colf[fi, cy]
+            C[:, 0, 0] = cornf[fi, cx, par]
             Cc = torch.zeros((2 * L, CHC, CWC), dtype=torch.int32, device=dev)
             Cc[:, 0, 1:1 + 2 * ctbc] = torch.cat([
-                torch.cat([rowfb[cx], rowfb[cx1]], 1),
-                torch.cat([rowfr[cx], rowfr[cx1]], 1)])
-            Cc[:, 1:1 + ctbc, 0] = torch.cat([colfb[cy], colfr[cy]])
-            Cc[:, 0, 0] = torch.cat([cornfb[cx, par], cornfr[cx, par]])
+                torch.cat([rowfb[fi, cx], rowfb[fi, cx1]], 1),
+                torch.cat([rowfr[fi, cx], rowfr[fi, cx1]], 1)])
+            Cc[:, 1:1 + ctbc, 0] = torch.cat([colfb[fi, cy], colfr[fi, cy]])
+            Cc[:, 0, 0] = torch.cat([cornfb[fi, cx, par],
+                                     cornfr[fi, cx, par]])
 
             for q in range(n_quads):
                 qx, qy = quad_orig[q]
@@ -431,18 +437,18 @@ class CtuScan:
             rowf, colf, cornf = rowf.clone(), colf.clone(), cornf.clone()
             rowfb, colfb, cornfb = rowfb.clone(), colfb.clone(), cornfb.clone()
             rowfr, colfr, cornfr = rowfr.clone(), colfr.clone(), cornfr.clone()
-            rowf[cx] = C[:, ctb, 1:1 + ctb]
-            colf[cy] = C[:, 1:1 + ctb, ctb]
-            cornf[cx + 1, cy & 1] = C[:, ctb, ctb]
+            rowf[fi, cx] = C[:, ctb, 1:1 + ctb]
+            colf[fi, cy] = C[:, 1:1 + ctb, ctb]
+            cornf[fi, cx + 1, cy & 1] = C[:, ctb, ctb]
             botc = Cc[:, ctbc, 1:1 + ctbc]
             rightc = Cc[:, 1:1 + ctbc, ctbc]
             cc = Cc[:, ctbc, ctbc]
-            rowfb[cx] = botc[:L]
-            rowfr[cx] = botc[L:]
-            colfb[cy] = rightc[:L]
-            colfr[cy] = rightc[L:]
-            cornfb[cx + 1, cy & 1] = cc[:L]
-            cornfr[cx + 1, cy & 1] = cc[L:]
+            rowfb[fi, cx] = botc[:L]
+            rowfr[fi, cx] = botc[L:]
+            colfb[fi, cy] = rightc[:L]
+            colfr[fi, cy] = rightc[L:]
+            cornfb[fi, cx + 1, cy & 1] = cc[:L]
+            cornfr[fi, cx + 1, cy & 1] = cc[L:]
 
             def stack(v):
                 return torch.stack(v) if v else None
@@ -463,7 +469,9 @@ class CtuScan:
         """Returns run(...) -> (rec_y, rec_cb, rec_cr, lv16_y, lv8_cb,
         lv8_cr, lv32_y, lv16_cb, lv16_cr, use32, tu8, None), the
         reference's ``scan_fn`` contract.  Inputs are torch tensors on
-        one device; ``lam`` [nctb] float32 SSD-domain lambdas with
+        one device, of one frame or of F frames on a leading dimension
+        (the outputs then have it too; each level is one step over the
+        F x L lanes); ``lam`` [nctb] float32 SSD-domain lambdas with
         decide32; ``is_inter`` / ``ipred_*`` / ``m32_in`` with ``inter``.
         ``allow_kernel=False`` runs the plain step on any device."""
         if rqt:
@@ -499,58 +507,73 @@ class CtuScan:
                     "x265_tpu_torch: noise reduction is not ported")
             dev = oy.device
             i32 = torch.int32
+            # one frame, or F frames on a leading dimension: each level is
+            # one step over the F x L lanes of the frames (frame-major)
+            batched = oy.dim() == 3
+            F = oy.shape[0] if batched else 1
 
-            def padded(x, tail):
-                return torch.cat([x, torch.zeros((1,) + tail, dtype=x.dtype,
-                                                 device=dev)])
+            def fr(x):
+                return x if batched else x[None]
+
+            def lev(x, tab):
+                """[nl, F * L, ...] level stream of per-frame blocks x [F,
+                N, ...] (row N: the zero block of dummy entries)."""
+                x = torch.cat([x, torch.zeros((F, 1) + tuple(x.shape[2:]),
+                                              dtype=x.dtype, device=dev)],
+                              1)[:, tab]
+                return x.transpose(0, 1).reshape(
+                    (n_levels, F * lmax) + tuple(x.shape[3:]))
 
             def T(a):
                 return torch.as_tensor(a, device=dev)
 
+            def static(a):
+                a = T(a)
+                return a.repeat((1, F) + (1,) * (a.dim() - 2))
+
             b16t = T(t["xs"]["b16"]).long()
             ctut = T(t["xs"]["ctu"]).long()
-            xs = {k: T(t["xs"][k]) for k in ("cx", "cy", "l16_av", "c8_av",
-                                              "l32_av", "c16_av", "quad_ok")}
-            xs["o16y"] = padded(_to_blocks(oy.to(i32), 16), (16, 16))[b16t]
-            o8cb = padded(_to_blocks(ocb.to(i32), 8), (8, 8))[b16t]
-            o8cr = padded(_to_blocks(ocr.to(i32), 8), (8, 8))[b16t]
-            xs["o8c"] = torch.stack([o8cb, o8cr], 3)    # [nl, L, ns, 2, 8, 8]
-            xs["m16"] = padded(mode16.to(i32), ())[b16t]
-            xs["qp_y"] = padded(qp_y.to(i32), ())[ctut]
-            xs["qp_cb"] = padded(qp_cb.to(i32), ())[ctut]
-            xs["qp_cr"] = padded(qp_cr.to(i32), ())[ctut]
+            oy, ocb, ocr = (fr(x).to(i32) for x in (oy, ocb, ocr))
+            xs = {k: static(t["xs"][k]) for k in (
+                "cx", "cy", "l16_av", "c8_av", "l32_av", "c16_av",
+                "quad_ok")}
+            xs["o16y"] = lev(_to_blocks(oy, 16), b16t)
+            xs["o8c"] = torch.stack([lev(_to_blocks(ocb, 8), b16t),
+                                     lev(_to_blocks(ocr, 8), b16t)], 3)
+            xs["m16"] = lev(fr(mode16).to(i32), b16t)
+            xs["qp_y"] = lev(fr(qp_y).to(i32), ctut)
+            xs["qp_cb"] = lev(fr(qp_cb).to(i32), ctut)
+            xs["qp_cr"] = lev(fr(qp_cr).to(i32), ctut)
             if has32:
                 b32t = T(t["xs"]["b32"]).long()
-                xs["o32y"] = padded(_to_blocks(oy.to(i32), 32),
-                                    (32, 32))[b32t]
-                xs["o16cb"] = padded(_to_blocks(ocb.to(i32), 16),
-                                     (16, 16))[b32t]
-                xs["o16cr"] = padded(_to_blocks(ocr.to(i32), 16),
-                                     (16, 16))[b32t]
-                xs["m32"] = padded(mode32.to(i32), ())[b32t]
+                xs["o32y"] = lev(_to_blocks(oy, 32), b32t)
+                xs["o16cb"] = lev(_to_blocks(ocb, 16), b32t)
+                xs["o16cr"] = lev(_to_blocks(ocr, 16), b32t)
+                xs["m32"] = lev(fr(mode32).to(i32), b32t)
                 if not decide32:
-                    xs["use32"] = padded(use32.to(torch.bool), ())[b32t]
+                    xs["use32"] = lev(fr(use32).to(torch.bool), b32t)
             if decide32:
-                lam_c = padded(lam.to(torch.float32), ())[ctut]
+                lam_c = lev(fr(lam).to(torch.float32), ctut)
                 xs["lam"] = lam_c
                 if psy:
                     # SAD-domain psy lambda: psyRd * 0.33 * sqrt(lam / 0.85)
                     xs["plam"] = (f32(self.psy_rd * 0.33, dev)
                                   * torch.sqrt(lam_c * f32(_INV_085, dev)))
             if inter:
-                xs["inter"] = padded(is_inter.to(torch.bool), ())[b16t]
-                xs["ipy"] = padded(ipred_y.to(i32), (16, 16))[b16t]
-                ipcb = padded(ipred_cb.to(i32), (8, 8))[b16t]
-                ipcr = padded(ipred_cr.to(i32), (8, 8))[b16t]
-                xs["ipc"] = torch.stack([ipcb, ipcr], 3)
+                xs["inter"] = lev(fr(is_inter).to(torch.bool), b16t)
+                xs["ipy"] = lev(fr(ipred_y).to(i32), b16t)
+                xs["ipc"] = torch.stack([lev(fr(ipred_cb).to(i32), b16t),
+                                         lev(fr(ipred_cr).to(i32), b16t)],
+                                        3)
                 if decide32:
-                    m32b = (torch.zeros((B32,), dtype=torch.bool, device=dev)
-                            if m32_in is None else m32_in.to(torch.bool))
-                    xs["m32_in"] = padded(m32b.reshape(-1), ())[b32t]
+                    m32b = (torch.zeros((F, B32), dtype=torch.bool,
+                                        device=dev)
+                            if m32_in is None else fr(m32_in).to(torch.bool))
+                    xs["m32_in"] = lev(m32b.reshape(F, -1), b32t)
             xs = {k: v.contiguous() for k, v in xs.items()}
 
             def z(*shape):
-                return torch.zeros(shape, dtype=i32, device=dev)
+                return torch.zeros((F,) + shape, dtype=i32, device=dev)
 
             carry = (z(cw + 1, ctb), z(ch + 1, ctb), z(cw + 2, 2),
                      z(cw + 1, ctbc), z(ch + 1, ctbc), z(cw + 2, 2),
@@ -567,6 +590,28 @@ class CtuScan:
             (lv16_s, lv8_s, lv32_s, lvc16_s, u32_s, int_y, int_c) = (
                 torch.stack([y[k] for y in ys_all]) if ys_all[0][k]
                 is not None else None for k in range(7))
+            outs = [frame_outputs(
+                *(None if v is None else v.narrow(dim, f * lmax, lmax)
+                  for v, dim in ((lv16_s, 2), (lv32_s, 2), (u32_s, 2),
+                                 (int_y, 1))),
+                *(None if v is None else v.reshape(
+                    v.shape[:dim] + (2, F, lmax) + v.shape[dim + 1:]).select(
+                        dim + 1, f)
+                  for v, dim in ((lv8_s, 2), (lvc16_s, 2), (int_c, 1))))
+                for f in range(F)]
+            if not batched:
+                return outs[0]
+            return tuple(None if o[0] is None else torch.stack(o)
+                         for o in zip(*outs))
+
+        def frame_outputs(lv16_s, lv32_s, u32_s, int_y, lv8_s, lvc16_s,
+                          int_c):
+            """One frame's outputs from its lanes of the level stacks (the
+            chroma stacks as [..., 2, lmax, ...])."""
+            dev = int_y.device
+
+            def T(a):
+                return torch.as_tensor(a, device=dev)
 
             def tiles_to_plane(tiles, size):
                 flat = torch.cat([tiles.reshape(-1, size, size),
@@ -579,7 +624,6 @@ class CtuScan:
 
             out_dtype = torch.uint8
             rec_y = tiles_to_plane(int_y, ctb).to(out_dtype)
-            int_c = int_c.reshape(n_levels, 2, lmax, ctbc, ctbc)
             rec_cb = tiles_to_plane(int_c[:, 0], ctbc).to(out_dtype)
             rec_cr = tiles_to_plane(int_c[:, 1], ctbc).to(out_dtype)
 
@@ -591,14 +635,12 @@ class CtuScan:
                 return flat[T(inv).long()]
 
             lv16_y = unstack(lv16_s, inv16, 16)
-            lv8 = lv8_s.reshape(n_levels, nslots, 2, lmax, 8, 8)
-            lv8_cb = unstack(lv8[:, :, 0], inv16, 8)
-            lv8_cr = unstack(lv8[:, :, 1], inv16, 8)
+            lv8_cb = unstack(lv8_s[:, :, 0], inv16, 8)
+            lv8_cr = unstack(lv8_s[:, :, 1], inv16, 8)
             if has32:
                 lv32_y = unstack(lv32_s, inv32, 32)
-                lvc = lvc16_s.reshape(n_levels, n_quads, 2, lmax, 16, 16)
-                lv16_cb = unstack(lvc[:, :, 0], inv32, 16)
-                lv16_cr = unstack(lvc[:, :, 1], inv32, 16)
+                lv16_cb = unstack(lvc16_s[:, :, 0], inv32, 16)
+                lv16_cr = unstack(lvc16_s[:, :, 1], inv32, 16)
                 use32_out = torch.cat(
                     [u32_s.reshape(-1),
                      torch.zeros((1,), dtype=torch.bool, device=dev)])[
@@ -614,9 +656,10 @@ class CtuScan:
 
 
 def _to_blocks(pl, n):
-    ph, pw = pl.shape
-    return pl.reshape(ph // n, n, pw // n, n).permute(0, 2, 1, 3).reshape(
-        -1, n, n)
+    """[..., ph, pw] planes -> [..., B, n, n] blocks in raster order."""
+    ph, pw = pl.shape[-2:]
+    return pl.reshape(-1, ph // n, n, pw // n, n).permute(
+        0, 1, 3, 2, 4).reshape(pl.shape[:-2] + (-1, n, n))
 
 
 def _join4(x, m):

@@ -6,16 +6,19 @@ kernel body ``kernel`` at :494, ``pallas_call`` at :927).  Source:
 (``ctu_scan.py``), which the wrapper runs for tensors on the CPU.
 
 Design.  One 768-thread block per lane CTU of the level (L = 15 at 1080p,
-62 levels per frame).  The lane's inputs are staged in shared memory once
-(bulk asynchronous copies for the sample tiles), its reconstruction
-buffers (luma 97x129 and chroma 2x49x65 int16) stay there for the whole
-CTU, and the CTU's 4 quadrants x 4 slots run in z-order inside the block,
-each candidate as one joint luma + chroma TU chain of five barrier-separated
-stages; the source's header comment has the details.  What bounds it on an
-H100: one level puts at most 15 blocks on 132 SMs and each block is one
-chain of dependent stages, so the kernel is bound by the latency of one
-CTU, not by its bytes or its integer MACs (``chip_smoke.py`` prints the
-bound beside the measured time).
+62 levels per frame); a launch may carry the lanes of F frames (the carry
+has a leading frame dimension, lanes are frame-major), so the batched B
+frames of a mini-GOP share one launch per level.  The lane's inputs are
+staged in shared memory once (bulk asynchronous copies for the sample
+tiles), its reconstruction buffers (luma 97x129 and chroma 2x49x65 int16)
+stay there for the whole CTU, and the CTU's 4 quadrants x 4 slots run in
+z-order inside the block, each candidate as one joint luma + chroma TU
+chain of five barrier-separated stages; the source's header comment has
+the details.  What bounds it on an H100: one level of a frame puts at most
+15 blocks on 132 SMs and each block is one chain of dependent stages, so
+the kernel is bound by the latency of one CTU, not by its bytes or its
+integer MACs (``chip_smoke.py`` prints the bound beside the measured
+time).
 
 State.  The kernel writes the new frontier rows, columns and corner
 samples into the carry tensors in place (the lanes of a level touch
@@ -98,6 +101,9 @@ def kernel_args(scan, inter: bool, decide32: bool, carry, xs):
         raise NotImplementedError("K1 covers 8-bit, 64x64 CTBs only")
     psy = scan.psy_rd > 0.0 and decide32
     L = xs["cx"].shape[0]
+    F = carry[0].shape[0]           # frames: L / F lanes each, frame-major
+    if F < 1 or L % F:
+        raise ValueError(f"K1: {L} lanes do not split into {F} frames")
     cw, ch = g.ctbs_w, g.ctbs_h
     i32, b8, f32 = torch.int32, torch.bool, torch.float32
     shapes = dict(cx=(L,), cy=(L,), m16=(L, 16), m32=(L, 4), qp_y=(L,),
@@ -134,15 +140,15 @@ def kernel_args(scan, inter: bool, decide32: bool, carry, xs):
         if xs[k].data_ptr() % 4:
             raise ValueError(f"K1 input {k} is not 4-byte aligned")
     (rowf, colf, cornf, rowfb, colfb, cornfb, rowfr, colfr, cornfr) = carry
-    for nm, x, shp in (("rowf", rowf, (cw + 1, 64)), ("colf", colf,
-                                                        (ch + 1, 64)),
-                       ("rowfb", rowfb, (cw + 1, 32)),
-                       ("colfb", colfb, (ch + 1, 32)),
-                       ("rowfr", rowfr, (cw + 1, 32)),
-                       ("colfr", colfr, (ch + 1, 32)),
-                       ("cornf", cornf, (cw + 2, 2)),
-                       ("cornfb", cornfb, (cw + 2, 2)),
-                       ("cornfr", cornfr, (cw + 2, 2))):
+    for nm, x, shp in (("rowf", rowf, (F, cw + 1, 64)),
+                       ("colf", colf, (F, ch + 1, 64)),
+                       ("rowfb", rowfb, (F, cw + 1, 32)),
+                       ("colfb", colfb, (F, ch + 1, 32)),
+                       ("rowfr", rowfr, (F, cw + 1, 32)),
+                       ("colfr", colfr, (F, ch + 1, 32)),
+                       ("cornf", cornf, (F, cw + 2, 2)),
+                       ("cornfb", cornfb, (F, cw + 2, 2)),
+                       ("cornfr", cornfr, (F, cw + 2, 2))):
         _check(nm, x, i32, shp)
 
     def out(*shape):
@@ -165,7 +171,8 @@ def kernel_args(scan, inter: bool, decide32: bool, carry, xs):
     stream = (torch.cuda.current_stream(dev).cuda_stream
               if dev.type == "cuda" else 0)
     ys = (lv16, lv8, lv32, lvc16, sel32, int_y, int_c)
-    return (arr, len(ptrs), L, cw, ch, flags, ctypes.c_void_p(stream)), ys
+    return (arr, len(ptrs), L, F, cw, ch, flags,
+            ctypes.c_void_p(stream)), ys
 
 
 def _transform_tables():

@@ -1,18 +1,21 @@
-"""Per-frame device pipelines for I and P frames — torch twin of
+"""Per-frame device pipelines for I, P and B frames — torch twin of
 ``x265_tpu.encoder.device_pipeline`` (``build_i_pipeline``,
-``build_p_pipeline`` and their builders).
+``build_p_pipeline``, ``build_b_pipeline`` and their builders).
 
 One call runs a frame's whole device work on the frame's device: 16/32
 35-mode SATD intra analysis, per-reference motion search (quarter-res
 seeds, full-pel SAD search, subpel refine = K2, neighbour adoption),
-ref_idx selection, the CU-merge uniformization, chroma MC, the CTU
-wavefront scan (K1 per level), deblock, SAO and the picture checksums.
-The host receives one dict of small outputs.
+ref_idx selection (P) or the bi trial and direction decision (B), the
+CU-merge uniformization, chroma MC, the CTU wavefront scan (K1 per
+level), deblock, SAO and the picture checksums.  The host receives one
+dict of small outputs.
 
 Per-block windows are plain gathers from the extended reference planes
 (the TPU's static-slice patch tensors and binary window select are not
 needed on a GPU); the TPU's two-program split is one sequence of torch
-calls here.
+calls here.  Where the reference vmaps over the frames of a batched B
+dispatch, the port carries a leading frame dimension: the searches, K2
+and K1 run once for all frames, the analysis and the filters per frame.
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ from .._util import dev_table, f32, fma32
 from ..cabac.ctu import _CHROMA_QP_MAP
 from ..ops.cost import satd
 from ..ops.deblock import deblock_picture, edge_masks_np
-from ..ops.interp import (mc_chroma_batch, mc_chroma_batch_ps,
+from ..ops.interp import (bi_avg, mc_chroma_batch, mc_chroma_batch_ps,
                           mc_luma_batch, mc_luma_batch_ps)
 from ..ops.intra import predict_all_modes, substitute_references
 from ..ops.sao import (eo_valid_masks_np, sao_apply_plane,
@@ -467,87 +470,108 @@ def _inter_tools_builder(enc):
 
     def coarse_seeds(orig, ref_ext):
         """Quarter-res full search: per-block full-pel seeds, multiples
-        of 4 pels within +-RS (zero-motion bias 2 per quarter-pel step)."""
+        of 4 pels within +-RS (zero-motion bias 2 per quarter-pel step).
+        ``orig`` [F, ph, pw]; returns [F * nb, 2]."""
         def box4(pl):
-            h, w = pl.shape
-            return (pl.to(torch.int32).reshape(h // 4, 4, w // 4, 4).sum(
-                (1, 3), dtype=torch.int32) + 8) >> 4
+            h, w = pl.shape[-2:]
+            return (pl.to(torch.int32).reshape(-1, h // 4, 4, w // 4, 4).sum(
+                (2, 4), dtype=torch.int32) + 8) >> 4
 
-        oq = box4(orig)
+        oq = box4(orig)                                     # [F, qh, qw]
         rq = box4(ref_ext[M - RS:M - RS + ph + 2 * RS,
-                          M - RS:M - RS + pw + 2 * RS])
+                          M - RS:M - RS + pw + 2 * RS])[0]
+        F = oq.shape[0]
         qh, qw = ph // 4, pw // 4
         span = 2 * RC + 1
         ar = torch.arange(-RC, RC + 1, device=dev).abs()
         bias = 2 * (ar[:, None] + ar[None, :])
-        cs = torch.empty((span, span, gh, gw), dtype=torch.int32, device=dev)
+        cs = torch.empty((span, span, F, gh, gw), dtype=torch.int32,
+                         device=dev)
         for dy in range(span):
             rows = rq[dy:dy + qh, :]
             cand = rows.unfold(1, qw, 1).permute(1, 0, 2)[:span]
-            d = (oq[None] - cand).abs()
-            cs[dy] = d.reshape(span, gh, 4, gw, 4).sum((2, 4),
-                                                       dtype=torch.int32)
-        cs = cs + bias[:, :, None, None]
-        costs = cs.permute(2, 3, 0, 1).reshape(nb, -1)
+            d = (oq[:, None] - cand[None]).abs()
+            cs[dy] = d.reshape(F, span, gh, 4, gw, 4).sum(
+                (3, 5), dtype=torch.int32).transpose(0, 1)
+        cs = cs + bias[:, :, None, None, None]
+        costs = cs.permute(2, 3, 4, 0, 1).reshape(F * nb, -1)
         return offs_c[torch.argmin(costs, 1)]
+
+    def _tile(a, B):
+        """Per-block constants of one frame repeated for B // nb frames."""
+        return a if B == nb else a.repeat(B // nb)
 
     def me(orig, ref_ext, ob, lam):
         """Per-block motion for one reference: returns (mv [B, 2] (x, y)
-        qpel, cost [B] float32, pred [B, 16, 16])."""
+        qpel, cost [B] float32, pred [B, 16, 16]).  ``orig`` is one frame
+        [ph, pw] or F frames [F, ph, pw] searched against the same
+        reference, ``ob`` their blocks [F * nb, 16, 16], ``lam`` a float32
+        scalar or one per frame [F]: one K2 launch serves all F frames."""
+        orig = orig.reshape(-1, ph, pw)
+        F = orig.shape[0]
+        B = F * nb
+        lam_f = torch.as_tensor(lam, dtype=torch.float32,
+                                device=dev).reshape(-1)
+        lam_b = (lam_f.expand(B) if lam_f.numel() == 1
+                 else lam_f.repeat_interleave(nb))
         if RC:
             seed = coarse_seeds(orig, ref_ext).clamp(-(MRQ - RF), MRQ - RF)
         else:
-            seed = torch.zeros((nb, 2), dtype=torch.int32, device=dev)
+            seed = torch.zeros((B, 2), dtype=torch.int32, device=dev)
         # lambda * mv-bits anchor: median of the west / north / own seeds
-        sg = seed.reshape(gh, gw, 2)
-        sw_ = torch.roll(sg, 1, 1)
-        sn_ = torch.roll(sg, 1, 0)
-        sw_[:, 0] = sg[:, 0]
-        sn_[0, :] = sg[0, :]
+        sg = seed.reshape(F, gh, gw, 2)
+        sw_ = torch.roll(sg, 1, 2)
+        sn_ = torch.roll(sg, 1, 1)
+        sw_[:, :, 0] = sg[:, :, 0]
+        sn_[:, 0, :] = sg[:, 0, :]
         pmv = 4 * (sg + sw_ + sn_ - torch.maximum(torch.maximum(sg, sw_),
                                                   sn_)
                    - torch.minimum(torch.minimum(sg, sw_), sn_)).reshape(
-                       nb, 2)
+                       B, 2)
 
         # full-pel SAD search over the (2RF+1)^2 grid around each seed
         PSF = n + 2 * RF + 9
-        S = _windows(ref_ext, by0 + M - RF - 4 + seed[:, 0],
-                     bx0 + M - RF - 4 + seed[:, 1], PSF).to(torch.int32)
+        S = _windows(ref_ext, _tile(by0, B) + M - RF - 4 + seed[:, 0],
+                     _tile(bx0, B) + M - RF - 4 + seed[:, 1],
+                     PSF).to(torch.int32)
         span = 2 * RF + 1
-        cs = torch.empty((nb, span, span), dtype=torch.int32, device=dev)
+        cs = torch.empty((B, span, span), dtype=torch.int32, device=dev)
         for dy in range(span):
             rows = S[:, 4 + dy:4 + dy + n, 4:4 + span + n - 1]
             cand = rows.unfold(2, n, 1)              # [B, n, span, n]
             cs[:, dy] = (ob[:, :, None, :] - cand).abs().sum(
                 (1, 3), dtype=torch.int32)
         cand_q = 4 * (seed[:, None, :] + offs_f[None])
-        costs = mv_cost(lam, cand_q, pmv[:, None],
-                        cs.reshape(nb, -1).to(torch.float32))
+        costs = mv_cost(lam_b[:, None], cand_q, pmv[:, None],
+                        cs.reshape(B, -1).to(torch.float32))
         idx = torch.argmin(costs, 1)
         dl = offs_f[idx]
         mvi = seed + dl
         W = _block_windows(S, dl[:, 0] + RF, dl[:, 1] + RF, n + 9)
 
+        # K2 takes one lambda, or one per block for several frames
         q0, pred, cost = refine(W.contiguous(), ob.contiguous(),
-                                mvi.contiguous(), pmv.contiguous(), lam,
+                                mvi.contiguous(), pmv.contiguous(),
+                                lam_f if lam_f.numel() == 1 else lam_b,
                                 int(enc.params.subme), MRQ)
         mvq = mvi * 4 + q0
 
         # MV coherence: adopt the west / north neighbour's MV when its
         # total cost wins within a bonus of 4 * lambda
-        merge_bonus = 4.0 * lam
+        merge_bonus = 4.0 * lam_b
         pmv_xy = pmv.flip(1)
+        valids = ((_tile(col_ok, B), 2), (_tile(row_ok, B), 1))
 
         def adopt2(mvq, pred, cost):
             # both candidate fields come from the MVs entering the pass
             # (the north candidates do not see the west adoptions)
-            g2 = mvq.reshape(gh, gw, 2)
+            g2 = mvq.reshape(F, gh, gw, 2)
             cands = [(torch.roll(g2, 1, axis).reshape(-1, 2), valid)
-                     for axis, valid in ((1, col_ok), (0, row_ok))]
+                     for valid, axis in valids]
             for cand, valid in cands:
                 cand = cand.clamp(-4 * MRQ, 4 * MRQ)
                 p1 = eval_mv(ref_ext, cand)
-                c = mv_cost(lam, cand, pmv_xy,
+                c = mv_cost(lam_b, cand, pmv_xy,
                             satd(ob, p1).to(torch.float32))
                 better = (c < cost + merge_bonus) & valid
                 mvq = torch.where(better[:, None], cand, mvq)
@@ -561,8 +585,9 @@ def _inter_tools_builder(enc):
         return mvxy, cost, pred
 
     def _luma_windows(ref_ext, mv):
-        return _windows(ref_ext, by0 + M - 3 + (mv[:, 1] >> 2),
-                        bx0 + M - 3 + (mv[:, 0] >> 2), n + 7)
+        B = mv.shape[0]
+        return _windows(ref_ext, _tile(by0, B) + M - 3 + (mv[:, 1] >> 2),
+                        _tile(bx0, B) + M - 3 + (mv[:, 0] >> 2), n + 7)
 
     def eval_mv_ps(ref_ext, mv):
         """14-bit luma prediction at per-block (x, y) qpel MVs."""
@@ -575,8 +600,9 @@ def _inter_tools_builder(enc):
                              mv[:, 1] & 3, n, n, bd)
 
     def _chroma_windows(ref_c, mv):
-        return _windows(ref_c, cby0 + CM - 1 + (mv[:, 1] >> 3),
-                        cbx0 + CM - 1 + (mv[:, 0] >> 3), cn + 3)
+        B = mv.shape[0]
+        return _windows(ref_c, _tile(cby0, B) + CM - 1 + (mv[:, 1] >> 3),
+                        _tile(cbx0, B) + CM - 1 + (mv[:, 0] >> 3), cn + 3)
 
     def chroma_pred(ref_c, mv):
         return mc_chroma_batch(_chroma_windows(ref_c, mv), mv[:, 0] & 7,
@@ -588,7 +614,8 @@ def _inter_tools_builder(enc):
 
     return dict(me=me, eval_mv_ps=eval_mv_ps, eval_mv=eval_mv,
                 chroma_pred=chroma_pred, chroma_pred_ps=chroma_pred_ps,
-                satd=satd, R=R, M=M, CM=CM)
+                satd=satd, bi_avg=lambda a, b: bi_avg(a, b, bd), R=R, M=M,
+                CM=CM)
 
 
 def ref_idx_bits(nr: int, n_act: int) -> np.ndarray:
@@ -802,4 +829,256 @@ def build_p_pipeline(enc, nr: int = 1):
     run.prep = prep
     run.main = main
     run.nr = nr
+    return run
+
+
+def build_b_pipeline(enc, batch: int | None = None, make_ext: bool = False):
+    """B-frame program: intra analysis, ME per list (K2 inside), the bi
+    trial at the two uni winners, the direction decision, full-motion
+    neighbour adoption, CU-merge uniformization, chroma per direction, the
+    CTU scan (K1) with the inter TU32 trial, loop filters and, with
+    ``make_ext`` (the b-pyramid's reference B), the DPB extension.
+
+    ``batch=F``: F independent B frames of one mini-GOP against the same
+    two references, on a leading frame dimension of every per-frame input
+    and output (the reference vmaps ``prep`` / ``main``): each list's
+    search is one K2 launch for all F frames, and each scan level one K1
+    launch over their F x L lanes.  ``batch=None``: one frame, no frame
+    dimension.
+
+    run(oy, ocb, ocr, r0y, r0cb, r0cr, r1y, r1cb, r1cr, qpy, qpb, qpr, lam,
+    qp_base, dqp_cb, dqp_cr, sao_lam, poc_l0, poc_l1, qp_base_ctb) ->
+    (small, tails, ext); ``qp_base``, ``dqp_*`` and ``sao_lam`` are one
+    value per frame."""
+    g = enc.geom
+    dev = enc.device
+    n = 16
+    ph = g.ctbs_h << g.log2_ctb
+    pw = g.ctbs_w << g.log2_ctb
+    gh, gw = ph // n, pw // n
+    nb = gh * gw
+    scan = enc._get_ctu_scan()
+    decide = bool(scan.t["has32"])
+    run_scan = scan.scan_fn(inter=True, decide32=decide)
+    B32 = scan.t["b32_n"]
+    analyse16 = _analyse_builder(enc, n, gh, gw, ph, pw)
+    finish = _filter_stage_builder(enc)
+    tools = _inter_tools_builder(enc)
+    extend = _extend_builder(enc) if make_ext else None
+    me, eval_mv = tools["me"], tools["eval_mv"]
+    eval_mv_ps = tools["eval_mv_ps"]
+    satd_, bi = tools["satd"], tools["bi_avg"]
+    col_ok = torch.arange(nb, device=dev) % gw > 0
+    row_ok = torch.arange(nb, device=dev) // gw > 0
+
+    def quad_inbounds(bs):
+        by = (np.arange(gh) // bs) * bs * 16
+        bx = (np.arange(gw) // bs) * bs * 16
+        return torch.as_tensor((by[:, None] + bs * 16 <= g.height)
+                               & (bx[None, :] + bs * 16 <= g.width),
+                               device=dev).reshape(-1)
+
+    F = batch or 1
+
+    def frames(x):
+        """Per-frame host values as a list (one value, or one per frame)."""
+        if torch.is_tensor(x):
+            return x.reshape(-1).tolist()
+        return np.ravel(np.asarray(x)).tolist()
+
+    def prep(oy, r0y, r0cb, r0cr, r1y, r1cb, r1cr, qp_base):
+        """Returns (modes, mode32, mv0, mv1, d, inter, pred_y, pred_cb,
+        pred_cr), each with a leading frame dimension when batched."""
+        oy = oy.reshape(F, ph, pw)
+        lam_f = torch.stack([me_lambda(q) for q in frames(qp_base)]).to(dev)
+        lam = lam_f.repeat_interleave(nb)              # [F * nb]
+        an = [analyse16(oy[f]) for f in range(F)]
+        modes = torch.stack([a[0] for a in an])
+        icost = torch.cat([a[1] for a in an])
+        oy32 = oy.to(torch.int32)
+        ob = oy32.reshape(F, gh, n, gw, n).permute(0, 1, 3, 2, 4).reshape(
+            -1, n, n)
+        if decide:
+            mode32 = modes.reshape(F, gh, gw)[:, 0::2, 0::2].reshape(F, -1)
+        else:
+            mode32 = torch.zeros((F, B32), dtype=torch.int32, device=dev)
+        mv0, c0, p0 = me(oy32, r0y, ob, lam_f)
+        mv1, c1, p1 = me(oy32, r1y, ob, lam_f)
+        c0 = c0.to(torch.int32)
+        c1 = c1.to(torch.int32)
+        # bi trial at the two uni winners
+        pbi = bi(eval_mv_ps(r0y, mv0), eval_mv_ps(r1y, mv1))
+        cbi = satd_(ob, pbi).to(torch.int32)
+        # direction decision with a bits bias: bi codes two mvd/mvp sets
+        cbi_b = cbi + (8.0 * lam).to(torch.int32)
+        c01 = torch.minimum(c0, c1)
+        d = torch.where(cbi_b <= c01, 3, torch.where(c0 <= c1, 1, 2)).to(
+            torch.int32)
+        best = torch.where(d == 3, cbi_b, c01)
+        # (x64 is off in the reference: the int64 casts there are int32)
+        inter = best <= (icost.to(torch.int32) * 9) // 8
+        pred_y = torch.where((d == 3)[:, None, None], pbi,
+                             torch.where((d == 1)[:, None, None], p0, p1))
+
+        def eval_b(m0, m1, dd):
+            e0 = eval_mv(r0y, m0)
+            e1 = eval_mv(r1y, m1)
+            eb = bi(eval_mv_ps(r0y, m0), eval_mv_ps(r1y, m1))
+            return torch.where((dd == 3)[:, None, None], eb,
+                               torch.where((dd == 1)[:, None, None], e0, e1))
+
+        def grid(a):
+            return a.reshape((F, gh, gw) + tuple(a.shape[1:]))
+
+        # full-motion coherence: a neighbour's (mv0, mv1, dir) within a
+        # merge bonus of 16 * lambda; the north pass reads the motion the
+        # west pass left
+        bonus = (16.0 * lam).to(torch.int32)
+        cost = best
+        for axis, valid in ((2, col_ok.repeat(F)), (1, row_ok.repeat(F))):
+            def rl(a):
+                return torch.roll(grid(a), 1, axis).reshape(a.shape)
+
+            c0r, c1r, cdr = rl(mv0), rl(mv1), rl(d)
+            cp = eval_b(c0r, c1r, cdr)
+            cc = satd_(ob, cp).to(torch.int32)
+            better = (cc < cost + bonus) & valid & rl(inter)
+            mv0 = torch.where(better[:, None], c0r, mv0)
+            mv1 = torch.where(better[:, None], c1r, mv1)
+            d = torch.where(better, cdr, d)
+            pred_y = torch.where(better[:, None, None], cp, pred_y)
+            cost = torch.where(better, cc, cost)
+
+        def qsum(a, bs):
+            # per-quad sum in row-major order of the quad's blocks,
+            # broadcast back to the blocks
+            q = a.reshape(F, gh // bs, bs, gw // bs, bs)
+            s = None
+            for i in range(bs):
+                for j in range(bs):
+                    s = q[:, :, i, :, j] if s is None else s + q[:, :, i, :, j]
+            return s.repeat_interleave(bs, 1).repeat_interleave(
+                bs, 2).reshape(-1)
+
+        def uniform_pass_b(mv0, mv1, d, pred_y, cost, bs, inb):
+            def tl(a):
+                return grid(a)[:, ::bs, ::bs].repeat_interleave(
+                    bs, 1).repeat_interleave(bs, 2).reshape(a.shape)
+
+            tl0, tl1, tld = tl(mv0), tl(mv1), tl(d)
+            cand_pred = eval_b(tl0, tl1, tld)
+            cand_cost = satd_(ob, cand_pred).to(torch.float32)
+            all_inter = inter.reshape(F, gh // bs, bs, gw // bs, bs).all(
+                4).all(2).repeat_interleave(bs, 1).repeat_interleave(
+                    bs, 2).reshape(-1)
+            nb2 = float(bs * bs)
+            cq = qsum(cand_cost, bs)
+            accept = (cq + lam * 4.0
+                      < qsum(cost.to(torch.float32), bs) + (lam * 6.0) * nb2)
+            accept = accept & all_inter & inb.repeat(F)
+            mv0 = torch.where(accept[:, None], tl0, mv0)
+            mv1 = torch.where(accept[:, None], tl1, mv1)
+            d = torch.where(accept, tld, d)
+            pred_y = torch.where(accept[:, None, None], cand_pred, pred_y)
+            cost = torch.where(accept, (cq * (1.0 / nb2)).to(torch.int32),
+                               cost)
+            return mv0, mv1, d, pred_y, cost
+
+        if gh % 2 == 0 and gw % 2 == 0 and g.log2_ctb >= 5:
+            mv0, mv1, d, pred_y, cost = uniform_pass_b(
+                mv0, mv1, d, pred_y, cost, 2, quad_inbounds(2))
+            if gh % 4 == 0 and gw % 4 == 0 and g.log2_ctb == 6:
+                mv0, mv1, d, pred_y, cost = uniform_pass_b(
+                    mv0, mv1, d, pred_y, cost, 4, quad_inbounds(4))
+        d3 = (d == 3)[:, None, None]
+        d1 = (d == 1)[:, None, None]
+
+        def chroma(r0c, r1c):
+            pb = bi(tools["chroma_pred_ps"](r0c, mv0),
+                    tools["chroma_pred_ps"](r1c, mv1))
+            return torch.where(d3, pb, torch.where(
+                d1, tools["chroma_pred"](r0c, mv0),
+                tools["chroma_pred"](r1c, mv1)))
+
+        out = (modes, mode32, mv0, mv1, d, inter, pred_y, chroma(r0cb, r1cb),
+               chroma(r0cr, r1cr))
+        out = tuple(x.reshape((F, -1) + tuple(x.shape[1:])) if i >= 2 else x
+                    for i, x in enumerate(out))
+        return out if batch else tuple(x[0] for x in out)
+
+    def rep4(a):
+        return a.reshape(gh, gw, -1).repeat_interleave(
+            4, 0).repeat_interleave(4, 1)
+
+    def main(oy, ocb, ocr, modes, mode32, mv0, mv1, d, inter, pred_y,
+             pred_cb, pred_cr, qpy, qpb, qpr, lam, qp_base, dqp_cb, dqp_cr,
+             sao_lam, poc_l0, poc_l1, qp_base_ctb):
+        args = [oy, ocb, ocr, modes, mode32, mv0, mv1, d, inter, pred_y,
+                pred_cb, pred_cr, qpy, qpb, qpr, lam, qp_base_ctb]
+        if not batch:
+            args = [x[None] for x in args]
+        (oy, ocb, ocr, modes, mode32, mv0, mv1, d, inter, pred_y, pred_cb,
+         pred_cr, qpy, qpb, qpr, lam, qp_base_ctb) = args
+        qp_base, dqp_cb, dqp_cr, sao_lam = (
+            frames(x) for x in (qp_base, dqp_cb, dqp_cr, sao_lam))
+        merged = [finish.merged_masks(inter[f], (mv0[f], mv1[f], d[f]))
+                  for f in range(F)]
+        m32_in = None
+        if merged[0] is not None:
+            m32_in = torch.stack([
+                m32q | _rep(m64q, m32q.shape[0] // m64q.shape[0])
+                for m32q, m64q in merged])
+        out = run_scan(oy, ocb, ocr, modes, mode32,
+                       torch.zeros((F, B32), dtype=torch.bool, device=dev),
+                       qpy, qpb, qpr, lam=lam, is_inter=inter,
+                       ipred_y=pred_y, ipred_cb=pred_cb, ipred_cr=pred_cr,
+                       m32_in=m32_in)
+        res = []
+        for f in range(F):
+            # normalised per-4x4 two-list motion for the deblock
+            dir_eff = torch.where(inter[f], d[f], 1)
+            nmv = torch.where(dir_eff == 3, 2, 1).to(torch.int32)
+            mva = torch.where((dir_eff == 2)[:, None], mv1[f], mv0[f])
+            poca = torch.where(dir_eff == 2, int(poc_l1), int(poc_l0))
+            mvb = torch.where((dir_eff == 3)[:, None], mv1[f], mva)
+            pocb = torch.where(dir_eff == 3, int(poc_l1), poca)
+            motion_b = (rep4(nmv)[:, :, 0], rep4(mva).to(torch.int32),
+                        rep4(mvb).to(torch.int32),
+                        rep4(poca.to(torch.int32))[:, :, 0],
+                        rep4(pocb.to(torch.int32))[:, :, 0])
+            small, tails, fplanes = finish(
+                (oy[f], ocb[f], ocr[f]),
+                tuple(None if x is None else x[f] for x in out), qp_base[f],
+                dqp_cb[f], dqp_cr[f], sao_lam[f], inter=inter[f],
+                mv=mv0[f], motion_b=motion_b, qp_base_ctb=qp_base_ctb[f],
+                merged=merged[f])
+            small = dict(small, use32=out[9][f])
+            res.append((small, tails,
+                        extend(fplanes) if make_ext else None))
+        if not batch:
+            return res[0]
+        small = {k: torch.stack([r[0][k] for r in res]) for k in res[0][0]}
+        tails = {k: tuple(torch.stack(p) for p in zip(*(r[1][k]
+                                                         for r in res)))
+                 for k in res[0][1]}
+        ext = (tuple(torch.stack(p) for p in zip(*(r[2] for r in res)))
+               if make_ext else None)
+        return small, tails, ext
+
+    def run(oy, ocb, ocr, r0y, r0cb, r0cr, r1y, r1cb, r1cr, qpy, qpb, qpr,
+            lam, qp_base, dqp_cb, dqp_cr, sao_lam, poc_l0, poc_l1,
+            qp_base_ctb):
+        (modes, mode32, mv0, mv1, d, inter, pred_y, pred_cb,
+         pred_cr) = prep(oy, r0y, r0cb, r0cr, r1y, r1cb, r1cr, qp_base)
+        small, tails, ext = main(oy, ocb, ocr, modes, mode32, mv0, mv1, d,
+                                 inter, pred_y, pred_cb, pred_cr, qpy, qpb,
+                                 qpr, lam, qp_base, dqp_cb, dqp_cr, sao_lam,
+                                 poc_l0, poc_l1, qp_base_ctb)
+        small = dict(small, modes=modes, mode32=mode32,
+                     mv0=mv0.to(torch.int16), mv1=mv1.to(torch.int16),
+                     dirs=d.to(torch.uint8), inter=inter)
+        return small, tails, ext
+
+    run.prep = prep
+    run.main = main
     return run

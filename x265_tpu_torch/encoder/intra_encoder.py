@@ -1,17 +1,19 @@
-"""The frame encoder (I and P slices) on a torch device — the host logic
-of ``x265_tpu.encoder.intra_encoder.Encoder``, copied line for line where
-the stream depends on it, with the device seams on torch.
+"""The frame encoder (I, P and B slices) on a torch device — the host
+logic of ``x265_tpu.encoder.intra_encoder.Encoder``, copied line for line
+where the stream depends on it, with the device seams on torch.
 
 Per frame: the device pipeline (``device_pipeline.py``) returns one dict of
 small outputs, fetched with ONE packed copy (``fetch_packed``); the host
 then scatters the syntax, derives merge/AMVP/skip (native C), entropy-codes
-with the native CABAC serializer, and appends the hash SEI.
+with the native CABAC serializer, and appends the hash SEI.  The
+independent non-reference Bs of a mini-GOP go through one batched dispatch
+and one fetch.
 
-Scope: ``bframes == 0`` through ``encode_frame`` / ``push_frame`` with the
-lookahead off, 8-bit, 64x64 CTBs, on the card by default
-(``device="cuda"``; the tests pass ``device="cpu"``).  B frames, the lookahead (cuTree,
-b-adapt), 10-bit, RDOQ, noise reduction and lossless raise
-``NotImplementedError``.
+Scope: ``encode_frame`` with ``bframes == 0``; ``push_frame`` / ``flush``
+with B frames and b-pyramid, with the lookahead off (``rc_lookahead=0``);
+8-bit, 64x64 CTBs, on the card by default (``device="cuda"``; the tests
+pass ``device="cpu"``).  The lookahead (cuTree, b-adapt), 10-bit, RDOQ,
+noise reduction, lossless and HRD raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -25,9 +27,10 @@ import torch
 from ..cabac.ctu import MODE_INTER, MODE_INTRA, PicSyntax, chroma_qp
 from ..common.bitstream import (NAL_AUD, NAL_IDR_W_RADL, NAL_PPS,
                                 NAL_PREFIX_SEI, NAL_SPS, NAL_SUFFIX_SEI,
-                                NAL_TRAIL_R, NAL_VPS, BitWriter, wrap_nal)
+                                NAL_TRAIL_N, NAL_TRAIL_R, NAL_VPS, BitWriter,
+                                wrap_nal)
 from ..common.geometry import PictureGeometry, intra_neighbor_coords
-from ..common.headers import (PPS, SPS, VPS, SLICE_I, SLICE_P,
+from ..common.headers import (PPS, SPS, VPS, SLICE_B, SLICE_I, SLICE_P,
                               ProfileTierLevel, ShortTermRPS, SliceHeader,
                               write_pps, write_slice_header, write_sps,
                               write_vps)
@@ -71,9 +74,27 @@ class _Pending:
     out_dev: object = None      # (small dict, tails dict) on the device
     ext: object = None          # ME-extended recon planes (DPB entry)
     l0_poc: object = None
+    l1_poc: object = None
     cu_size: int = 16
     allow_scenecut: bool = False
+    batch_idx: object = None    # index into a batched-B dispatch
+    qp_arrays: object = None    # stashed device QP inputs (deferred B)
+    filter_qps: object = None
     wp: tuple = (64, 0, False)
+
+
+class _BatchFetch:
+    """The small outputs of a batched B dispatch, fetched to the host once
+    (one packed copy) for all its frames."""
+
+    def __init__(self, small):
+        self.small = small
+        self._np = None
+
+    def fetch(self):
+        if self._np is None:
+            self._np = fetch_packed(self.small)
+        return self._np
 
 
 def fetch_packed(small: dict) -> dict:
@@ -117,8 +138,6 @@ def pad_plane(p: np.ndarray, h: int, w: int) -> np.ndarray:
 def check_supported(params: Params) -> None:
     """Raise NotImplementedError for configurations the port lacks."""
     bad = []
-    if params.bframes:
-        bad.append("bframes > 0 (B pipeline)")
     if params.internal_bit_depth != 8:
         bad.append("bit depth != 8")
     if params.rdoq_level:
@@ -135,7 +154,7 @@ def check_supported(params: Params) -> None:
 
 
 class Encoder:
-    """HEVC encoder (I/P slices) whose device work runs on ``device``
+    """HEVC encoder (I/P/B slices) whose device work runs on ``device``
     (the card unless the caller asks for the CPU)."""
 
     def __init__(self, params: Params, device="cuda"):
@@ -216,6 +235,9 @@ class Encoder:
         self._mode_tables = {}
         self._i_pipeline = None
         self._p_pipeline = None
+        self._b_pipeline = None
+        self._b_ref_pipeline = None
+        self._b_batch_pipelines = {}    # F -> batched-B pipeline
         mr = max(1, min(64, params.me_range))
         self.me_fine = min(8, mr)
         self.me_coarse = max(0, (mr - self.me_fine) // 4)
@@ -247,6 +269,7 @@ class Encoder:
                         self._qpfile_map[int(f[0])] = int(f[2])
         self._prev_half = None
         self.bframes = params.bframes
+        self._queue = []                # [(poc, planes)] pending display order
         self._next_poc = 0
         self._display_idx = 0
         self._cvs_base = 0
@@ -263,6 +286,18 @@ class Encoder:
                                    and params.rc_lookahead > 0))
         self._inflight: list[_Pending] = []
         self.pipeline_depth = max(1, params.frame_parallelism)
+        # b-pyramid: the middle B of each mini-GOP becomes a reference
+        self.b_pyramid = bool(params.b_pyramid and self.bframes >= 2)
+        if self.bframes:
+            # anchors precede their Bs in decode order but follow in
+            # output order; the pyramid adds one reorder level and one DPB
+            # slot for the reference B
+            reorder = 2 if self.b_pyramid else 1
+            cap = max(4, self.num_ref + 2) + (1 if self.b_pyramid else 0)
+            self.sps.num_reorder_pics = reorder
+            self.sps.max_dec_pic_buffering = cap
+            self.vps.num_reorder_pics = reorder
+            self.vps.max_dec_pic_buffering = cap
 
     def _min_keyint(self) -> int:
         p = self.params
@@ -337,8 +372,13 @@ class Encoder:
 
     def encode_frame(self, planes):
         """planes: (Y, Cb, Cr) uint8 source arrays.  Zero-latency path:
-        the lookahead is off and the frame pipeline drains synchronously.
-        Returns (annexb_bytes, recon_planes_cropped)."""
+        the lookahead is off and the frame pipeline drains synchronously
+        (``bframes == 0`` only: B frames reorder the output, use
+        ``push_frame`` / ``flush``).  Returns (annexb_bytes,
+        recon_planes_cropped)."""
+        if self.bframes:
+            raise ValueError(
+                "bframes > 0 reorders output; use push_frame()/flush()")
         self._use_lookahead = False
         out = self.push_frame(planes) + self._drain(0)
         assert len(out) == 1
@@ -346,7 +386,9 @@ class Encoder:
 
     def push_frame(self, planes) -> list:
         """Feed one display-order frame; returns the EncodedFrames this
-        push finished (``pipeline_depth`` frames stay in flight)."""
+        push finished, in encode order (``pipeline_depth`` frames stay in
+        flight; with B frames a whole mini-GOP is dispatched once its
+        anchor arrives)."""
         if self._use_lookahead:
             raise NotImplementedError(
                 "x265_tpu_torch: the lookahead (cuTree / b-adapt) is not "
@@ -355,6 +397,8 @@ class Encoder:
         return self._drain(self.pipeline_depth)
 
     def flush(self) -> list:
+        """Encode any queued frames (end of stream)."""
+        self._emit_minigop()
         return self._drain(0)
 
     def _drain(self, depth: int) -> list:
@@ -364,25 +408,47 @@ class Encoder:
         return out
 
     def _gop_input(self, planes) -> None:
+        """GOP structuring of one display-order frame: dispatches device
+        work; finished frames are drained by the caller."""
         p = self.params
         keyint = max(1, p.keyint_max)
         gop_start = ((self._display_idx - self._cvs_base) % keyint == 0
                      or self.prev_anchor_poc is None)
-        poc = 0 if gop_start else self._next_poc
-        kind = "I" if gop_start else "P"
-        pend = self._dispatch_one(planes, poc, kind,
-                                  l0_poc=self.prev_anchor_poc,
-                                  didx=self._display_idx)
+        if self.bframes == 0:
+            poc = 0 if gop_start else self._next_poc
+            kind = "I" if gop_start else "P"
+            pend = self._dispatch_one(planes, poc, kind,
+                                      l0_poc=self.prev_anchor_poc,
+                                      didx=self._display_idx)
+            if gop_start:
+                self._cvs_base = self._display_idx
+            self._after_anchor(pend, idr=pend.kind == "I")
+            pend.display_idx = self._display_idx
+            self._inflight.append(pend)
+            self._display_idx += 1
+            return
         if gop_start:
-            self._cvs_base = self._display_idx
-        self._after_anchor(pend, idr=pend.kind == "I")
-        pend.display_idx = self._display_idx
-        self._inflight.append(pend)
+            self._emit_minigop()            # pending frames end their GOP
+            self._cvs_base = self._display_idx  # before encode: display_idx
+            pend = self._dispatch_one(planes, 0, "I")
+            self._next_poc = 1
+            self._after_anchor(pend, idr=True)
+            pend.display_idx = self._cvs_base + pend.poc
+            self._inflight.append(pend)
+        else:
+            self._queue.append((self._next_poc, planes))
+            self._next_poc += 1
+            if len(self._queue) == self.bframes + 1:
+                if self.params.b_adapt > 0:
+                    self._emit_minigop(count=self._slicetype_decide())
+                else:
+                    self._emit_minigop()
         self._display_idx += 1
 
     def _after_anchor(self, pf: _Pending, idr: bool = False) -> None:
         """DPB management after an anchor dispatch: the last ``num_ref``
-        anchors form the L0 list, nearest first."""
+        anchors form the L0 list, nearest first (Bs also need the previous
+        anchor at ``ref`` 1)."""
         if idr:
             self.dpb.clear()
             self.dpb_dev.clear()
@@ -390,7 +456,7 @@ class Encoder:
             self._next_poc = 1
         else:
             self._next_poc = max(self._next_poc, pf.poc + 1)
-        keep = max(self.num_ref, 1)
+        keep = max(self.num_ref, 2 if self.bframes else 1)
         self._ref_pocs = [pf.poc] + [p for p in self._ref_pocs
                                      if p != pf.poc][:keep - 1]
         dpb = {pf.poc: pf}
@@ -402,6 +468,82 @@ class Encoder:
                 dpb_dev[p] = self.dpb_dev[p]
         self.dpb, self.dpb_dev = dpb, dpb_dev
         self.prev_anchor_poc = pf.poc
+
+    def _emit_minigop(self, count=None) -> None:
+        """Dispatch the queued mini-GOP: its last frame as the P anchor
+        first, then the Bs against their reference pair.  With b-pyramid
+        (>= 2 Bs) the middle B is coded first against (previous anchor, new
+        anchor) and becomes a reference (TRAIL_R); the outer Bs predict
+        from the half-distance pairs.  Without it all Bs are TRAIL_N
+        against the anchors."""
+        if not self._queue:
+            return
+        if count is None:
+            frames, self._queue = self._queue, []
+        else:
+            frames = self._queue[:count]
+            self._queue = self._queue[count:]
+        anchor_poc, anchor_planes = frames[-1]
+        l0 = self.prev_anchor_poc
+        base = self._cvs_base
+        pend = self._dispatch_one(anchor_planes, anchor_poc,
+                                  "P" if l0 is not None else "I", l0_poc=l0,
+                                  didx=base + anchor_poc)
+        pend.display_idx = base + anchor_poc
+        self._inflight.append(pend)
+        self._after_anchor(pend)        # retains prev anchor for the Bs
+        bs = frames[:-1]
+        if self.b_pyramid and len(bs) >= 2:
+            mid_i = len(bs) // 2
+            mpoc, mplanes = bs[mid_i]
+            mp = self._dispatch_one(mplanes, mpoc, "B", l0_poc=l0,
+                                    l1_poc=anchor_poc, ref_b=True,
+                                    didx=base + mpoc)
+            mp.display_idx = base + mpoc
+            self._inflight.append(mp)
+            self.dpb[mpoc] = mp
+            if mp.ext is not None:
+                self.dpb_dev[mpoc] = mp.ext
+            for group, g_l0, g_l1 in (
+                    (bs[:mid_i], l0, mpoc),
+                    (bs[mid_i + 1:], mpoc, anchor_poc)):
+                self._dispatch_b_group(group, g_l0, g_l1, base,
+                                       keep_extra=(mpoc,))
+            return
+        self._dispatch_b_group(bs, l0, anchor_poc, base)
+
+    def _dispatch_b_group(self, bs, l0, l1, base, keep_extra=()):
+        """Dispatch a set of mutually independent TRAIL_N Bs sharing one
+        (l0, l1) reference pair, batched when >= 2."""
+        if not bs:
+            return
+        if len(bs) >= 2:
+            pends = []
+            for poc, planes in bs:
+                bp = self._dispatch_one(planes, poc, "B", l0_poc=l0,
+                                        l1_poc=l1, defer_b=True,
+                                        didx=base + poc)
+                bp.display_idx = base + poc
+                bp.ps.rps_keep = tuple(set(bp.ps.rps_keep)
+                                       | set(keep_extra))
+                pends.append(bp)
+            self._dispatch_b_batch(pends, l0, l1)
+            self._inflight.extend(pends)
+        else:
+            for poc, planes in bs:
+                bp = self._dispatch_one(planes, poc, "B", l0_poc=l0,
+                                        l1_poc=l1, didx=base + poc)
+                bp.display_idx = base + poc
+                bp.ps.rps_keep = tuple(set(bp.ps.rps_keep)
+                                       | set(keep_extra))
+                self._inflight.append(bp)
+
+    def _slicetype_decide(self) -> int:
+        """Adaptive B placement (b-adapt): the queue prefix length to emit
+        (#Bs + 1 anchor).  Without the lookahead the reference's trellis
+        has no lowres costs and emits the whole queue; the trellis comes
+        with the port of the lookahead."""
+        return len(self._queue)
 
     def _qp_override(self, didx):
         if didx is None:
@@ -419,8 +561,11 @@ class Encoder:
         return None
 
     def _dispatch_one(self, planes, poc: int, kind: str, l0_poc=None,
-                      cplx=None, didx=None):
-        """Run one picture's device work and return its _Pending."""
+                      l1_poc=None, cplx=None, defer_b: bool = False,
+                      ref_b: bool = False, didx=None):
+        """Run one picture's device work and return its _Pending (a
+        deferred B only stashes its inputs: ``_dispatch_b_batch`` runs
+        them)."""
         g = self.geom
         p = self.params
         ph = g.ctbs_h << g.log2_ctb
@@ -432,10 +577,11 @@ class Encoder:
             kind = "I"
             poc = 0
         is_p = kind == "P"
+        is_b = kind == "B"
         if cplx is None:
             cplx = self._complexity_estimate(orig, kind != "I")
         self.qp = self.rc.frame_qp(is_intra=kind == "I", satd=cplx,
-                                   is_b=False, is_ref_b=False)
+                                   is_b=is_b, is_ref_b=ref_b)
         ov = self._qp_override(didx)
         if ov is not None:
             self.qp = int(ov)
@@ -460,13 +606,15 @@ class Encoder:
             ps.ref_pocs_l0 = tuple(active[:self.num_ref])
         else:
             ps.ref_pocs_l0 = (l0_poc,) if l0_poc is not None else ()
-        ps.ref_pocs_l1 = ()
+        ps.ref_pocs_l1 = (l1_poc,) if l1_poc is not None else ()
+        # every picture the DPB must keep past this frame (for Bs also the
+        # already-dispatched next anchor)
         ps.rps_keep = tuple(self._ref_pocs)
 
         pend = _Pending(poc=poc, kind=kind, qp=self.qp, ps=ps,
                         display_idx=0, planes=planes, orig=orig,
-                        l0_poc=l0_poc, cu_size=cu_size)
-        if p.weightp:
+                        l0_poc=l0_poc, l1_poc=l1_poc, cu_size=cu_size)
+        if p.weightp and kind != "B":
             self._wp_src[poc] = np.asarray(planes[0])
             while len(self._wp_src) > 4:
                 self._wp_src.pop(next(iter(self._wp_src)))
@@ -477,10 +625,22 @@ class Encoder:
             pend.wp = analyse_luma_weight(np.asarray(planes[0]), ref_src,
                                           self.bit_depth)
         ps.wp_entry = pend.wp
-        if is_p:
+        if is_b:
+            ps.b_is_ref = ref_b         # TRAIL_R
+            if defer_b:
+                # batched mini-GOP dispatch: _dispatch_b_batch stacks these
+                pend.qp_arrays = self._qp_arrays
+                pend.filter_qps = self._filter_qps()
+            elif ref_b:
+                pend.out_dev, pend.ext = self._dispatch_b_ref(
+                    orig, l0_poc, l1_poc)
+            else:
+                pend.out_dev = self._dispatch_b(orig, l0_poc, l1_poc)
+        elif is_p:
             pend.out_dev, pend.ext = self._dispatch_p(
                 orig, ps.ref_pocs_l0, pend.wp)
             pend.allow_scenecut = bool(p.scenecut_threshold
+                                       and self.bframes == 0
                                        and not self._use_lookahead)
         else:
             pend.out_dev, pend.ext = self._dispatch_i(orig)
@@ -494,9 +654,12 @@ class Encoder:
         ps = pend.ps
         kind = pend.kind
         is_p = kind == "P"
+        is_b = kind == "B"
         poc = pend.poc
         keyint = max(1, p.keyint_max)
-        if is_p:
+        if is_b:
+            o = self._finish_b(pend)
+        elif is_p:
             o = self._finish_p(pend)
             cost_p, cost_i = self.last_frame_costs
             if (pend.allow_scenecut and not self._inflight
@@ -513,9 +676,14 @@ class Encoder:
         checksums = o["checksums"]
         tails = pend.out_dev[1]
         coded_rec = tails["rec_coded"]
-        rec_crop = tuple(pl.cpu().numpy() for pl in tails["rec_conf"])
+        rec_crop = tails["rec_conf"]
+        k = pend.batch_idx
+        if k is not None:
+            coded_rec = tuple(pl[k] for pl in coded_rec)
+            rec_crop = tuple(pl[k] for pl in rec_crop)
+        rec_crop = tuple(pl.cpu().numpy() for pl in rec_crop)
 
-        st = SLICE_P if is_p else SLICE_I
+        st = SLICE_B if is_b else SLICE_P if is_p else SLICE_I
         au = self._entropy_encode(ps, st, poc)
         if self.dpb.get(poc) is pend:
             self.dpb[poc] = coded_rec
@@ -535,13 +703,13 @@ class Encoder:
             au = self.headers() + au
         if p.aud:
             bw = BitWriter()
-            bw.write(1 if is_p else 0, 3)
+            bw.write(2 if is_b else 1 if is_p else 0, 3)
             bw.rbsp_trailing_bits()
             au = wrap_nal(NAL_AUD, bw.getvalue(),
                           long_start_code=True) + au
         self.rc.update(len(au) * 8, self.qp, is_intra=kind == "I")
         self.frames_encoded += 1
-        self.last_slice_type_str = "P" if is_p else "I"
+        self.last_slice_type_str = "B" if is_b else "P" if is_p else "I"
         self.last_ps = ps
         return EncodedFrame(poc=poc, display_idx=pend.display_idx, au=au,
                             recon=rec_crop, coded=coded_rec,
@@ -564,9 +732,16 @@ class Encoder:
         return self._ctu_scan
 
     def _fetch_outputs(self, pend):
-        """Fetch the frame's small outputs (one packed copy); returns the
-        host dict and the (luma, cb, cr) coefficient planes."""
-        o = fetch_packed(pend.out_dev[0])
+        """Fetch the frame's small outputs (one packed copy, shared by the
+        frames of a batched B dispatch); returns the host dict and the
+        (luma, cb, cr) coefficient planes."""
+        small = pend.out_dev[0]
+        k = pend.batch_idx
+        if isinstance(small, _BatchFetch):
+            f = small.fetch()
+            o = f if k is None else {key: v[k] for key, v in f.items()}
+        else:
+            o = fetch_packed(small)
         return o, (o["cy"], o["ccb"], o["ccr"])
 
     def _scatter_syntax(self, ps, o, coeffs):
@@ -745,6 +920,104 @@ class Encoder:
         self._derive_inter_all(ps)
         return o
 
+    def _b_inputs(self, orig, l0_poc, l1_poc):
+        """The device inputs of a single B dispatch, in the pipeline's
+        argument order."""
+        refs0 = self._get_ref_ext(l0_poc)
+        refs1 = self._get_ref_ext(l1_poc)
+        qpy, qpb, qpr, lam, qp_ctb = (self._dev(a) for a in self._qp_arrays)
+        qp_base, dq_cb, dq_cr, sao_lam = self._filter_qps()
+        return ((*(self._dev(pl) for pl in orig), *refs0, *refs1, qpy, qpb,
+                 qpr, lam, int(qp_base), int(dq_cb), int(dq_cr),
+                 float(sao_lam), int(l0_poc), int(l1_poc), qp_ctb))
+
+    def _dispatch_b(self, orig, l0_poc, l1_poc):
+        """A non-reference B: both list searches, the bi trial, the scan
+        and the filters on the device."""
+        from .device_pipeline import build_b_pipeline
+        if self._b_pipeline is None:
+            self._b_pipeline = build_b_pipeline(self)
+        small, tails, _ = self._b_pipeline(
+            *self._b_inputs(orig, l0_poc, l1_poc))
+        return (small, tails)
+
+    def _dispatch_b_ref(self, orig, l0_poc, l1_poc):
+        """The b-pyramid's reference B: the same program plus the DPB
+        extension."""
+        from .device_pipeline import build_b_pipeline
+        if self._b_ref_pipeline is None:
+            self._b_ref_pipeline = build_b_pipeline(self, make_ext=True)
+        small, tails, ext = self._b_ref_pipeline(
+            *self._b_inputs(orig, l0_poc, l1_poc))
+        return (small, tails), ext
+
+    def _dispatch_b_batch(self, pends, l0_poc, l1_poc):
+        """One batched device dispatch for the mutually independent TRAIL_N
+        Bs of a mini-GOP (a leading frame dimension: one K2 launch per
+        list and one K1 launch per scan level for all of them)."""
+        from .device_pipeline import build_b_pipeline
+        F = len(pends)
+        pipe = self._b_batch_pipelines.get(F)
+        if pipe is None:
+            pipe = self._b_batch_pipelines[F] = build_b_pipeline(
+                self, batch=F)
+        refs0 = self._get_ref_ext(l0_poc)
+        refs1 = self._get_ref_ext(l1_poc)
+        orig = [self._dev(np.stack([p.orig[i] for p in pends]))
+                for i in range(3)]
+        qs = [self._dev(np.stack([p.qp_arrays[i] for p in pends]))
+              for i in range(5)]
+        fq = [np.stack([p.filter_qps[i] for p in pends]) for i in range(4)]
+        small, tails, _ = pipe(
+            *orig, *refs0, *refs1, qs[0], qs[1], qs[2], qs[3], fq[0],
+            fq[1], fq[2], fq[3], int(l0_poc), int(l1_poc), qs[4])
+        handle = _BatchFetch(small)
+        for k, p in enumerate(pends):
+            p.out_dev = (handle, tails)
+            p.batch_idx = k
+
+    def _finish_b(self, pend):
+        """Scatter the fetched B outputs into PicSyntax and derive the
+        merge/AMVP syntax."""
+        ps = pend.ps
+        g = self.geom
+        n = cu_size = pend.cu_size
+        ph = g.ctbs_h << g.log2_ctb
+        pw = g.ctbs_w << g.log2_ctb
+        o, coeffs = self._fetch_outputs(pend)
+        gh, gw = (ph // cu_size, pw // cu_size)
+        modes = o["modes"].reshape(gh, gw)
+        mv0 = o["mv0"].reshape(gh, gw, 2)
+        mv1 = o["mv1"].reshape(gh, gw, 2)
+        dirs = o["dirs"].reshape(gh, gw)
+        inter_mask = o["inter"].reshape(gh, gw)
+        s4 = n // 4
+        ps.luma_mode[:] = np.kron(modes.astype(np.uint8),
+                                  np.ones((s4, s4), np.uint8))
+        ps.chroma_mode[:] = ps.luma_mode
+        pm = np.where(inter_mask, MODE_INTER, MODE_INTRA).astype(np.uint8)
+        ps.pred_mode[:] = np.kron(pm, np.ones((s4, s4), np.uint8))
+
+        def rep(a):
+            return np.kron(a.astype(np.int16).transpose(2, 0, 1),
+                           np.ones((1, s4, s4), np.int16)).transpose(1, 2, 0)
+
+        ps.mv0[:] = rep(mv0)
+        ps.mv1[:] = rep(mv1)
+        # uni blocks keep zeros in the unused list (normative neighbor state)
+        d_eff = np.where(inter_mask, dirs, 1).astype(np.uint8)
+        ps.inter_dir[:] = np.kron(d_eff, np.ones((s4, s4), np.uint8))
+        ps.mv0[ps.inter_dir == 2] = 0
+        ps.mv1[ps.inter_dir == 1] = 0
+        if self._get_ctu_scan().t["has32"]:
+            use32 = self._intra32_mask(o).reshape(ph // 32, pw // 32)
+            mode32 = o["mode32"].reshape(ph // 32, pw // 32)
+            self._apply_cu32(ps, use32, mode32)
+        self._apply_inter_merge(ps, o)
+        self._scatter_syntax(ps, o, coeffs)
+        self._derive_inter_all(ps)
+        return o
+
     @staticmethod
     def _intra32_mask(o):
         """sel32 minus the inter-TU32 quads (merged inter CUs)."""
@@ -802,17 +1075,23 @@ class Encoder:
         else:
             keep = set(getattr(ps, "rps_keep", ()))
             act0 = [q for q in ps.ref_pocs_l0 if q is not None]
+            act1 = [q for q in ps.ref_pocs_l1 if q is not None]
             s0_pocs = sorted({q for q in keep if q < poc} | set(act0),
                              reverse=True)
-            s1_pocs = sorted({q for q in keep if q > poc})
+            s1_pocs = sorted({q for q in keep if q > poc} | set(act1))
             if not s0_pocs:
                 s0_pocs = [poc - 1]
             rps = ShortTermRPS(
                 delta_pocs_s0=[q - poc for q in s0_pocs],
                 used_s0=[1 if q in act0 else 0 for q in s0_pocs],
                 delta_pocs_s1=[q - poc for q in s1_pocs],
-                used_s1=[0 for q in s1_pocs])
-            nal_type = NAL_TRAIL_R
+                used_s1=[1 if q in act1 else 0 for q in s1_pocs])
+            if slice_type == SLICE_B:
+                # b-pyramid reference Bs are TRAIL_R, the other Bs TRAIL_N
+                nal_type = (NAL_TRAIL_R if getattr(ps, "b_is_ref", False)
+                            else NAL_TRAIL_N)
+            else:
+                nal_type = NAL_TRAIL_R
             sh = SliceHeader(
                 slice_type=slice_type, slice_qp=self.qp,
                 sao_luma=int(sao_on), sao_chroma=int(sao_on),
@@ -837,9 +1116,12 @@ class Encoder:
             ps, self.qp, log2_min_cb=self.sps.log2_min_cb_size,
             log2_min_tb=self.sps.log2_min_tb_size,
             log2_max_tb=self.sps.log2_max_tb_size,
-            slice_type=2 if slice_type == SLICE_I else 1,
+            slice_type=(2 if slice_type == SLICE_I
+                        else 0 if slice_type == SLICE_B else 1),
             sao_luma=sao_on, sao_chroma=sao_on,
             bit_depth=self.bit_depth,
-            num_ref_l0=max(1, len(ps.ref_pocs_l0)), num_ref_l1=1)
+            num_ref_l0=max(1, len(ps.ref_pocs_l0)),
+            num_ref_l1=max(1, len(ps.ref_pocs_l1))
+            if slice_type == SLICE_B else 1)
         rbsp = bw.getvalue() + data
         return wrap_nal(nal_type, rbsp)

@@ -83,7 +83,8 @@ def mv_cost(lam, mv_q, pmv_b, base):
 def refine_plain(W, ob, mvi, pmv, lam, subme: int, mrq: int):
     """Subpel ladder over [B, 25, 25] int32 windows W (top-left at the
     full-pel winner - 4), source blocks ob [B, 16, 16], full-pel winners
-    mvi [B, 2] (y, x), pmv [B, 2] qpel (y, x), lam float32 scalar tensor.
+    mvi [B, 2] (y, x), pmv [B, 2] qpel (y, x), lam float32: a scalar, or
+    [B], each block's own (the blocks of several frames in one call).
     Returns (q0 [B, 2] qpel offset (y, x), pred [B, 16, 16], cost [B])."""
     n = 16
     big = torch.tensor(float(1 << 30), dtype=torch.float32, device=W.device)
@@ -124,8 +125,9 @@ def refine_plain(W, ob, mvi, pmv, lam, subme: int, mrq: int):
 
 
 def refine(W, ob, mvi, pmv, lam, subme: int, mrq: int):
-    """Subpel refine of every block.  CPU tensors: ``refine_plain``.
-    CUDA tensors: one launch of K2 (or an exception)."""
+    """Subpel refine of every block (``lam`` a scalar or one per block).
+    CPU tensors: ``refine_plain``.  CUDA tensors: one launch of K2 (or an
+    exception)."""
     if W.device.type != "cuda":
         return refine_plain(W, ob, mvi, pmv, lam, subme, mrq)
     return launch(load_library(), W, ob, mvi, pmv, lam, subme, mrq)
@@ -143,8 +145,11 @@ def launch(lib, W, ob, mvi, pmv, lam, subme: int, mrq: int):
             raise ValueError(f"K2 input {nm}: expected contiguous "
                              f"{W.device} int32 {shp}, got {x.device} "
                              f"{x.dtype} {tuple(x.shape)}")
-    lam_t = torch.as_tensor(lam, dtype=torch.float32).reshape(1).to(
-        W.device)
+    lam_t = torch.as_tensor(lam, dtype=torch.float32).reshape(-1).to(
+        W.device).contiguous()
+    if lam_t.numel() not in (1, B):
+        raise ValueError(f"K2 lam: expected a scalar or [{B}], got "
+                         f"{tuple(lam_t.shape)}")
     mvb = dev_table("mvbits", mv_bits_table, W.device)
     q0 = torch.empty((B, 2), dtype=torch.int32, device=W.device)
     pred = torch.empty((B, 16, 16), dtype=torch.int32, device=W.device)
@@ -154,7 +159,8 @@ def launch(lib, W, ob, mvi, pmv, lam, subme: int, mrq: int):
     rc = lib.k2_subpel_refine(
         W.data_ptr(), ob.data_ptr(), mvi.data_ptr(), pmv.data_ptr(),
         lam_t.data_ptr(), mvb.data_ptr(), q0.data_ptr(), pred.data_ptr(),
-        cost.data_ptr(), B, int(subme), int(mrq), ctypes.c_void_p(stream))
+        cost.data_ptr(), B, int(subme), int(mrq),
+        0 if lam_t.numel() == 1 else 1, ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(
             f"K2 launch failed: {lib.k_error_string(rc).decode()}")

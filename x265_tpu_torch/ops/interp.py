@@ -67,6 +67,15 @@ def uni_round(p: torch.Tensor, bit_depth: int = 8) -> torch.Tensor:
     return ((p + (1 << (shift1 - 1))) >> shift1).clamp(0, (1 << bit_depth) - 1)
 
 
+def bi_avg(p0: torch.Tensor, p1: torch.Tensor,
+           bit_depth: int = 8) -> torch.Tensor:
+    """Default bi-prediction combine of two 14-bit predictions
+    (§8.5.3.3.4.2): (p0 + p1 + off2) >> (15 - bd), clipped."""
+    shift2 = 15 - bit_depth
+    return ((p0 + p1 + (1 << (shift2 - 1))) >> shift2).clamp(
+        0, (1 << bit_depth) - 1)
+
+
 def _pp(acc, bit_depth):
     shift1 = bit_depth - 8
     return ((acc + (1 << (11 - shift1))) >> (12 - shift1)).clamp(

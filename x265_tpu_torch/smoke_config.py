@@ -1,17 +1,30 @@
-"""The slice that ``chip_smoke.py`` encodes and ``tools/make_golden.py``
-digests: 1080p 8-bit at ``Params()`` defaults with ``bframes=0``, four
-frames (I P P P) of ``synthetic_frame`` panning content, through the
-zero-latency ``Encoder.encode_frame``."""
+"""The slices that ``chip_smoke.py`` encodes and ``tools/make_golden.py``
+digests, both 1080p 8-bit at ``Params()`` defaults with QP 32 and the MD5
+hash SEI, of ``synthetic_frame`` panning content:
+
+* IPPP: ``bframes=0``, four frames (I P P P) through the zero-latency
+  ``Encoder.encode_frame``;
+* B: ``bframes=4`` with b-pyramid and the lookahead off
+  (``rc_lookahead=0``), six frames through ``push_frame`` / ``flush``:
+  encode order I0 P5 B3 (the reference B) B1 B2 (one batched dispatch)
+  B4."""
 
 from __future__ import annotations
 
 import numpy as np
 
 WIDTH, HEIGHT, FRAMES = 1920, 1080, 4
+FRAMES_B = 6
 
 
 def smoke_params() -> dict:
     return dict(source_width=WIDTH, source_height=HEIGHT, bframes=0, qp=32,
+                decoded_picture_hash=3)
+
+
+def smoke_params_b() -> dict:
+    return dict(source_width=WIDTH, source_height=HEIGHT, bframes=4,
+                b_pyramid=True, rc_lookahead=0, qp=32,
                 decoded_picture_hash=3)
 
 
@@ -34,3 +47,8 @@ def smoke_frames(n: int = FRAMES) -> list:
     base = synthetic_frame(WIDTH, HEIGHT, 0)
     return [(np.roll(base[0], 3 * t, axis=1), base[1], base[2])
             for t in range(n)]
+
+
+def smoke_frames_b() -> list:
+    """The B slice's six display-order frames (``smoke_frames``'s pan)."""
+    return smoke_frames(FRAMES_B)
