@@ -36,7 +36,20 @@ Phases (each raises on failure; the script then exits non-zero):
      B1+B2 B4: the reference B, one batched dispatch of two Bs, one single
      B); K1 must launch 62 x 5 times (the batched pair shares its 62) and
      K2 9 times (3 for P5, 2 for each B dispatch), and the MD5 and size
-     must equal x265_tpu_torch/data/golden_1080p_b.json.
+     must equal x265_tpu_torch/data/golden_1080p_b.json;
+  6. the bench slice: bench.py's own configuration and frames (1080p, 10
+     frames, Params(qp=32, decoded_picture_hash=3) at the defaults:
+     bframes=4, b-pyramid, b-adapt 2, rc_lookahead=20, cuTree, merange 57)
+     through push_frame / flush, so the lookahead (lowres programs, cuTree,
+     the b-adapt trellis, the lookahead scenecut) chooses the mini-GOPs;
+     a warm encode, then a timed one, each with a fresh Encoder.  The MD5,
+     size, encode-order POCs and slice kinds must equal
+     x265_tpu_torch/data/golden_1080p_bench.json; K1 and K2 must launch
+     the counts that the golden's encode order and the dispatch shapes
+     give (``bench_launches``); the lookahead's programs must have run,
+     with their outputs on the card.  It prints the wall of every call,
+     the fps over the 10 frames and the synchronised time spent in the
+     lookahead.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 
@@ -544,6 +557,148 @@ def encode_b_slice(dev):
             calls)
 
 
+def bench_launches(kinds):
+    """K1 and K2 launches of an encode with b-pyramid at 1080p from its
+    encode-order slice kinds: an anchor (I or P) and the Bs that follow it
+    form a mini-GOP.  Every dispatch runs the 62-level scan (one K1 launch
+    a level); a P dispatch searches its 3 reference slots (one K2 launch
+    each), a B dispatch its two lists (one each).  n Bs take one dispatch
+    for n = 1; for n >= 2 the middle B is a reference B dispatched alone,
+    and each side of it one dispatch (batched when it holds two Bs)."""
+    groups = []
+    for k in kinds:
+        if k == "B":
+            groups[-1][1] += 1
+        else:
+            groups.append([k, 0])
+    k1 = k2 = 0
+    for anchor, nb in groups:
+        mid = nb // 2
+        b_disp = nb if nb < 2 else 1 + (mid > 0) + (nb - 1 - mid > 0)
+        k1 += 62 * (1 + b_disp)
+        k2 += (3 if anchor == "P" else 0) + 2 * b_disp
+    return k1, k2
+
+
+def _lookahead_timers(stats):
+    """Wrap the lookahead's three parts with synchronised timers adding to
+    ``stats``: the lowres analysis of each pushed frame (the host downscale
+    and the lowres program), the b-adapt trellis (its pair-cost and bidir
+    programs and the host path search) and cuTree's host propagation.
+    Returns a function that unwraps them."""
+    import torch
+    from x265_tpu_torch.encoder import intra_encoder, lookahead
+
+    saved = []
+
+    def wrap(owner, name, key):
+        real = getattr(owner, name)
+        saved.append((owner, name, real))
+
+        def timed(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real(*a, **k)
+            torch.cuda.synchronize()
+            stats[key] = stats.get(key, 0.0) + time.perf_counter() - t0
+            return out
+        setattr(owner, name, timed)
+
+    wrap(lookahead.Lookahead, "_analyze", "lowres analysis")
+    wrap(intra_encoder.Encoder, "_slicetype_decide", "b-adapt trellis")
+    wrap(lookahead.Lookahead, "_propagate", "cuTree propagate")
+
+    def unwrap():
+        for owner, name, real in saved:
+            setattr(owner, name, real)
+    return unwrap
+
+
+def encode_bench_slice(dev, lookahead_stats=None):
+    """The bench slice through push_frame / flush with a fresh Encoder;
+    returns the stream's access units (headers first), the encode-order
+    POCs and kinds, the wall seconds of each call with the POCs it
+    returned, and the encoder.  With ``lookahead_stats`` (a dict) the
+    lookahead's parts are timed into it."""
+    import torch
+    from x265_tpu_torch import Encoder, Params
+    from x265_tpu_torch.smoke_config import (smoke_frames_bench,
+                                             smoke_params_bench)
+
+    frames = smoke_frames_bench()
+    unwrap = (_lookahead_timers(lookahead_stats)
+              if lookahead_stats is not None else None)
+    try:
+        enc = Encoder(Params(**smoke_params_bench()), device=dev)
+        efs, calls = [], []
+        for planes in frames + [None]:
+            torch.cuda.synchronize()
+            t0 = time.time()
+            out = enc.flush() if planes is None else enc.push_frame(planes)
+            torch.cuda.synchronize()
+            calls.append((time.time() - t0, [ef.poc for ef in out]))
+            efs += out
+    finally:
+        if unwrap is not None:
+            unwrap()
+    return ([enc.headers()] + [ef.au for ef in efs], [ef.poc for ef in efs],
+            [ef.kind for ef in efs], calls, enc)
+
+
+def check_bench_slice(dev, smi):
+    """Phase 6: the bench slice against its golden; returns the K1 and K2
+    launches of the timed encode."""
+    from x265_tpu_torch.encoder import ctu_scan_cuda, me_cuda
+
+    with open(os.path.join(ROOT, "x265_tpu_torch", "data",
+                           "golden_1080p_bench.json")) as f:
+        golden = json.load(f)
+    encode_bench_slice(dev)                 # warm: first-call allocations
+    la_stats = {}
+    ctu_scan_cuda.LAUNCHES = 0
+    me_cuda.LAUNCHES = 0
+    aus, pocs, kinds, calls, enc = encode_bench_slice(dev, la_stats)
+    n1, n2 = ctu_scan_cuda.LAUNCHES, me_cuda.LAUNCHES
+    stream = b"".join(aus)
+    md5 = hashlib.md5(stream).hexdigest()
+    wall = sum(c[0] for c in calls)
+    la = enc.lookahead
+    print(f"slice 1080p bench (bench.py's Params(qp=32, "
+          f"decoded_picture_hash=3), defaults) on {smi}: bytes per AU "
+          f"{[len(a) for a in aus]}, encode order "
+          f"{list(zip(pocs, kinds))}, {len(pocs)} frames in {wall:.3f} s, "
+          f"{len(pocs) / wall:.3f} fps", flush=True)
+    for i, (sec, out) in enumerate(calls):
+        what = "flush" if i == len(calls) - 1 else f"push_frame {i}"
+        print(f"  {what}: {sec:.3f} s, returned POCs {out}", flush=True)
+    la_total = sum(la_stats.values())
+    print(f"  lookahead (synchronised): {la_total:.4f} s = " + ", ".join(
+        f"{k} {v:.4f} s" for k, v in la_stats.items())
+        + f"; program calls {la.calls}, outputs on {sorted(la.devices)}",
+        flush=True)
+    w1, w2 = bench_launches(golden["encode_kinds"])
+    print(f"launches: K1 {n1} (want {w1}), K2 {n2} (want {w2}); md5 {md5} "
+          f"(golden {golden['md5']})", flush=True)
+    if (md5 != golden["md5"] or len(stream) != golden["total_bytes"]
+            or pocs != golden["encode_pocs"]
+            or kinds != golden["encode_kinds"]):
+        for i, (a, b) in enumerate(zip([len(a) for a in aus],
+                                       golden["au_bytes"])):
+            if a != b:
+                print(f"  first differing AU: {i} ({a} vs {b} bytes)",
+                      flush=True)
+                break
+        raise AssertionError("bench stream differs from x265_tpu's golden")
+    if n1 != w1 or n2 != w2:
+        raise AssertionError("the bench slice did not run through K1/K2 as "
+                             "expected")
+    if (la.calls["lowres"] != len(pocs) or la.devices != {"cuda"}
+            or not la.calls["pair"] or not la.calls["bidir"]):
+        raise AssertionError("the lookahead's programs did not run on the "
+                             "card as expected")
+    return n1, n2
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -625,17 +780,20 @@ def main():
             or pocs != golden_b["encode_pocs"]):
         raise AssertionError("B stream differs from x265_tpu's golden")
 
+    # phase 6: the bench slice (bench.py's configuration, the lookahead on)
+    n1s, n2s = check_bench_slice(dev, smi)
+
     kp = k1["P"]
     print(json.dumps({"kernels": [
         dict(name="K1 ctu_step", route="cuda",
              source="x265_tpu_torch/csrc/k1_ctu_step.cu",
              replaces="x265_tpu/encoder/ctu_scan_pallas.py:72",
-             launches=n1 + n1b, max_abs_err=max(
+             launches=n1 + n1b + n1s, max_abs_err=max(
                  k1["I"]["err"], kp["err"], kp["F2"]["err"],
                  k1["I"]["F2"]["err"]),
              ms=kp["ms"], plain_ms=kp["plain_ms"], bound_ms=kp["bound_ms"],
              bound_by=kp["bound_by"], library_ms=None,
-             launches_ippp=n1, launches_b=n1b,
+             launches_ippp=n1, launches_b=n1b, launches_bench=n1s,
              ms_I=k1["I"]["ms"], scan_ms_P=kp["scan_ms"],
              scan_ms_I=k1["I"]["scan_ms"], ms_F2_P=kp["F2"]["ms"],
              plain_ms_F2_P=kp["F2"]["plain_ms"],
@@ -643,10 +801,11 @@ def main():
         dict(name="K2 subpel_refine", route="cuda",
              source="x265_tpu_torch/csrc/k2_subpel_refine.cu",
              replaces="x265_tpu/encoder/me_pallas.py:71",
-             launches=n2 + n2b, max_abs_err=k2["err"], ms=k2["ms"],
+             launches=n2 + n2b + n2s, max_abs_err=k2["err"], ms=k2["ms"],
              plain_ms=k2["plain_ms"], bound_ms=k2["bound_ms"],
              bound_by=k2["bound_by"], library_ms=None,
-             launches_ippp=n2, launches_b=n2b, ms_F2=k2["F2"]["ms"],
+             launches_ippp=n2, launches_b=n2b, launches_bench=n2s,
+             ms_F2=k2["F2"]["ms"],
              plain_ms_F2=k2["F2"]["plain_ms"],
              bound_ms_F2=k2["F2"]["bound_ms"])]}),
         flush=True)

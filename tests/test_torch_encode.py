@@ -4,12 +4,14 @@ Params(bframes=0, me_range=16, decoded_picture_hash=3) and otherwise the
 defaults (AQ 2, psy-rd 2.0, 3 refs, weightp, TMVP, subme 2, SAO, deblock,
 sign hiding, strong intra smoothing).  Every access unit must be
 byte-identical, and the stream must decode with matching picture hashes
-in x265_tpu's decoder."""
+in x265_tpu's decoder; the same through push_frame with the cuTree
+lookahead on.  The reference's pipelines are built once for the module."""
 
 import numpy as np
 import pytest
 
 import x265_tpu.encoder as ref_encoder
+import x265_tpu.encoder.device_pipeline as ref_dp
 from bench import synthetic_frame
 from x265_tpu.common.params import Params as RefParams
 from x265_tpu.decoder import decode_annexb
@@ -21,15 +23,34 @@ from torch_threads import one_torch_thread  # noqa: F401
 W, H, N = 192, 128, 3
 
 
-def _frames():
+@pytest.fixture(scope="module", autouse=True)
+def ref_programs():
+    """The reference's I and P pipeline builders, memoised for the module
+    (its encoders share geometry and search / scan parameters)."""
+    with pytest.MonkeyPatch.context() as mp:
+        for name in ("build_i_pipeline", "build_p_pipeline"):
+            real = getattr(ref_dp, name)
+            memo = {}
+
+            def build(enc, *a, _real=real, _memo=memo, **kw):
+                key = (a, tuple(sorted(kw.items())))
+                if key not in _memo:
+                    _memo[key] = _real(enc, *a, **kw)
+                return _memo[key]
+
+            mp.setattr(ref_dp, name, build)
+        yield
+
+
+def _frames(n=N):
     base = synthetic_frame(W, H, 0)
     return [(np.roll(base[0], 3 * t, axis=1), base[1], base[2])
-            for t in range(N)]
+            for t in range(n)]
 
 
-def _params(cls=Params):
+def _params(cls=Params, **kw):
     return cls(source_width=W, source_height=H, bframes=0, me_range=16,
-               decoded_picture_hash=3)
+               decoded_picture_hash=3, **kw)
 
 
 def _encode(enc):
@@ -68,13 +89,25 @@ def test_unsupported_configs_raise(kw):
         Encoder(p, device="cpu")
 
 
-def test_lookahead_path_raises():
-    """push_frame with the default cuTree lookahead on is not ported;
-    encode_frame (zero latency) turns the lookahead off."""
-    enc = Encoder(Params(source_width=W, source_height=H, bframes=0),
-                  device="cpu")
-    with pytest.raises(NotImplementedError):
-        enc.push_frame(_frames()[0])
+def test_lookahead_path_matches_reference():
+    """push_frame with the cuTree lookahead on (bframes=0, a 2-deep
+    window): the first rc_lookahead pushes return nothing, the rest return
+    what the reference's do, and every access unit equals the
+    reference's."""
+    frames = _frames(4)
+    outs = []
+    for enc in (ref_encoder.Encoder(_params(RefParams, rc_lookahead=2)),
+                Encoder(_params(rc_lookahead=2), device="cpu")):
+        assert enc._use_lookahead
+        pushed = [enc.push_frame(planes) for planes in frames]
+        aus = [enc.headers()] + [ef.au for out in pushed + [enc.flush()]
+                                 for ef in out]
+        outs.append(([len(out) for out in pushed], aus))
+    (want_n, want), (got_n, got) = outs
+    assert got_n[:2] == [0, 0] and got_n == want_n
+    assert len(got) == len(want) == 5
+    for i, (a, b) in enumerate(zip(want, got)):
+        assert a == b, f"access unit {i} differs"
 
 
 def test_encode_frame_refuses_bframes():

@@ -1,8 +1,9 @@
 """x265_tpu_torch without JAX and without x265_tpu, as on the GPU machine:
 in a fresh process where ``import jax`` and ``import x265_tpu`` both fail,
 the port imports and encodes a 128x64 I P pair, then one B mini-GOP
-(I0 P3 B1 B2, the two Bs batched) on the CPU, and the streams have the
-expected structure."""
+(I0 P3 B1 B2, the two Bs batched), then six frames at the Params()
+defaults through the lookahead (cuTree, the b-adapt trellis) on the CPU,
+and the streams have the expected structure."""
 
 import os
 import subprocess
@@ -45,10 +46,21 @@ assert [(ef.poc, ef.kind) for ef in efs] == [(0, "I"), (3, "P"), (1, "B"),
                                              (2, "B")]
 assert all(ef.au.startswith(b"\x00\x00\x00\x01") for ef in efs)
 assert all(ef.recon[0].shape == (64, 128) for ef in efs)
+# Params() defaults: bframes 4, b-adapt 2, cuTree over rc_lookahead 20
+encl = Encoder(Params(source_width=128, source_height=64, me_range=16,
+                      decoded_picture_hash=3), device="cpu")
+efl = []
+for t in range(6):
+    efl += encl.push_frame((np.roll(y, 2 * t, axis=1), c[0], c[1]))
+assert not efl                     # the window holds every frame
+efl += encl.flush()
+assert sorted(ef.poc for ef in efl) == list(range(6)) and efl[0].kind == "I"
+assert encl.lookahead.calls["lowres"] == 6 and encl.lookahead.calls["pair"]
+assert encl.lookahead.devices == {"cpu"}
 assert not any(m == "jax" or m.startswith(("jax.", "x265_tpu."))
                for m in sys.modules if sys.modules[m] is not None)
 print("NOJAX-OK", len(hdr), [len(au) for au, _ in aus],
-      [len(ef.au) for ef in efs])
+      [len(ef.au) for ef in efs], [(ef.poc, ef.kind) for ef in efl])
 """
 
 

@@ -6,9 +6,15 @@ size, the size of each access unit and the encode-order POCs go to
 * ``x265_tpu_torch/data/golden_1080p_ippp.json``: the IPPP slice through
   ``Encoder.encode_frame`` (~2 min);
 * ``x265_tpu_torch/data/golden_1080p_b.json``: the B slice (b-pyramid,
-  lookahead off) through ``push_frame`` / ``flush``.
+  lookahead off) through ``push_frame`` / ``flush``;
+* ``x265_tpu_torch/data/golden_1080p_bench.json``: the bench slice
+  (``bench.py``'s configuration and ten frames, the lookahead on) through
+  ``push_frame`` / ``flush``, also with each frame's slice kind in encode
+  order, so that the lookahead's choices are on record.
 
-    JAX_PLATFORMS=cpu python tools/make_golden.py
+    JAX_PLATFORMS=cpu python tools/make_golden.py [ippp] [b] [bench]
+
+With no argument it writes all three.
 """
 
 import hashlib
@@ -22,7 +28,7 @@ sys.path.insert(0, ROOT)
 DATA = os.path.join(ROOT, "x265_tpu_torch", "data")
 
 
-def _write(name, params, aus, pocs):
+def _write(name, params, aus, pocs, kinds=None):
     stream = b"".join(aus)
     out = dict(params=params, frames=len(aus) - 1,
                md5=hashlib.md5(stream).hexdigest(),
@@ -31,6 +37,8 @@ def _write(name, params, aus, pocs):
                made_by="x265_tpu on the CPU (tools/make_golden.py)")
     if pocs is not None:
         out["encode_pocs"] = pocs
+    if kinds is not None:
+        out["encode_kinds"] = kinds
     with open(os.path.join(DATA, name), "w") as f:
         json.dump(out, f, indent=1)
         f.write("\n")
@@ -64,6 +72,23 @@ def bslice():
            [enc.headers()] + [ef.au for ef in efs], [ef.poc for ef in efs])
 
 
+def bench():
+    from x265_tpu.common.params import Params
+    from x265_tpu.encoder import Encoder
+    from x265_tpu_torch.smoke_config import (smoke_frames_bench,
+                                             smoke_params_bench)
+
+    enc = Encoder(Params(**smoke_params_bench()))
+    efs = []
+    for planes in smoke_frames_bench():
+        efs += enc.push_frame(planes)
+    efs += enc.flush()
+    _write("golden_1080p_bench.json", smoke_params_bench(),
+           [enc.headers()] + [ef.au for ef in efs], [ef.poc for ef in efs],
+           [ef.kind for ef in efs])
+
+
 if __name__ == "__main__":
-    ippp()
-    bslice()
+    which = sys.argv[1:] or ["ippp", "b", "bench"]
+    for name in which:
+        dict(ippp=ippp, b=bslice, bench=bench)[name]()

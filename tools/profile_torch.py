@@ -1,12 +1,13 @@
 """Where the time of x265_tpu_torch's 1080p slices goes, on one GPU.
 
-    python3 tools/profile_torch.py [--slice ippp|b] [--frames N]
+    python3 tools/profile_torch.py [--slice ippp|b|bench] [--frames N]
                                    [--out chiprun_out/profile.json]
 
 Three encodes of a chip_smoke slice (1080p, Params() defaults): ``ippp``
-(bframes=0, 4 frames through encode_frame) or ``b`` (bframes=4 with
+(bframes=0, 4 frames through encode_frame), ``b`` (bframes=4 with
 b-pyramid and the lookahead off, 6 frames through push_frame / flush:
-I0 P5 B3 B1+B2 B4):
+I0 P5 B3 B1+B2 B4) or ``bench`` (bench.py's configuration, the lookahead
+on, 10 frames through push_frame / flush):
   1. warm-up;
   2. torch.profiler over CPU and CUDA: device time by kernel name, the
      device-busy sum and the idle share of the wall time, and the port's
@@ -15,7 +16,15 @@ I0 P5 B3 B1+B2 B4):
      ``torch.cuda.synchronize()`` timers (intra analysis, motion search,
      the CTU scan, the loop filters, the fetch, and the host's QP plan,
      complexity estimate, weightp analysis, padding, syntax and CABAC
-     work); the rest of the frame time is "other".
+     work; on the bench slice also the lookahead: the lowres analysis of
+     each pushed frame, the b-adapt trellis with its pair-cost and bidir
+     programs, and cuTree's host propagation, and the AQ offsets computed
+     at each push as its input); the rest of the frame time is "other".
+On the bench slice it also times the lookahead's device programs alone
+with CUDA events at the 1080p lowres size (the lowres program, its SAD half
+that the trellis's pair costs run, and the bidir program), so that the
+lookahead stage's wall divides into device time and the host work and
+synchronisation around it.
 Prints a summary and writes the numbers, with the card's name and power
 limit, as JSON.
 """
@@ -45,12 +54,12 @@ def _timed(stats, name, fn):
     return wrapped
 
 
-def _instrument(stats):
+def _instrument(stats, bench=False):
     """Wrap the stages at the builders' module seams (before the encoder
     builds its pipelines)."""
-    from x265_tpu_torch.encoder import ctu_scan, device_pipeline as dp
+    from x265_tpu_torch.encoder import aq, ctu_scan, device_pipeline as dp
     from x265_tpu_torch.encoder import intra_encoder as ie
-    from x265_tpu_torch.encoder import weights
+    from x265_tpu_torch.encoder import lookahead, weights
 
     ab, itb, fsb = (dp._analyse_builder, dp._inter_tools_builder,
                     dp._filter_stage_builder)
@@ -84,34 +93,85 @@ def _instrument(stats):
     ie.pad_plane = _timed(stats, "host padding", ie.pad_plane)
     weights.analyse_luma_weight = _timed(stats, "host weightp analysis",
                                          weights.analyse_luma_weight)
+    la_stage = "lookahead (lowres + bidir programs, trellis, cuTree)"
+    for owner, name in ((lookahead.Lookahead, "_analyze"),
+                        (lookahead.Lookahead, "_propagate"),
+                        (ie.Encoder, "_slicetype_decide")):
+        setattr(owner, name, _timed(stats, la_stage, getattr(owner, name)))
+    if bench:
+        # the QP plan takes the lookahead's offsets there, so the AQ
+        # offsets are computed only at push, as the lookahead's input
+        aq.aq_offsets = _timed(stats, "host AQ offsets at push",
+                               aq.aq_offsets)
 
 
-def _encode(frames, bslice):
+def _encode(frames, slice_):
     import torch
     from x265_tpu_torch import Encoder, Params
-    from x265_tpu_torch.smoke_config import smoke_params, smoke_params_b
+    from x265_tpu_torch.smoke_config import (smoke_params, smoke_params_b,
+                                             smoke_params_bench)
 
-    params = smoke_params_b() if bslice else smoke_params()
+    params = dict(ippp=smoke_params, b=smoke_params_b,
+                  bench=smoke_params_bench)[slice_]()
+    pushed = slice_ != "ippp"
     enc = Encoder(Params(**params), device="cuda")
     enc.headers()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for planes in frames:
-        if bslice:
+        if pushed:
             enc.push_frame(planes)
         else:
             enc.encode_frame(planes)
-    if bslice:
+    if pushed:
         enc.flush()
     torch.cuda.synchronize()
     return time.perf_counter() - t0
 
 
+def _lookahead_programs_ms(frames):
+    """Device milliseconds of one call of each lookahead program on two
+    analysed 1080p frames (CUDA events, the mean of 20 after a warm call)."""
+    import torch
+    from x265_tpu_torch import Params
+    from x265_tpu_torch.encoder.lookahead import Lookahead, LowresFrame
+    from x265_tpu_torch.smoke_config import smoke_params_bench
+
+    la = Lookahead(Params(**smoke_params_bench()), 8, "cuda")
+    f0, f1 = (LowresFrame(planes, None, None) for planes in frames[:2])
+    la._analyze(f0)
+    la._analyze(f1)
+    la.bidir_cost(f1, f0, f0)                # builds the bidir program
+    mv = torch.as_tensor(f1.mv, device="cuda")
+
+    def events_ms(fn, reps=20):
+        fn()
+        torch.cuda.synchronize()
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        for _ in range(reps):
+            fn()
+        t1.record()
+        torch.cuda.synchronize()
+        return t0.elapsed_time(t1) / reps
+
+    return {"lowres program (analysis)": events_ms(
+                lambda: la._prog(f1.low, f0.low)),
+            "SAD half (trellis pair cost)": events_ms(
+                lambda: la._prog.inter(f1.low, f0.low)),
+            "bidir program": events_ms(
+                lambda: la._bidir_prog(f1.low, f0.low, f0.low, mv, mv)),
+            "grid": list(f0.intra_cost.shape)}
+
+
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--slice", choices=("ippp", "b"), default="ippp")
+    ap.add_argument("--slice", choices=("ippp", "b", "bench"),
+                    default="ippp")
     ap.add_argument("--frames", type=int, default=None,
-                    help="frames to encode (4 for ippp, 6 for b)")
+                    help="frames to encode (4 for ippp, 6 for b, 10 for "
+                         "bench)")
     ap.add_argument("--out", default=os.path.join(ROOT, "chiprun_out",
                                                   "profile.json"))
     args = ap.parse_args()
@@ -120,19 +180,18 @@ def main():
         raise SystemExit("profile_torch: no CUDA device")
     from torch.profiler import ProfilerActivity, profile
     from x265_tpu_torch.smoke_config import smoke_frames
-    bslice = args.slice == "b"
     if args.frames is None:
-        args.frames = 6 if bslice else 4
+        args.frames = dict(ippp=4, b=6, bench=10)[args.slice]
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     frames = smoke_frames(args.frames)
-    warm = _encode(frames, bslice)
+    warm = _encode(frames, args.slice)
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        prof_wall = _encode(frames, bslice)
+        prof_wall = _encode(frames, args.slice)
     from torch.autograd import DeviceType
     by_kernel = defaultdict(float)
     own = defaultdict(lambda: dict(ms=0.0, launches=0))
@@ -147,12 +206,14 @@ def main():
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:25]
 
     stats = defaultdict(float)
-    _instrument(stats)
-    staged = _encode(frames, bslice)
+    _instrument(stats, bench=args.slice == "bench")
+    staged = _encode(frames, args.slice)
     stages = {k: v * 1e3 for k, v in sorted(stats.items(),
                                             key=lambda kv: -kv[1])}
     stages["other"] = staged * 1e3 - sum(stages.values())
 
+    la_ms = (_lookahead_programs_ms(frames) if args.slice == "bench"
+             else None)
     out = dict(device=smi, slice=args.slice, frames=args.frames,
                warm_s=warm,
                wall_ms=prof_wall * 1e3, fps=args.frames / prof_wall,
@@ -160,7 +221,7 @@ def main():
                idle_share=1.0 - busy / (prof_wall * 1e3),
                kernels_ms=dict(top), port_kernels=dict(own),
                staged_wall_ms=staged * 1e3,
-               stages_ms=stages)
+               stages_ms=stages, lookahead_programs_ms=la_ms)
     os.makedirs(os.path.dirname(args.out), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(out, f, indent=1)
@@ -174,6 +235,11 @@ def main():
     print(f"stages (synchronised, wall {staged * 1e3:.1f} ms):")
     for k, v in stages.items():
         print(f"  {v:10.1f} ms  {k}")
+    if la_ms is not None:
+        print(f"lookahead programs alone (device ms a call, lowres grid "
+              f"{la_ms.pop('grid')}):")
+        for k, v in la_ms.items():
+            print(f"  {v:10.4f} ms  {k}")
 
 
 if __name__ == "__main__":

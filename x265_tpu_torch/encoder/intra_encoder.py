@@ -9,11 +9,13 @@ with the native CABAC serializer, and appends the hash SEI.  The
 independent non-reference Bs of a mini-GOP go through one batched dispatch
 and one fetch.
 
-Scope: ``encode_frame`` with ``bframes == 0``; ``push_frame`` / ``flush``
-with B frames and b-pyramid, with the lookahead off (``rc_lookahead=0``);
+Scope: ``encode_frame`` with ``bframes == 0`` (zero latency, no
+lookahead); ``push_frame`` / ``flush`` with B frames, b-pyramid and the
+lookahead (``encoder/lookahead.py``: lowres analysis, cuTree offsets, the
+b-adapt trellis, the lookahead scenecut), so ``Params()`` defaults run;
 8-bit, 64x64 CTBs, on the card by default (``device="cuda"``; the tests
-pass ``device="cpu"``).  The lookahead (cuTree, b-adapt), 10-bit, RDOQ,
-noise reduction, lossless and HRD raise ``NotImplementedError``.
+pass ``device="cpu"``).  10-bit, RDOQ, noise reduction, lossless and HRD
+raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -269,7 +271,7 @@ class Encoder:
                         self._qpfile_map[int(f[0])] = int(f[2])
         self._prev_half = None
         self.bframes = params.bframes
-        self._queue = []                # [(poc, planes)] pending display order
+        self._queue = []                # [(poc, planes, la)] display order
         self._next_poc = 0
         self._display_idx = 0
         self._cvs_base = 0
@@ -280,10 +282,17 @@ class Encoder:
         self._wp_src = {}
         self._col_store = {}
         self.prev_anchor_poc = None
+        # the lookahead: cuTree over a rc_lookahead-deep window and the
+        # b-adapt trellis; adds output delay (push_frame / flush);
+        # encode_frame() is the zero-latency path without it
+        self.lookahead = None
         self._use_lookahead = ((params.cu_tree and params.rc_lookahead > 0
                                 and self.aq)
                                or (params.b_adapt > 0 and self.bframes > 0
                                    and params.rc_lookahead > 0))
+        self._anchor_low = None         # LowresFrame of the last anchor
+        self._la_frame = None           # (offsets16, satd, scenecut, frame)
+        self._la_off16 = None
         self._inflight: list[_Pending] = []
         self.pipeline_depth = max(1, params.frame_parallelism)
         # b-pyramid: the middle B of each mini-GOP becomes a reference
@@ -379,6 +388,8 @@ class Encoder:
         if self.bframes:
             raise ValueError(
                 "bframes > 0 reorders output; use push_frame()/flush()")
+        assert self.lookahead is None, \
+            "encode_frame() after push_frame() with an active lookahead"
         self._use_lookahead = False
         out = self.push_frame(planes) + self._drain(0)
         assert len(out) == 1
@@ -390,14 +401,29 @@ class Encoder:
         flight; with B frames a whole mini-GOP is dispatched once its
         anchor arrives)."""
         if self._use_lookahead:
-            raise NotImplementedError(
-                "x265_tpu_torch: the lookahead (cuTree / b-adapt) is not "
-                "ported; use encode_frame() or rc_lookahead=0")
-        self._gop_input(planes)
+            if self.lookahead is None:
+                from .lookahead import Lookahead
+                self.lookahead = Lookahead(self.params, self.bit_depth,
+                                           self.device)
+            from .aq import aq_offsets
+            y = np.asarray(planes[0])
+            coded = (y, np.asarray(planes[1]), np.asarray(planes[2]))
+            off = aq_offsets(coded, self.params.aq_mode,
+                             self.params.aq_strength, self.bit_depth,
+                             normalize=self.params.rc_mode == 0)
+            for la_out in self.lookahead.push(planes, off):
+                self._la_frame = la_out[1:]
+                self._gop_input(la_out[0])
+        else:
+            self._gop_input(planes)
         return self._drain(self.pipeline_depth)
 
     def flush(self) -> list:
         """Encode any queued frames (end of stream)."""
+        if self.lookahead is not None:
+            for la_out in self.lookahead.flush():
+                self._la_frame = la_out[1:]
+                self._gop_input(la_out[0])
         self._emit_minigop()
         return self._drain(0)
 
@@ -412,13 +438,28 @@ class Encoder:
         work; finished frames are drained by the caller."""
         p = self.params
         keyint = max(1, p.keyint_max)
+        la = self._la_frame
+        self._la_frame = None
+        # lookahead scenecut: the lowres cost ratio decides before dispatch
+        min_keyint = self._min_keyint()
+        la_scenecut = (la is not None and la[2]
+                       and p.scenecut_threshold > 0
+                       and (self._display_idx - self._cvs_base)
+                       >= min_keyint)
         gop_start = ((self._display_idx - self._cvs_base) % keyint == 0
-                     or self.prev_anchor_poc is None)
+                     or self.prev_anchor_poc is None
+                     or la_scenecut)
+        # inherited from the reference and kept so the streams stay equal:
+        # when an IDR ends a pending mini-GOP, _emit_minigop below replaces
+        # this anchor by the mini-GOP's, so the next trellis after the IDR
+        # starts from that stale anchor
+        if la is not None and (self.bframes == 0 or gop_start):
+            self._anchor_low = la[3]
         if self.bframes == 0:
             poc = 0 if gop_start else self._next_poc
             kind = "I" if gop_start else "P"
             pend = self._dispatch_one(planes, poc, kind,
-                                      l0_poc=self.prev_anchor_poc,
+                                      l0_poc=self.prev_anchor_poc, la=la,
                                       didx=self._display_idx)
             if gop_start:
                 self._cvs_base = self._display_idx
@@ -430,13 +471,13 @@ class Encoder:
         if gop_start:
             self._emit_minigop()            # pending frames end their GOP
             self._cvs_base = self._display_idx  # before encode: display_idx
-            pend = self._dispatch_one(planes, 0, "I")
+            pend = self._dispatch_one(planes, 0, "I", la=la)
             self._next_poc = 1
             self._after_anchor(pend, idr=True)
             pend.display_idx = self._cvs_base + pend.poc
             self._inflight.append(pend)
         else:
-            self._queue.append((self._next_poc, planes))
+            self._queue.append((self._next_poc, planes, la))
             self._next_poc += 1
             if len(self._queue) == self.bframes + 1:
                 if self.params.b_adapt > 0:
@@ -483,22 +524,24 @@ class Encoder:
         else:
             frames = self._queue[:count]
             self._queue = self._queue[count:]
-        anchor_poc, anchor_planes = frames[-1]
+        anchor_poc, anchor_planes, anchor_la = frames[-1]
+        if anchor_la is not None:
+            self._anchor_low = anchor_la[3]
         l0 = self.prev_anchor_poc
         base = self._cvs_base
         pend = self._dispatch_one(anchor_planes, anchor_poc,
                                   "P" if l0 is not None else "I", l0_poc=l0,
-                                  didx=base + anchor_poc)
+                                  la=anchor_la, didx=base + anchor_poc)
         pend.display_idx = base + anchor_poc
         self._inflight.append(pend)
         self._after_anchor(pend)        # retains prev anchor for the Bs
         bs = frames[:-1]
         if self.b_pyramid and len(bs) >= 2:
             mid_i = len(bs) // 2
-            mpoc, mplanes = bs[mid_i]
+            mpoc, mplanes, mla = bs[mid_i]
             mp = self._dispatch_one(mplanes, mpoc, "B", l0_poc=l0,
-                                    l1_poc=anchor_poc, ref_b=True,
-                                    didx=base + mpoc)
+                                    l1_poc=anchor_poc, la=mla,
+                                    ref_b=True, didx=base + mpoc)
             mp.display_idx = base + mpoc
             self._inflight.append(mp)
             self.dpb[mpoc] = mp
@@ -519,9 +562,9 @@ class Encoder:
             return
         if len(bs) >= 2:
             pends = []
-            for poc, planes in bs:
+            for poc, planes, la in bs:
                 bp = self._dispatch_one(planes, poc, "B", l0_poc=l0,
-                                        l1_poc=l1, defer_b=True,
+                                        l1_poc=l1, la=la, defer_b=True,
                                         didx=base + poc)
                 bp.display_idx = base + poc
                 bp.ps.rps_keep = tuple(set(bp.ps.rps_keep)
@@ -530,20 +573,60 @@ class Encoder:
             self._dispatch_b_batch(pends, l0, l1)
             self._inflight.extend(pends)
         else:
-            for poc, planes in bs:
+            for poc, planes, la in bs:
                 bp = self._dispatch_one(planes, poc, "B", l0_poc=l0,
-                                        l1_poc=l1, didx=base + poc)
+                                        l1_poc=l1, la=la,
+                                        didx=base + poc)
                 bp.display_idx = base + poc
                 bp.ps.rps_keep = tuple(set(bp.ps.rps_keep)
                                        | set(keep_extra))
                 self._inflight.append(bp)
 
     def _slicetype_decide(self) -> int:
-        """Adaptive B placement (b-adapt): the queue prefix length to emit
-        (#Bs + 1 anchor).  Without the lookahead the reference's trellis
-        has no lowres costs and emits the whole queue; the trellis comes
-        with the port of the lookahead."""
-        return len(self._queue)
+        """Adaptive B placement (b-adapt): a trellis over the queued
+        display-order window.  Every segmentation of the window is scored
+        as its anchor's lowres P cost plus each B's min(intra, list0,
+        list1, bidir-average) cost, with the b-pyramid's reference pairs;
+        the cheapest path picks the first mini-GOP's length.  Returns the
+        queue prefix length to emit (#Bs + 1 anchor); without the lookahead
+        (no lowres costs) the whole queue."""
+        la = self.lookahead
+        m = len(self._queue)
+        if la is None:
+            return m
+        lows = [e[2][3] for e in self._queue]
+        # id()-keyed pair costs of dead frames must not alias new objects:
+        # a fresh cache per decision, whose frames are all alive
+        la._pair_cache.clear()
+        anchors = [self._anchor_low] + lows
+        inf = float("inf")
+        best = [inf] * (m + 1)
+        best[m] = 0.0
+        choice = [m - 1] * (m + 1)
+        for i in range(m - 1, -1, -1):
+            a = anchors[i]
+            for k in range(i, min(i + self.bframes, m - 1) + 1):
+                c = la.p_cost(lows[k], a) + best[k + 1]
+                # B reference pairs as dispatched: with b-pyramid and >= 2
+                # Bs the middle B refs (a, anchor), the outer Bs the
+                # half-distance pairs
+                nb = k - i
+                if self.b_pyramid and nb >= 2:
+                    mid = i + nb // 2
+                    pairs = [(j, a, lows[mid]) if j < mid
+                             else (j, lows[mid], lows[k])
+                             for j in range(i, k) if j != mid]
+                    pairs.append((mid, a, lows[k]))
+                else:
+                    pairs = [(j, a, lows[k]) for j in range(i, k)]
+                for j, r0, r1 in pairs:
+                    if c >= best[i]:
+                        break
+                    c += la.bidir_cost(lows[j], r0, r1)
+                if c < best[i]:
+                    best[i] = c
+                    choice[i] = k
+        return choice[0] + 1
 
     def _qp_override(self, didx):
         if didx is None:
@@ -561,7 +644,7 @@ class Encoder:
         return None
 
     def _dispatch_one(self, planes, poc: int, kind: str, l0_poc=None,
-                      l1_poc=None, cplx=None, defer_b: bool = False,
+                      l1_poc=None, la=None, cplx=None, defer_b: bool = False,
                       ref_b: bool = False, didx=None):
         """Run one picture's device work and return its _Pending (a
         deferred B only stashes its inputs: ``_dispatch_b_batch`` runs
@@ -578,8 +661,14 @@ class Encoder:
             poc = 0
         is_p = kind == "P"
         is_b = kind == "B"
+        # frame complexity for rate control: the lowres lookahead cost when
+        # the window is active, else the inline half-res estimate
         if cplx is None:
-            cplx = self._complexity_estimate(orig, kind != "I")
+            if la is not None and la[1]:
+                cplx = float(la[1])
+            else:
+                cplx = self._complexity_estimate(orig, kind != "I")
+        self._la_off16 = la[0] if la is not None else None
         self.qp = self.rc.frame_qp(is_intra=kind == "I", satd=cplx,
                                    is_b=is_b, is_ref_b=ref_b)
         ov = self._qp_override(didx)
@@ -805,17 +894,20 @@ class Encoder:
                 np.float32(sao_lam))
 
     def _qp_plan(self, orig):
-        """Per-CTB desired QPs + SSD-domain lambdas (frame QP + AQ)."""
+        """Per-CTB desired QPs + SSD-domain lambdas (frame QP + AQ, or the
+        lookahead's AQ + cuTree offsets when it gave them)."""
         g = self.geom
         p = self.params
         bd_off = 6 * (self.bit_depth - 8)
         if self.aq:
             from .aq import aq_offsets, per_ctb_qp
-            cw, ch = self.sps.pic_width, self.sps.pic_height
-            coded = (orig[0][:ch, :cw], orig[1][:ch // 2, :cw // 2],
-                     orig[2][:ch // 2, :cw // 2])
-            off16 = aq_offsets(coded, p.aq_mode, p.aq_strength,
-                               self.bit_depth, normalize=p.rc_mode == 0)
+            off16 = self._la_off16
+            if off16 is None:
+                cw, ch = self.sps.pic_width, self.sps.pic_height
+                coded = (orig[0][:ch, :cw], orig[1][:ch // 2, :cw // 2],
+                         orig[2][:ch // 2, :cw // 2])
+                off16 = aq_offsets(coded, p.aq_mode, p.aq_strength,
+                                   self.bit_depth, normalize=p.rc_mode == 0)
             qp_ctb = per_ctb_qp(np.asarray(off16), self.qp, g)
         else:
             qp_ctb = np.full((g.n_ctbs,), self.qp, np.int32)

@@ -1,13 +1,18 @@
 """The slices that ``chip_smoke.py`` encodes and ``tools/make_golden.py``
-digests, both 1080p 8-bit at ``Params()`` defaults with QP 32 and the MD5
-hash SEI, of ``synthetic_frame`` panning content:
+digests, all 1080p 8-bit at ``Params()`` defaults with QP 32 and the
+checksum hash SEI (``decoded_picture_hash=3``), of ``synthetic_frame``
+panning content:
 
 * IPPP: ``bframes=0``, four frames (I P P P) through the zero-latency
   ``Encoder.encode_frame``;
 * B: ``bframes=4`` with b-pyramid and the lookahead off
   (``rc_lookahead=0``), six frames through ``push_frame`` / ``flush``:
   encode order I0 P5 B3 (the reference B) B1 B2 (one batched dispatch)
-  B4."""
+  B4;
+* bench: ``bench.py``'s own configuration and frames, ``Params(qp=32,
+  decoded_picture_hash=3)`` at the defaults (``bframes=4``, b-pyramid,
+  b-adapt 2, ``rc_lookahead=20``, cuTree, merange 57), ten frames through
+  ``push_frame`` / ``flush``: the lookahead chooses the mini-GOPs."""
 
 from __future__ import annotations
 
@@ -15,6 +20,7 @@ import numpy as np
 
 WIDTH, HEIGHT, FRAMES = 1920, 1080, 4
 FRAMES_B = 6
+FRAMES_BENCH = 10
 
 
 def smoke_params() -> dict:
@@ -25,6 +31,11 @@ def smoke_params() -> dict:
 def smoke_params_b() -> dict:
     return dict(source_width=WIDTH, source_height=HEIGHT, bframes=4,
                 b_pyramid=True, rc_lookahead=0, qp=32,
+                decoded_picture_hash=3)
+
+
+def smoke_params_bench() -> dict:
+    return dict(source_width=WIDTH, source_height=HEIGHT, qp=32,
                 decoded_picture_hash=3)
 
 
@@ -52,3 +63,8 @@ def smoke_frames(n: int = FRAMES) -> list:
 def smoke_frames_b() -> list:
     """The B slice's six display-order frames (``smoke_frames``'s pan)."""
     return smoke_frames(FRAMES_B)
+
+
+def smoke_frames_bench() -> list:
+    """The bench slice's ten display-order frames (``bench.py``'s)."""
+    return smoke_frames(FRAMES_BENCH)
