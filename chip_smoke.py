@@ -49,7 +49,20 @@ Phases (each raises on failure; the script then exits non-zero):
      give (``bench_launches``); the lookahead's programs must have run,
      with their outputs on the card.  It prints the wall of every call,
      the fps over the 10 frames and the synchronised time spent in the
-     lookahead.
+     lookahead;
+  7. the Main10 bench slice: the bench slice at internal_bit_depth=10 on
+     ten frames of 10-bit content (smoke_config.smoke_frames_bench10), a
+     warm and a timed encode with fresh Encoders; MD5, size, encode-order
+     POCs and kinds equal to x265_tpu_torch/data/golden_1080p_bench10.json,
+     K1 and K2 launched the counts ``bench_launches`` gives, every one of
+     them on the kernels' 10-bit path (counted apart), and the lookahead's
+     programs on the card.
+Phases 2 and 3 also hold the kernels' 10-bit instantiations: K1's busiest
+level (I and P, F = 1 and 2) on 10-bit inputs (samples 0..1023 with bands
+at 0 and 1023, QPs with the 12 of the bit-depth offset) equal to the plain
+step, and K2 on the four sets with 10-bit samples (0 and 1023 in the
+extreme one) at B = 8160 and 16320 equal to the plain refine, each with
+its one-launch time, the plain version's time and the bound.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 
@@ -63,9 +76,9 @@ residuals and levels times the int8 DCT matrix, counted as x265's
 partial butterflies need them, at two a dp2a instruction: 33.4 T/s.  K2's
 are instructions at 16.7 T/s: the 8-tap interpolation's, each filtered
 sample counted once however many candidates of a block share it, as dp4a
-in the horizontal pass (8-bit samples times int8 taps, two a sample) and
-dp2a in the vertical (int16 sums, four a sample), and the SATDs' adds,
-one each.
+in the horizontal pass (8-bit samples times int8 taps, two a sample; at
+10 bits dp2a on int16 sample pairs, four a sample) and dp2a in the
+vertical (int16 sums, four a sample), and the SATDs' adds, one each.
 """
 
 import hashlib
@@ -202,12 +215,12 @@ def k1_level_bound(xs, ys, inter):
 _LUMA_TAPS = ((3,), tuple(range(7)), tuple(range(8)), tuple(range(1, 8)))
 
 
-def _k2_interp_ops(cands):
+def _k2_interp_ops(cands, bd=8):
     """Instructions of K2's interpolation for one block's candidate qpel
     offsets ``cands`` (y, x): every horizontally filtered sample (window
-    row, column, phase; two dp4a) and every vertically filtered one (row,
-    column, both phases; four dp2a) counted once, whichever candidates
-    share it."""
+    row, column, phase; two dp4a at 8 bits, four dp2a at 10) and every
+    vertically filtered one (row, column, both phases; four dp2a) counted
+    once, whichever candidates share it."""
     hs, vs = set(), set()
     for qy, qx in cands:
         iy1, ix1, fy, fx = (qy >> 2) + 1, (qx >> 2) + 1, qy & 3, qx & 3
@@ -217,10 +230,10 @@ def _k2_interp_ops(cands):
         if fy:
             vs.update((iy1 + y, ix1 + x, fy, fx) for y in range(16)
                       for x in range(16))
-    return 2 * len(hs) + 4 * len(vs)
+    return (2 if bd == 8 else 4) * len(hs) + 4 * len(vs)
 
 
-def k2_bound(W, ob, mvi, pmv, outs, lam, mrq):
+def k2_bound(W, ob, mvi, pmv, outs, lam, mrq, bd=8):
     """Bound of one K2 launch (subme 2): its bytes, and the instructions
     the candidates within the search range need: the interpolation once
     per shared filtered sample (``_k2_interp_ops``) and per distinct
@@ -230,7 +243,7 @@ def k2_bound(W, ob, mvi, pmv, outs, lam, mrq):
     the plain refine gives (subme 1: the first round alone)."""
     import numpy as np
     from x265_tpu_torch.encoder import me_cuda
-    q1 = me_cuda.refine_plain(W, ob, mvi, pmv, lam, 1, mrq)[0]
+    q1 = me_cuda.refine_plain(W, ob, mvi, pmv, lam, 1, mrq, bd)[0]
     q1, mv = q1.cpu().numpy(), mvi.cpu().numpy()
     d = [(dy, dx) for dy in (-1, 0, 1) for dx in (-1, 0, 1)]
     r1 = np.array([(2 * dy, 2 * dx) for dy, dx in d])            # [9, 2]
@@ -243,7 +256,7 @@ def k2_bound(W, ob, mvi, pmv, outs, lam, mrq):
     for key, n in zip(uniq, count):
         cq = [tuple(c) for c, ok in zip(cands[np.all(keys == key, 1)][0],
                                         key[2:]) if ok]
-        ops += n * (_k2_interp_ops(cq) + len(cq) * (256 + 16 * 96))
+        ops += n * (_k2_interp_ops(cq, bd) + len(cq) * (256 + 16 * 96))
     # a lambda per block (blocks of several frames) is read once each
     nbytes = _nbytes([W, ob, mvi, pmv] + list(outs)) + (
         4 * lam.numel() if lam.numel() > 1 else 0)
@@ -272,12 +285,14 @@ def _capture_level(li, run):
     return out, got
 
 
-def k1_inputs(dev):
-    """Seeded random inputs of the 1080p CTU scan, psy-rd 2.0.  Returns
-    ``(scan, li, n_real, go)``: the busiest wavefront level ``li`` with its
-    ``n_real`` real lanes, and ``go(cfg, route, frames=1)`` that runs the
-    62-level scan, ``cfg`` "I" or "P", ``route`` "kernel" or "plain", of
-    one frame or of two frames batched (the second from its own seed)."""
+def k1_inputs(dev, bd=8):
+    """Seeded random inputs of the 1080p CTU scan, psy-rd 2.0, at bit depth
+    ``bd`` (10: samples and predictions 0..1023 with a band of columns at 0
+    and one at 1023, QPs 36..51).  Returns ``(scan, li, n_real, go)``: the
+    busiest wavefront level ``li`` with its ``n_real`` real lanes, and
+    ``go(cfg, route, frames=1)`` that runs the 62-level scan, ``cfg`` "I"
+    or "P", ``route`` "kernel" or "plain", of one frame or of two frames
+    batched (the second from its own seed)."""
     import numpy as np
     import torch
     from x265_tpu_torch.common.geometry import PictureGeometry
@@ -291,29 +306,40 @@ def k1_inputs(dev):
     def T(a):
         return torch.as_tensor(a).to(dev)
 
+    hi, dt = 1 << bd, np.uint8 if bd == 8 else np.uint16
+
+    def smp(rng, shape, dtype):
+        a = rng.randint(0, hi, shape)
+        if bd != 8:                   # the clamps: bands at 0 and 2^bd - 1
+            w = shape[-1]
+            a[..., :w // 8] = 0
+            a[..., w // 2:w // 2 + w // 8] = hi - 1
+        return a.astype(dtype)
+
     def frame(seed):
         rng = np.random.RandomState(seed)
         x = dict(
-            oy=T(rng.randint(0, 256, (ph, pw)).astype(np.uint8)),
-            ocb=T(rng.randint(0, 256, (ph // 2, pw // 2)).astype(np.uint8)),
-            ocr=T(rng.randint(0, 256, (ph // 2, pw // 2)).astype(np.uint8)),
-            qp=T(rng.randint(24, 40, nctb).astype(np.int32)),
+            oy=T(smp(rng, (ph, pw), dt)),
+            ocb=T(smp(rng, (ph // 2, pw // 2), dt)),
+            ocr=T(smp(rng, (ph // 2, pw // 2), dt)),
+            qp=T((rng.randint(24, 40, nctb) + 6 * (bd - 8)).astype(
+                np.int32)),
             lam=T((0.85 * 2.0 ** (rng.randint(24, 40, nctb) / 3.0 - 4.0)
                    ).astype(np.float32)),
             modes=T(rng.randint(0, 35, b16).astype(np.int32)),
             mode32=T(rng.randint(0, 35, b32).astype(np.int32)),
             use32=torch.zeros((b32,), dtype=torch.bool, device=dev),
             is_inter=T(rng.rand(b16) < 0.7),
-            ipred_y=T(rng.randint(0, 256, (b16, 16, 16)).astype(np.int32)),
-            ipred_cb=T(rng.randint(0, 256, (b16, 8, 8)).astype(np.int32)),
-            ipred_cr=T(rng.randint(0, 256, (b16, 8, 8)).astype(np.int32)),
+            ipred_y=T(smp(rng, (b16, 16, 16), np.int32)),
+            ipred_cb=T(smp(rng, (b16, 8, 8), np.int32)),
+            ipred_cr=T(smp(rng, (b16, 8, 8), np.int32)),
             m32_in=T(rng.rand(b32) < 0.4))
         return x
 
     one = frame(1)
     two = {k: torch.stack([v, w]) for (k, v), w in zip(
         one.items(), frame(2).values())}
-    scan = CtuScan(g, bit_depth=8, sign_hide=True,
+    scan = CtuScan(g, bit_depth=bd, sign_hide=True,
                    strong_intra_smoothing=True, psy_rd=2.0)
     real = (scan.t["xs"]["ctu"] < nctb).sum(1)
     li = int(real.argmax())
@@ -355,81 +381,94 @@ def _k1_level(lib, scan, li, is_p, run, label):
                 F=carry0[0].shape[0])
 
 
-def check_k1(dev, lib):
-    """K1 vs the plain step: full scans of random 1080p inputs, then the
-    busiest level alone (equality, one-launch time, bound), for one frame
-    and for two frames batched."""
+def check_k1(dev, lib, bd=8):
+    """K1 vs the plain step: at 8 bits full scans of random 1080p inputs,
+    then (at ``bd``) the busiest level alone (equality, one-launch time,
+    bound), for one frame and for two frames batched."""
     import torch
 
-    scan, li, n_real, run = k1_inputs(dev)
+    scan, li, n_real, run = k1_inputs(dev, bd)
     res = {}
+    tag = f"K1 {bd}-bit" if bd != 8 else "K1"
     for cfg in ("I", "P"):
         is_p = cfg == "P"
 
         def go(route, frames=1, cfg=cfg):
             return run(cfg, route, frames)
 
-        out_k = go("kernel")
-        out_p = go("plain")
-        torch.cuda.synchronize()
-        scan_err = _max_abs_err(out_k, out_p)
-        if scan_err != 0.0:
-            _report_diff("scan", out_k, out_p)
-        scan_ms = _events_ms(lambda: go("kernel"), 2)
-        scan_plain_ms = _events_ms(lambda: go("plain"), 1)
-        print(f"K1 {cfg}: 62-level scan {scan_ms:.3f} ms kernel, "
-              f"{scan_plain_ms:.3f} ms plain, max_abs_err {scan_err}",
-              flush=True)
+        scan_err = 0.0
+        if bd == 8:
+            out_k = go("kernel")
+            out_p = go("plain")
+            torch.cuda.synchronize()
+            scan_err = _max_abs_err(out_k, out_p)
+            if scan_err != 0.0:
+                _report_diff("scan", out_k, out_p)
+            scan_ms = _events_ms(lambda: go("kernel"), 2)
+            scan_plain_ms = _events_ms(lambda: go("plain"), 1)
+            print(f"{tag} {cfg}: 62-level scan {scan_ms:.3f} ms kernel, "
+                  f"{scan_plain_ms:.3f} ms plain, max_abs_err {scan_err}",
+                  flush=True)
+        else:
+            scan_ms = _events_ms(lambda: go("kernel"), 2)
+            scan_plain_ms = None
+            print(f"{tag} {cfg}: 62-level scan {scan_ms:.3f} ms kernel",
+                  flush=True)
         # the busiest level alone: one frame, then two frames batched
         one = _k1_level(lib, scan, li, is_p, lambda: go("kernel"),
-                        f"K1 {cfg} level")
+                        f"{tag} {cfg} level")
         two = _k1_level(lib, scan, li, is_p,
-                        lambda: go("kernel", frames=2), f"K1 {cfg} F=2 level")
+                        lambda: go("kernel", frames=2),
+                        f"{tag} {cfg} F=2 level")
         for r in (one, two):
-            print(f"K1 {cfg}: level {li} (F = {r['F']}, L = {r['L']}, "
+            print(f"{tag} {cfg}: level {li} (F = {r['F']}, L = {r['L']}, "
                   f"{r['F'] * n_real} real lanes): {r['ms']:.4f} ms per "
                   f"launch, plain step {r['plain_ms']:.3f} ms, bound "
                   f"{r['bound_ms']:.5f} ms ({r['bound_by']}), max_abs_err "
                   f"{r['err']}", flush=True)
         if scan_err != 0.0 or one["err"] != 0.0 or two["err"] != 0.0:
-            raise AssertionError(f"K1 differs from the plain step ({cfg})")
+            raise AssertionError(
+                f"{tag} differs from the plain step ({cfg})")
         res[cfg] = dict(one, scan_ms=scan_ms, scan_plain_ms=scan_plain_ms,
                         F2=two)
     return res
 
 
-def k2_inputs(kind, B, mrq, seed):
+def k2_inputs(kind, B, mrq, seed, bd=8):
     """Seeded numpy inputs of K2 (W [B, 25, 25], ob [B, 16, 16], mvi and
-    pmv [B, 2], int32) and its lambda's qp (None: lambda 0), by ``kind``:
+    pmv [B, 2], int32) of ``bd``-bit samples and its lambda's qp (None:
+    lambda 0), by ``kind``:
       "random": noisy windows around random rows, search-range motion;
       "flat": each window and source block one value, lambda 0 and mvi
         inside the range, so every candidate of a round ties and the first
         wins;
-      "extreme": every sample 0 or 255 (the clip and the filters' extreme
-        intermediates);
+      "extreme": every sample 0 or 2^bd - 1 (the clip and the filters'
+        extreme intermediates);
       "edge": mvi at +-mrq and +-(mrq + 1), pmv = 4 * mvi: candidates
         beyond the range cost 2^30, and at mrq + 1 all of a block's do
         (ties among them); the others tie by symmetric mv bits."""
     import numpy as np
     rng = np.random.RandomState(seed)
+    hi, noise = 1 << bd, 20 << (bd - 8)
     pmv = (4 * rng.randint(-(mrq - 8), mrq - 7, (B, 2))).astype(np.int32)
     mvi = rng.randint(-mrq, mrq + 1, (B, 2)).astype(np.int32)
     qp = 32
     if kind == "random":
-        base = rng.randint(0, 256, (B, 1, 25))
-        W = np.clip(base + rng.randint(-20, 21, (B, 25, 25)), 0, 255)
-        ob = rng.randint(0, 256, (B, 16, 16))
+        base = rng.randint(0, hi, (B, 1, 25))
+        W = np.clip(base + rng.randint(-noise, noise + 1, (B, 25, 25)), 0,
+                    hi - 1)
+        ob = rng.randint(0, hi, (B, 16, 16))
     elif kind == "flat":
-        W = np.broadcast_to(rng.randint(0, 256, (B, 1, 1)), (B, 25, 25))
-        ob = np.broadcast_to(rng.randint(0, 256, (B, 1, 1)), (B, 16, 16))
+        W = np.broadcast_to(rng.randint(0, hi, (B, 1, 1)), (B, 25, 25))
+        ob = np.broadcast_to(rng.randint(0, hi, (B, 1, 1)), (B, 16, 16))
         mvi = rng.randint(1 - mrq, mrq, (B, 2)).astype(np.int32)
         qp = None
     elif kind == "extreme":
-        W = 255 * rng.randint(0, 2, (B, 25, 25))
-        ob = 255 * rng.randint(0, 2, (B, 16, 16))
+        W = (hi - 1) * rng.randint(0, 2, (B, 25, 25))
+        ob = (hi - 1) * rng.randint(0, 2, (B, 16, 16))
     elif kind == "edge":
-        W = rng.randint(0, 256, (B, 25, 25))
-        ob = rng.randint(0, 256, (B, 16, 16))
+        W = rng.randint(0, hi, (B, 25, 25))
+        ob = rng.randint(0, hi, (B, 16, 16))
         mvi = (rng.choice([-1, 1], (B, 2))
                * (mrq + rng.randint(0, 2, (B, 2)))).astype(np.int32)
         pmv = 4 * mvi
@@ -440,71 +479,72 @@ def k2_inputs(kind, B, mrq, seed):
             mvi.astype(i32), pmv.astype(i32), qp)
 
 
-def k2_case(kind, B, mrq, seed, dev):
+def k2_case(kind, B, mrq, seed, dev, bd=8):
     """``k2_inputs`` as tensors on ``dev``, with the lambda as the
     encoder's float32 scalar (0 where the kind has none)."""
     import torch
     from x265_tpu_torch.encoder.device_pipeline import me_lambda
-    W, ob, mvi, pmv, qp = k2_inputs(kind, B, mrq, seed)
+    W, ob, mvi, pmv, qp = k2_inputs(kind, B, mrq, seed, bd)
     lam = (me_lambda(qp) if qp is not None
            else torch.zeros((), dtype=torch.float32))
     return tuple(torch.as_tensor(a).to(dev) for a in (W, ob, mvi, pmv)) + (
         lam.to(dev),)
 
 
-def check_k2(dev, lib):
+def check_k2(dev, lib, bd=8):
     """K2 vs the plain refine at the 1080p shapes (B = 8160, subme 2,
-    merange 57): exactness on the random, flat (ties), extreme and range-
-    edge sets, then on the random set the one-launch time, the plain
-    version's time and the bound."""
+    merange 57) at bit depth ``bd``: exactness on the random, flat (ties),
+    extreme and range-edge sets, then on the random set the one-launch
+    time, the plain version's time and the bound."""
     import torch
     from x265_tpu_torch.encoder import me_cuda
 
     B, mrq = 8160, 57
+    tag = f"K2 {bd}-bit" if bd != 8 else "K2"
     err = 0.0
     for seed, kind in enumerate(("random", "flat", "extreme", "edge")):
-        W, ob, mvi, pmv, lam = k2_case(kind, B, mrq, seed + 2, dev)
+        W, ob, mvi, pmv, lam = k2_case(kind, B, mrq, seed + 2, dev, bd)
         for subme in (2, 1, 0) if kind != "random" else (2,):
-            k = me_cuda.launch(lib, W, ob, mvi, pmv, lam, subme, mrq)
-            p = me_cuda.refine_plain(W, ob, mvi, pmv, lam, subme, mrq)
+            k = me_cuda.launch(lib, W, ob, mvi, pmv, lam, subme, mrq, bd)
+            p = me_cuda.refine_plain(W, ob, mvi, pmv, lam, subme, mrq, bd)
             torch.cuda.synchronize()
             e = _max_abs_err(k, p)
-            print(f"K2 {kind} subme {subme}: max_abs_err {e}", flush=True)
+            print(f"{tag} {kind} subme {subme}: max_abs_err {e}", flush=True)
             if e != 0.0:
-                _report_diff(f"K2 {kind} subme {subme}", k, p)
+                _report_diff(f"{tag} {kind} subme {subme}", k, p)
             err = max(err, e)
         if kind == "random":
             keep = (W, ob, mvi, pmv, lam, k)
     if err != 0.0:
-        raise AssertionError("K2 differs from the plain refine")
+        raise AssertionError(f"{tag} differs from the plain refine")
     W, ob, mvi, pmv, lam, k = keep
     ms = _events_ms(lambda: me_cuda.launch(lib, W, ob, mvi, pmv, lam, 2,
-                                           mrq), 20)
+                                           mrq, bd), 20)
     plain_ms = _events_ms(lambda: me_cuda.refine_plain(W, ob, mvi, pmv, lam,
-                                                       2, mrq), 3)
-    bound_ms, bound_by = k2_bound(W, ob, mvi, pmv, k, lam, mrq)
-    print(f"K2: B={B} subme 2 merange {mrq}: {ms:.4f} ms kernel, "
+                                                       2, mrq, bd), 3)
+    bound_ms, bound_by = k2_bound(W, ob, mvi, pmv, k, lam, mrq, bd)
+    print(f"{tag}: B={B} subme 2 merange {mrq}: {ms:.4f} ms kernel, "
           f"{plain_ms:.3f} ms plain, bound {bound_ms:.5f} ms ({bound_by}), "
           f"max_abs_err {err}", flush=True)
     # two frames' blocks in one launch, each frame with its own lambda
     from x265_tpu_torch.encoder.device_pipeline import me_lambda
-    W, ob, mvi, pmv, _lam = k2_case("random", 2 * B, mrq, 6, dev)
+    W, ob, mvi, pmv, _lam = k2_case("random", 2 * B, mrq, 6, dev, bd)
     half = W.shape[0] // 2
     lam2 = torch.cat([me_lambda(q).to(dev).expand(half) for q in (32, 35)])
-    k = me_cuda.launch(lib, W, ob, mvi, pmv, lam2, 2, mrq)
-    p = me_cuda.refine_plain(W, ob, mvi, pmv, lam2, 2, mrq)
+    k = me_cuda.launch(lib, W, ob, mvi, pmv, lam2, 2, mrq, bd)
+    p = me_cuda.refine_plain(W, ob, mvi, pmv, lam2, 2, mrq, bd)
     torch.cuda.synchronize()
     err2 = _max_abs_err(k, p)
     if err2 != 0.0:
-        _report_diff("K2 two lambdas", k, p)
-        raise AssertionError("K2 differs from the plain refine (two "
+        _report_diff(f"{tag} two lambdas", k, p)
+        raise AssertionError(f"{tag} differs from the plain refine (two "
                              "lambdas)")
     ms2 = _events_ms(lambda: me_cuda.launch(lib, W, ob, mvi, pmv, lam2, 2,
-                                            mrq), 20)
+                                            mrq, bd), 20)
     plain_ms2 = _events_ms(lambda: me_cuda.refine_plain(
-        W, ob, mvi, pmv, lam2, 2, mrq), 3)
-    bound_ms2, bound_by2 = k2_bound(W, ob, mvi, pmv, k, lam2, mrq)
-    print(f"K2: B={W.shape[0]} (two frames, two lambdas) subme 2 merange "
+        W, ob, mvi, pmv, lam2, 2, mrq, bd), 3)
+    bound_ms2, bound_by2 = k2_bound(W, ob, mvi, pmv, k, lam2, mrq, bd)
+    print(f"{tag}: B={W.shape[0]} (two frames, two lambdas) subme 2 merange "
           f"{mrq}: "
           f"{ms2:.4f} ms kernel, {plain_ms2:.3f} ms plain, bound "
           f"{bound_ms2:.5f} ms ({bound_by2}), max_abs_err {err2}",
@@ -614,22 +654,24 @@ def _lookahead_timers(stats):
     return unwrap
 
 
-def encode_bench_slice(dev, lookahead_stats=None):
-    """The bench slice through push_frame / flush with a fresh Encoder;
-    returns the stream's access units (headers first), the encode-order
-    POCs and kinds, the wall seconds of each call with the POCs it
-    returned, and the encoder.  With ``lookahead_stats`` (a dict) the
-    lookahead's parts are timed into it."""
+def encode_bench_slice(dev, lookahead_stats=None, main10=False):
+    """The bench slice (``main10``: the Main10 bench slice) through
+    push_frame / flush with a fresh Encoder; returns the stream's access
+    units (headers first), the encode-order POCs and kinds, the wall
+    seconds of each call with the POCs it returned, and the encoder.  With
+    ``lookahead_stats`` (a dict) the lookahead's parts are timed into it."""
     import torch
     from x265_tpu_torch import Encoder, Params
-    from x265_tpu_torch.smoke_config import (smoke_frames_bench,
-                                             smoke_params_bench)
+    from x265_tpu_torch import smoke_config as sc
 
-    frames = smoke_frames_bench()
+    if main10:
+        params, frames = sc.smoke_params_bench10(), sc.smoke_frames_bench10()
+    else:
+        params, frames = sc.smoke_params_bench(), sc.smoke_frames_bench()
     unwrap = (_lookahead_timers(lookahead_stats)
               if lookahead_stats is not None else None)
     try:
-        enc = Encoder(Params(**smoke_params_bench()), device=dev)
+        enc = Encoder(Params(**params), device=dev)
         efs, calls = [], []
         for planes in frames + [None]:
             torch.cuda.synchronize()
@@ -645,25 +687,29 @@ def encode_bench_slice(dev, lookahead_stats=None):
             [ef.kind for ef in efs], calls, enc)
 
 
-def check_bench_slice(dev, smi):
-    """Phase 6: the bench slice against its golden; returns the K1 and K2
-    launches of the timed encode."""
+def check_bench_slice(dev, smi, main10=False):
+    """Phase 6 (``main10``: phase 7): the bench slice against its golden;
+    returns the K1 and K2 launches of the timed encode (phase 7: also
+    that every one of them took the kernels' 10-bit path)."""
     from x265_tpu_torch.encoder import ctu_scan_cuda, me_cuda
 
-    with open(os.path.join(ROOT, "x265_tpu_torch", "data",
-                           "golden_1080p_bench.json")) as f:
+    name = "golden_1080p_bench10.json" if main10 else "golden_1080p_bench.json"
+    with open(os.path.join(ROOT, "x265_tpu_torch", "data", name)) as f:
         golden = json.load(f)
-    encode_bench_slice(dev)                 # warm: first-call allocations
+    encode_bench_slice(dev, main10=main10)  # warm: first-call allocations
     la_stats = {}
-    ctu_scan_cuda.LAUNCHES = 0
-    me_cuda.LAUNCHES = 0
-    aus, pocs, kinds, calls, enc = encode_bench_slice(dev, la_stats)
+    ctu_scan_cuda.LAUNCHES = ctu_scan_cuda.LAUNCHES_10BIT = 0
+    me_cuda.LAUNCHES = me_cuda.LAUNCHES_10BIT = 0
+    aus, pocs, kinds, calls, enc = encode_bench_slice(dev, la_stats, main10)
     n1, n2 = ctu_scan_cuda.LAUNCHES, me_cuda.LAUNCHES
+    t1, t2 = ctu_scan_cuda.LAUNCHES_10BIT, me_cuda.LAUNCHES_10BIT
     stream = b"".join(aus)
     md5 = hashlib.md5(stream).hexdigest()
     wall = sum(c[0] for c in calls)
     la = enc.lookahead
-    print(f"slice 1080p bench (bench.py's Params(qp=32, "
+    what = ("Main10 bench (internal_bit_depth=10, 10-bit frames)" if main10
+            else "bench")
+    print(f"slice 1080p {what} (bench.py's Params(qp=32, "
           f"decoded_picture_hash=3), defaults) on {smi}: bytes per AU "
           f"{[len(a) for a in aus]}, encode order "
           f"{list(zip(pocs, kinds))}, {len(pocs)} frames in {wall:.3f} s, "
@@ -677,8 +723,8 @@ def check_bench_slice(dev, smi):
         + f"; program calls {la.calls}, outputs on {sorted(la.devices)}",
         flush=True)
     w1, w2 = bench_launches(golden["encode_kinds"])
-    print(f"launches: K1 {n1} (want {w1}), K2 {n2} (want {w2}); md5 {md5} "
-          f"(golden {golden['md5']})", flush=True)
+    print(f"launches: K1 {n1} (want {w1}; 10-bit {t1}), K2 {n2} (want {w2}; "
+          f"10-bit {t2}); md5 {md5} (golden {golden['md5']})", flush=True)
     if (md5 != golden["md5"] or len(stream) != golden["total_bytes"]
             or pocs != golden["encode_pocs"]
             or kinds != golden["encode_kinds"]):
@@ -688,10 +734,11 @@ def check_bench_slice(dev, smi):
                 print(f"  first differing AU: {i} ({a} vs {b} bytes)",
                       flush=True)
                 break
-        raise AssertionError("bench stream differs from x265_tpu's golden")
-    if n1 != w1 or n2 != w2:
-        raise AssertionError("the bench slice did not run through K1/K2 as "
-                             "expected")
+        raise AssertionError(f"{what} stream differs from x265_tpu's "
+                             "golden")
+    if n1 != w1 or n2 != w2 or (t1, t2) != ((n1, n2) if main10 else (0, 0)):
+        raise AssertionError(f"the {what} slice did not run through K1/K2 "
+                             "as expected")
     if (la.calls["lowres"] != len(pocs) or la.devices != {"cuda"}
             or not la.calls["pair"] or not la.calls["bidir"]):
         raise AssertionError("the lookahead's programs did not run on the "
@@ -727,7 +774,9 @@ def main():
             print("ptxas:", line.strip(), flush=True)
 
     k1 = check_k1(dev, lib)
+    k1_10 = check_k1(dev, lib, 10)
     k2 = check_k2(dev, lib)
+    k2_10 = check_k2(dev, lib, 10)
 
     with open(os.path.join(ROOT, "x265_tpu_torch", "data",
                            "golden_1080p_ippp.json")) as f:
@@ -782,32 +831,46 @@ def main():
 
     # phase 6: the bench slice (bench.py's configuration, the lookahead on)
     n1s, n2s = check_bench_slice(dev, smi)
+    # phase 7: the Main10 bench slice
+    n1m, n2m = check_bench_slice(dev, smi, main10=True)
 
-    kp = k1["P"]
+    kp, kp10 = k1["P"], k1_10["P"]
     print(json.dumps({"kernels": [
         dict(name="K1 ctu_step", route="cuda",
              source="x265_tpu_torch/csrc/k1_ctu_step.cu",
              replaces="x265_tpu/encoder/ctu_scan_pallas.py:72",
-             launches=n1 + n1b + n1s, max_abs_err=max(
+             launches=n1 + n1b + n1s + n1m, max_abs_err=max(
                  k1["I"]["err"], kp["err"], kp["F2"]["err"],
-                 k1["I"]["F2"]["err"]),
+                 k1["I"]["F2"]["err"], k1_10["I"]["err"], kp10["err"],
+                 kp10["F2"]["err"], k1_10["I"]["F2"]["err"]),
              ms=kp["ms"], plain_ms=kp["plain_ms"], bound_ms=kp["bound_ms"],
              bound_by=kp["bound_by"], library_ms=None,
              launches_ippp=n1, launches_b=n1b, launches_bench=n1s,
              ms_I=k1["I"]["ms"], scan_ms_P=kp["scan_ms"],
              scan_ms_I=k1["I"]["scan_ms"], ms_F2_P=kp["F2"]["ms"],
              plain_ms_F2_P=kp["F2"]["plain_ms"],
-             bound_ms_F2_P=kp["F2"]["bound_ms"], ms_F2_I=k1["I"]["F2"]["ms"]),
+             bound_ms_F2_P=kp["F2"]["bound_ms"], ms_F2_I=k1["I"]["F2"]["ms"],
+             launches_bench10=n1m, ms_10bit=kp10["ms"],
+             plain_ms_10bit=kp10["plain_ms"], bound_ms_10bit=kp10["bound_ms"],
+             ms_I_10bit=k1_10["I"]["ms"], ms_F2_P_10bit=kp10["F2"]["ms"],
+             ms_F2_I_10bit=k1_10["I"]["F2"]["ms"],
+             scan_ms_P_10bit=kp10["scan_ms"]),
         dict(name="K2 subpel_refine", route="cuda",
              source="x265_tpu_torch/csrc/k2_subpel_refine.cu",
              replaces="x265_tpu/encoder/me_pallas.py:71",
-             launches=n2 + n2b + n2s, max_abs_err=k2["err"], ms=k2["ms"],
+             launches=n2 + n2b + n2s + n2m,
+             max_abs_err=max(k2["err"], k2_10["err"]), ms=k2["ms"],
              plain_ms=k2["plain_ms"], bound_ms=k2["bound_ms"],
              bound_by=k2["bound_by"], library_ms=None,
              launches_ippp=n2, launches_b=n2b, launches_bench=n2s,
              ms_F2=k2["F2"]["ms"],
              plain_ms_F2=k2["F2"]["plain_ms"],
-             bound_ms_F2=k2["F2"]["bound_ms"])]}),
+             bound_ms_F2=k2["F2"]["bound_ms"], launches_bench10=n2m,
+             ms_10bit=k2_10["ms"], plain_ms_10bit=k2_10["plain_ms"],
+             bound_ms_10bit=k2_10["bound_ms"],
+             bound_by_10bit=k2_10["bound_by"], ms_F2_10bit=k2_10["F2"]["ms"],
+             plain_ms_F2_10bit=k2_10["F2"]["plain_ms"],
+             bound_ms_F2_10bit=k2_10["F2"]["bound_ms"])]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,9 @@
 """x265_tpu_torch CtuScan against x265_tpu's CtuScan, and K1's source (built
 for the host) against the port's plain step, on the CPU at 192x128
 (5 wavefront levels, 2 lanes at most); the pattern of
-tools/check_pallas_scan.py.  All 12 outputs must be equal."""
+tools/check_pallas_scan.py.  All 12 outputs must be equal.  At 8 bits and
+at 10 (Main10: samples and predictions 0..1023 with bands at 0 and 1023,
+QPs with the 12 of the bit-depth offset, up to 63)."""
 
 import functools
 
@@ -23,26 +25,44 @@ NAMES = ("rec_y rec_cb rec_cr lv16 lv8cb lv8cr lv32 lv16cb lv16cr use32 "
          "tu8 nr").split()
 
 
-def _inputs(seed=7, w=192, h=128):
+def _inputs(seed=7, w=192, h=128, bd=8):
+    """Random scan inputs.  10 bits: samples and inter predictions
+    0..1023 with, in every plane and prediction, a band of columns at 0,
+    one at 1023 (every clamp is reached) and one of 512 +- 5 (near-flat:
+    strong smoothing's threshold 32 decides there), QPs 36..63 (the
+    scan's QP includes 6 * (10 - 8))."""
     rng = np.random.RandomState(seed)
     g = PictureGeometry(w, h, 6, 3)
     ph, pw = g.ctbs_h << 6, g.ctbs_w << 6
     b16, b32 = (ph // 16) * (pw // 16), (ph // 32) * (pw // 32)
     nctb = g.n_ctbs
+    dt = np.uint8 if bd == 8 else np.uint16
+
+    def plane(shape):
+        p = rng.randint(0, 1 << bd, shape)
+        if bd == 10:
+            w8 = shape[-1] // 8
+            p[..., :w8] = 0
+            p[..., 4 * w8:5 * w8] = 1023
+            p[..., 6 * w8:7 * w8] = 512 + rng.randint(-5, 6,
+                                                      p[..., :w8].shape)
+        return p
+
     x = dict(
-        oy=rng.randint(0, 256, (ph, pw)).astype(np.uint8),
-        ocb=rng.randint(0, 256, (ph // 2, pw // 2)).astype(np.uint8),
-        ocr=rng.randint(0, 256, (ph // 2, pw // 2)).astype(np.uint8),
+        oy=plane((ph, pw)).astype(dt),
+        ocb=plane((ph // 2, pw // 2)).astype(dt),
+        ocr=plane((ph // 2, pw // 2)).astype(dt),
         modes=rng.randint(0, 35, b16).astype(np.int32),
         mode32=rng.randint(0, 35, b32).astype(np.int32),
         use32=rng.rand(b32) < 0.5,
-        qp=rng.randint(24, 40, nctb).astype(np.int32),
-        lam=(0.85 * 2.0 ** (rng.randint(24, 40, nctb) / 3.0 - 4.0)).astype(
-            np.float32),
+        qp=(rng.randint(24, 40, nctb) if bd == 8
+            else rng.randint(36, 64, nctb)).astype(np.int32),
+        lam=(0.85 * 2.0 ** (rng.randint(24, 40 if bd == 8 else 52, nctb)
+                            / 3.0 - 4.0)).astype(np.float32),
         is_inter=rng.rand(b16) < 0.7,
-        ipred_y=rng.randint(0, 256, (b16, 16, 16)).astype(np.int32),
-        ipred_cb=rng.randint(0, 256, (b16, 8, 8)).astype(np.int32),
-        ipred_cr=rng.randint(0, 256, (b16, 8, 8)).astype(np.int32),
+        ipred_y=plane((b16, 16, 16)).astype(np.int32),
+        ipred_cb=plane((b16, 8, 8)).astype(np.int32),
+        ipred_cr=plane((b16, 8, 8)).astype(np.int32),
         m32_in=rng.rand(b32) < 0.4)
     return g, x
 
@@ -78,10 +98,10 @@ def _assert_same(want, got):
 
 
 @functools.lru_cache(maxsize=None)
-def _ref_scan(w, h, cfg, psy, sign_hide):
+def _ref_scan(w, h, cfg, psy, sign_hide, bd=8):
     """The reference's jitted decide32 scan, traced once per module and
     configuration."""
-    scan = RefScan(RefGeometry(w, h, 6, 3), bit_depth=8, sign_hide=sign_hide,
+    scan = RefScan(RefGeometry(w, h, 6, 3), bit_depth=bd, sign_hide=sign_hide,
                    strong_intra_smoothing=True, psy_rd=psy)
     return jax.jit(scan.scan_fn(inter=cfg == "P", decide32=True))
 
@@ -186,3 +206,82 @@ def test_k1_source_batched_lanes(monkeypatch, cfg, decide):
     assert ctu_scan_cuda.LAUNCHES - n0 == scan.t["n_levels"]
     for w, gg in zip(want, got):
         _assert_same(w, gg)
+
+
+@pytest.mark.parametrize("cfg,psy,sign_hide", CONFIGS[1:])
+def test_scan_matches_reference_10bit(cfg, psy, sign_hide):
+    """Main10: the port's scan (one frame) equals the reference's jnp scan
+    at bit depth 10."""
+    g, x = _inputs(bd=10)
+    want = _call(_ref_scan(g.width, g.height, cfg, psy, sign_hide, 10), jnp,
+                 x, cfg, True)
+    got = _run(CtuScan(g, bit_depth=10, sign_hide=sign_hide,
+                       strong_intra_smoothing=True, psy_rd=psy),
+               torch, x, cfg, True)
+    # the reference's uint16 values, held as int16 on the device
+    assert want[0].dtype == np.uint16 and got[0].dtype == np.int16
+    assert got[0].max() == 1023 and got[0].min() == 0
+    _assert_same(want, got)
+
+
+@pytest.mark.parametrize("cfg,psy,sign_hide", CONFIGS[1:])
+def test_batched_scan_matches_reference_frames_10bit(cfg, psy, sign_hide):
+    """Main10: two frames in one batched scan equal two single-frame
+    reference scans at bit depth 10."""
+    g, x0 = _inputs(seed=7, bd=10)
+    _g, x1 = _inputs(seed=8, bd=10)
+    ref = _ref_scan(g.width, g.height, cfg, psy, sign_hide, 10)
+    got = _run_batch(CtuScan(g, bit_depth=10, sign_hide=sign_hide,
+                             strong_intra_smoothing=True, psy_rd=psy),
+                     [x0, x1], cfg, True)
+    for x, frame in zip((x0, x1), got):
+        _assert_same(_call(ref, jnp, x, cfg, True), frame)
+
+
+@pytest.mark.parametrize("cfg", ["I", "P"])
+@pytest.mark.parametrize("psy", [2.0, 0.0])
+def test_k1_source_matches_plain_step_10bit(monkeypatch, cfg, psy):
+    """K1's 10-bit instantiation (host build, through the wrapper's launch
+    path) equals the plain step at bit depth 10, with samples at 0 and
+    1023; the launches count as 10-bit launches."""
+    lib = load_host_library()
+    g, x = _inputs(seed=11, bd=10)
+    scan = CtuScan(g, bit_depth=10, sign_hide=True,
+                   strong_intra_smoothing=True, psy_rd=psy)
+    want = _run(scan, torch, x, cfg, True)
+    n0, t0 = ctu_scan_cuda.LAUNCHES, ctu_scan_cuda.LAUNCHES_10BIT
+    monkeypatch.setattr(
+        ctu_scan_cuda, "ctu_step",
+        lambda s, inter, d, carry, xs, plain: ctu_scan_cuda.launch(
+            lib, s, inter, d, carry, xs))
+    got = _run(scan, torch, x, cfg, True)
+    assert ctu_scan_cuda.LAUNCHES - n0 == scan.t["n_levels"]
+    assert ctu_scan_cuda.LAUNCHES_10BIT - t0 == scan.t["n_levels"]
+    _assert_same(want, got)
+
+
+def test_k1_source_batched_lanes_10bit(monkeypatch):
+    """K1's 10-bit host build over two frames' lanes (P, decide32) equals
+    the plain step on the same batched carry."""
+    lib = load_host_library()
+    g, x0 = _inputs(seed=11, bd=10)
+    _g, x1 = _inputs(seed=12, bd=10)
+    scan = CtuScan(g, bit_depth=10, sign_hide=True,
+                   strong_intra_smoothing=True, psy_rd=2.0)
+    want = _run_batch(scan, [x0, x1], "P", True)
+    monkeypatch.setattr(
+        ctu_scan_cuda, "ctu_step",
+        lambda s, inter, d, carry, xs, plain: ctu_scan_cuda.launch(
+            lib, s, inter, d, carry, xs))
+    got = _run_batch(scan, [x0, x1], "P", True)
+    for w, gg in zip(want, got):
+        _assert_same(w, gg)
+
+
+def test_k1_refuses_other_bit_depths():
+    """K1's wrapper takes bit depths 8 and 10 only."""
+    g, _x = _inputs()
+    scan = CtuScan(g, bit_depth=12)
+    with pytest.raises(NotImplementedError):
+        ctu_scan_cuda.kernel_args(scan, False, True, None, {
+            "cx": torch.zeros(1, dtype=torch.int32)})

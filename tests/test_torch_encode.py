@@ -79,7 +79,7 @@ def test_ipp_stream_is_byte_identical():
     assert all(p.hash_ok for p in pics)
 
 
-@pytest.mark.parametrize("kw", [dict(hrd=True), dict(internal_bit_depth=10),
+@pytest.mark.parametrize("kw", [dict(hrd=True), dict(internal_bit_depth=12),
                                 dict(rdoq_level=1), dict(lossless=True),
                                 dict(ctu_size=32),
                                 dict(noise_reduction_inter=100)])

@@ -9,6 +9,10 @@ lookahead scenecut) against x265_tpu's.
 * Two ``Lookahead``s fed the same frames and AQ offsets pop the same
   cuTree offsets (float64, equal), complexity and scenecut decisions.
 * The trellis picks the reference's mini-GOP lengths on synthetic costs.
+* Main10: the lowres and bidir programs on 10-bit planes (uint16, 0..1023),
+  and a ``Lookahead`` at bit depth 10 popping the reference's cuTree
+  offsets.  Both packages run the lowres intra at bit depth 8 even then
+  (an inherited reference fault, kept so that the streams stay equal).
 * Two encodes through push_frame / flush, byte-identical to the
   reference's with matching picture hashes in x265_tpu's decoder:
   (a) AQ + cuTree, bframes=2, rc_lookahead=3, b-adapt 0, on
@@ -71,30 +75,31 @@ def ref_programs():
         yield
 
 
-def _planes(kind, lw, lh, seed):
-    """Two lowres planes (cur, prev) of one content kind."""
+def _planes(kind, lw, lh, seed, bd=8):
+    """Two lowres planes (cur, prev) of one content kind (``bd``-bit
+    samples: uint8, or uint16 at 10 bits)."""
     rng = np.random.RandomState(seed)
+    hi = 1 << bd
     if kind == "random":
-        a, b = rng.randint(0, 256, (2, lh, lw))
+        a, b = rng.randint(0, hi, (2, lh, lw))
     elif kind == "flat":
-        a = b = np.full((lh, lw), 77)
+        a = b = np.full((lh, lw), 77 << (bd - 8))
     elif kind == "binary":
-        a, b = 255 * rng.randint(0, 2, (2, lh, lw))
+        a, b = (hi - 1) * rng.randint(0, 2, (2, lh, lw))
     else:                                    # pan: prev shifted by (3, 5)
-        base = rng.randint(0, 256, (lh + 2 * R, lw + 2 * R))
+        base = rng.randint(0, hi, (lh + 2 * R, lw + 2 * R))
         a, b = base[3:3 + lh, 5:5 + lw], base[:lh, :lw]
-    return a.astype(np.uint8), b.astype(np.uint8)
+    dt = np.uint8 if bd == 8 else np.uint16
+    return a.astype(dt), b.astype(dt)
 
 
 # 96x64's lowres plane, and 120x84's after the & ~7 crop (60x42 -> 56x40)
 SIZES = [(48, 32), (56, 40)]
 
 
-@pytest.mark.parametrize("kind", ["random", "flat", "binary", "pan"])
-@pytest.mark.parametrize("size", SIZES)
-def test_lowres_program_matches_reference(size, kind):
+def _lowres_pair(size, kind, bd):
     lw, lh = size
-    cur, prev = _planes(kind, lw, lh, 1)
+    cur, prev = _planes(kind, lw, lh, 1, bd)
     rprog, rgrid = ref_la._build_lowres_program(lw, lh, R)
     pprog, pgrid = la._build_lowres_program(lw, lh, R, "cpu")
     assert pgrid == rgrid == (lh // 8, lw // 8)
@@ -110,11 +115,22 @@ def test_lowres_program_matches_reference(size, kind):
         assert np.array_equal(np.asarray(a), b.numpy())
 
 
+@pytest.mark.parametrize("kind", ["random", "flat", "binary", "pan"])
 @pytest.mark.parametrize("size", SIZES)
-def test_bidir_program_matches_reference(size):
+def test_lowres_program_matches_reference(size, kind):
+    _lowres_pair(size, kind, 8)
+
+
+@pytest.mark.parametrize("kind", ["random", "flat", "binary", "pan"])
+def test_lowres_program_matches_reference_10bit(kind):
+    """Main10 lowres planes (0..1023; "binary": 0 / 1023)."""
+    _lowres_pair(SIZES[0], kind, 10)
+
+
+def _bidir_pair(size, bd):
     lw, lh = size
-    cur, p0 = _planes("random", lw, lh, 2)
-    p1 = _planes("pan", lw, lh, 3)[0]
+    cur, p0 = _planes("random", lw, lh, 2, bd)
+    p1 = _planes("pan", lw, lh, 3, bd)[0]
     rng = np.random.RandomState(4)
     grid = (lh // 8, lw // 8, 2)
     # at, inside and beyond +-r: the program clips MVs to +-r
@@ -130,6 +146,23 @@ def test_bidir_program_matches_reference(size):
     assert np.array_equal(want, got)
 
 
+@pytest.mark.parametrize("size", SIZES)
+def test_bidir_program_matches_reference(size):
+    _bidir_pair(size, 8)
+
+
+def test_bidir_program_matches_reference_10bit():
+    _bidir_pair(SIZES[0], 10)
+
+
+def _to10(frames, seed=3):
+    """8-bit planes as 10-bit ones: times 4 plus 0..3 (not all multiples
+    of 4)."""
+    rng = np.random.RandomState(seed)
+    return [tuple((p.astype(np.int32) * 4 + rng.randint(0, 4, p.shape))
+                  .astype(np.uint16) for p in f) for f in frames]
+
+
 POP_CASES = {
     # AQ + cuTree over a 3-deep window
     "structured": (lambda: structured_clip(96, 64, 6), dict(rc_lookahead=3)),
@@ -142,17 +175,17 @@ POP_CASES = {
 }
 
 
-@pytest.mark.parametrize("case", list(POP_CASES))
-def test_lookahead_pops_match_reference(case):
+def _pops(case, bd):
     make, kw = POP_CASES[case]
-    frames = make()
+    frames = make() if bd == 8 else _to10(make())
     h, w = frames[0][0].shape
-    rla = ref_la.Lookahead(RefParams(source_width=w, source_height=h, **kw))
-    pla = la.Lookahead(Params(source_width=w, source_height=h, **kw),
+    rla = ref_la.Lookahead(RefParams(source_width=w, source_height=h, **kw),
+                           bd)
+    pla = la.Lookahead(Params(source_width=w, source_height=h, **kw), bd,
                        device="cpu")
     want, got = [], []
     for planes in frames:
-        off = aq_offsets(planes, 2, 1.0, 8, normalize=True)
+        off = aq_offsets(planes, 2, 1.0, bd, normalize=True)
         want += rla.push(planes, off.copy())
         got += pla.push(planes, off.copy())
     want += rla.flush()
@@ -171,6 +204,17 @@ def test_lookahead_pops_match_reference(case):
         assert np.array_equal(np.asarray(a[4].low), b[4].low.numpy())
     if case == "pan_noise":
         assert {b[3] for b in got} == {False, True}
+
+
+@pytest.mark.parametrize("case", list(POP_CASES))
+def test_lookahead_pops_match_reference(case):
+    _pops(case, 8)
+
+
+def test_lookahead_pops_match_reference_10bit():
+    """Main10: a bit-depth-10 Lookahead on 10-bit frames (AQ offsets at
+    10 bits) pops the reference's cuTree offsets, costs and decisions."""
+    _pops("structured", 10)
 
 
 @pytest.mark.parametrize("costs", ["bidir_cheaper", "bidir_dearer", "tie",

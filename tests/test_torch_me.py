@@ -5,7 +5,8 @@ search, against that jnp search, on the CPU at 192x128.
 
 The reference picture is the reference encoder's own ME-extended DPB entry
 (``Encoder._extend_ref``), carried across with ``planes_to_torch``;
-me_range 16 makes the quarter-res ``coarse_seeds`` stage run.
+me_range 16 makes the quarter-res ``coarse_seeds`` stage run.  The 10-bit
+cases hold the search and K2's 10-bit instantiation at Main10.
 """
 
 import jax
@@ -25,34 +26,40 @@ from x265_tpu_torch.convert import planes_to_torch
 from x265_tpu_torch.encoder import device_pipeline as dp
 from x265_tpu_torch.encoder import me_cuda
 from x265_tpu_torch.encoder.intra_encoder import Encoder
+from x265_tpu_torch.smoke_config import synthetic_frame10
 from torch_threads import one_torch_thread  # noqa: F401
 
 W, H = 192, 128
 
 
-def _scene():
+def _scene(bd=8):
     """A panned crop as the source and a noisy shifted crop as the recon
-    (noise makes neighbour adoption matter)."""
+    (noise makes neighbour adoption matter); 10 bits: of
+    ``synthetic_frame10`` (with its bands at 0 and 1023), noise +-32."""
     rng = np.random.RandomState(0)
-    base = synthetic_frame(W + 64, H + 64, 1)
+    if bd == 8:
+        base = synthetic_frame(W + 64, H + 64, 1)
+    else:
+        base = synthetic_frame10(W + 64, H + 64, 1)
+    noise, dt = 8 << (bd - 8), np.uint8 if bd == 8 else np.uint16
     orig = [p[10:10 + H // s, 20:20 + W // s].copy()
             for p, s in zip(base, (1, 2, 2))]
     recon = [np.clip(p[13:13 + H // s, 25:25 + W // s].astype(np.int32)
-                     + rng.randint(-8, 9, (H // s, W // s)), 0,
-                     255).astype(np.uint8)
+                     + rng.randint(-noise, noise + 1, (H // s, W // s)), 0,
+                     (1 << bd) - 1).astype(dt)
              for p, s in zip(base, (1, 2, 2))]
     return orig, recon
 
 
-def _me_pair(subme, refine=None):
+def _me_pair(subme, refine=None, bd=8):
     """The reference's jnp search and the port's (with ``refine`` in place
     of K2's wrapper when given) on the same scene."""
     kw = dict(source_width=W, source_height=H, bframes=0, me_range=16,
-              subme=subme)
+              subme=subme, internal_bit_depth=bd)
     er = ref_encoder.Encoder(RefParams(**kw))
     ep = Encoder(Params(**kw), device="cpu")
     assert er.me_coarse > 0          # the quarter-res seed stage runs
-    orig, recon = _scene()
+    orig, recon = _scene(bd)
     ref_ext = er._extend_ref(recon)              # the reference's DPB entry
     ext = planes_to_torch(ref_ext, "cpu")
     oy = orig[0].astype(np.int32)
@@ -166,3 +173,41 @@ def test_k2_source_lambda_per_block():
     # the two lambdas decide differently somewhere
     cut = me_cuda.refine_plain(W, ob, mvi, pmv, lams[0], 2, mrq)[0]
     assert not torch.equal(cut, want[0])
+
+
+def test_me_matches_reference_10bit():
+    """Main10: the port's search (refine_plain at 10 bits: the horizontal
+    pass >> 2, the vertical >> 6, uni_round) equals the reference's jnp
+    search, whose refine_round filters at ``enc.bit_depth``."""
+    _me_pair(2, bd=10)
+
+
+def test_me_with_host_k2_matches_reference_10bit():
+    """Main10: the port's search with K2's 10-bit instantiation (host
+    build) equals the reference's jnp search."""
+    lib = load_host_library()
+    n0, t0 = me_cuda.LAUNCHES, me_cuda.LAUNCHES_10BIT
+    _me_pair(2, lambda *a: me_cuda.launch(lib, *a), bd=10)
+    assert (me_cuda.LAUNCHES, me_cuda.LAUNCHES_10BIT) == (n0 + 1, t0 + 1)
+
+
+@pytest.mark.parametrize("subme", [0, 1, 2, 3])
+@pytest.mark.parametrize("kind", ["random", "flat", "extreme", "edge"])
+def test_k2_source_sets_10bit(kind, subme):
+    """K2's 10-bit host build equals refine_plain at 10 bits on
+    chip_smoke's sets with 10-bit samples (random; flat: every candidate
+    tied; extreme: samples 0 / 1023; range edge)."""
+    mrq = 16
+    args = chip_smoke.k2_case(kind, 300, mrq, subme, "cpu", bd=10)
+    want = me_cuda.refine_plain(*args, subme, mrq, 10)
+    got = me_cuda.launch(load_host_library(), *args, subme, mrq, 10)
+    for a, b in zip(want, got):
+        assert torch.equal(a, b)
+    if kind == "extreme":        # the 10-bit clip is reached both ways
+        assert got[1].max() == 1023 and got[1].min() == 0
+
+
+def test_k2_refuses_other_bit_depths():
+    args = chip_smoke.k2_case("random", 4, 16, 0, "cpu")
+    with pytest.raises(NotImplementedError):
+        me_cuda.launch(load_host_library(), *args, 2, 16, 12)

@@ -2,8 +2,9 @@
 in a fresh process where ``import jax`` and ``import x265_tpu`` both fail,
 the port imports and encodes a 128x64 I P pair, then one B mini-GOP
 (I0 P3 B1 B2, the two Bs batched), then six frames at the Params()
-defaults through the lookahead (cuTree, the b-adapt trellis) on the CPU,
-and the streams have the expected structure."""
+defaults through the lookahead (cuTree, the b-adapt trellis), then a
+Main10 mini-GOP (10-bit frames, the lookahead on) on the CPU, and the
+streams have the expected structure."""
 
 import os
 import subprocess
@@ -57,10 +58,25 @@ efl += encl.flush()
 assert sorted(ef.poc for ef in efl) == list(range(6)) and efl[0].kind == "I"
 assert encl.lookahead.calls["lowres"] == 6 and encl.lookahead.calls["pair"]
 assert encl.lookahead.devices == {"cpu"}
+# Main10: a B mini-GOP of 10-bit frames through the cuTree lookahead
+from x265_tpu_torch.smoke_config import smoke_frames_bench10
+enc10 = Encoder(Params(source_width=128, source_height=64, bframes=2,
+                       b_pyramid=False, b_adapt=0, rc_lookahead=3,
+                       me_range=16, internal_bit_depth=10,
+                       decoded_picture_hash=1), device="cpu")
+ef10 = []
+for planes in smoke_frames_bench10(128, 64, 4):
+    ef10 += enc10.push_frame(planes)
+ef10 += enc10.flush()
+assert [(ef.poc, ef.kind) for ef in ef10] == [(0, "I"), (3, "P"), (1, "B"),
+                                              (2, "B")]
+assert all(ef.recon[0].dtype == np.uint16 for ef in ef10)
+assert enc10.sps.bit_depth_luma == 10 and enc10.headers()
 assert not any(m == "jax" or m.startswith(("jax.", "x265_tpu."))
                for m in sys.modules if sys.modules[m] is not None)
 print("NOJAX-OK", len(hdr), [len(au) for au, _ in aus],
-      [len(ef.au) for ef in efs], [(ef.poc, ef.kind) for ef in efl])
+      [len(ef.au) for ef in efs], [(ef.poc, ef.kind) for ef in efl],
+      [len(ef.au) for ef in ef10])
 """
 
 

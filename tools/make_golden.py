@@ -10,11 +10,15 @@ size, the size of each access unit and the encode-order POCs go to
 * ``x265_tpu_torch/data/golden_1080p_bench.json``: the bench slice
   (``bench.py``'s configuration and ten frames, the lookahead on) through
   ``push_frame`` / ``flush``, also with each frame's slice kind in encode
-  order, so that the lookahead's choices are on record.
+  order, so that the lookahead's choices are on record;
+* ``x265_tpu_torch/data/golden_1080p_bench10.json``: the bench slice at
+  Main10 (``internal_bit_depth=10``) on ten frames of 10-bit content,
+  likewise with the encode order and kinds (the reference runs its jnp
+  scan and refine at 10 bits).
 
-    JAX_PLATFORMS=cpu python tools/make_golden.py [ippp] [b] [bench]
+    JAX_PLATFORMS=cpu python tools/make_golden.py [ippp] [b] [bench] [bench10]
 
-With no argument it writes all three.
+With no argument it writes all four.
 """
 
 import hashlib
@@ -72,23 +76,36 @@ def bslice():
            [enc.headers()] + [ef.au for ef in efs], [ef.poc for ef in efs])
 
 
-def bench():
+def _bench(name, params, frames):
     from x265_tpu.common.params import Params
     from x265_tpu.encoder import Encoder
+
+    enc = Encoder(Params(**params))
+    efs = []
+    for planes in frames:
+        efs += enc.push_frame(planes)
+    efs += enc.flush()
+    _write(name, params, [enc.headers()] + [ef.au for ef in efs],
+           [ef.poc for ef in efs], [ef.kind for ef in efs])
+
+
+def bench():
     from x265_tpu_torch.smoke_config import (smoke_frames_bench,
                                              smoke_params_bench)
 
-    enc = Encoder(Params(**smoke_params_bench()))
-    efs = []
-    for planes in smoke_frames_bench():
-        efs += enc.push_frame(planes)
-    efs += enc.flush()
-    _write("golden_1080p_bench.json", smoke_params_bench(),
-           [enc.headers()] + [ef.au for ef in efs], [ef.poc for ef in efs],
-           [ef.kind for ef in efs])
+    _bench("golden_1080p_bench.json", smoke_params_bench(),
+           smoke_frames_bench())
+
+
+def bench10():
+    from x265_tpu_torch.smoke_config import (smoke_frames_bench10,
+                                             smoke_params_bench10)
+
+    _bench("golden_1080p_bench10.json", smoke_params_bench10(),
+           smoke_frames_bench10())
 
 
 if __name__ == "__main__":
-    which = sys.argv[1:] or ["ippp", "b", "bench"]
+    which = sys.argv[1:] or ["ippp", "b", "bench", "bench10"]
     for name in which:
-        dict(ippp=ippp, b=bslice, bench=bench)[name]()
+        dict(ippp=ippp, b=bslice, bench=bench, bench10=bench10)[name]()

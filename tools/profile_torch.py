@@ -1,13 +1,15 @@
 """Where the time of x265_tpu_torch's 1080p slices goes, on one GPU.
 
-    python3 tools/profile_torch.py [--slice ippp|b|bench] [--frames N]
+    python3 tools/profile_torch.py [--slice ippp|b|bench|bench10]
+                                   [--frames N]
                                    [--out chiprun_out/profile.json]
 
 Three encodes of a chip_smoke slice (1080p, Params() defaults): ``ippp``
 (bframes=0, 4 frames through encode_frame), ``b`` (bframes=4 with
 b-pyramid and the lookahead off, 6 frames through push_frame / flush:
-I0 P5 B3 B1+B2 B4) or ``bench`` (bench.py's configuration, the lookahead
-on, 10 frames through push_frame / flush):
+I0 P5 B3 B1+B2 B4), ``bench`` (bench.py's configuration, the lookahead
+on, 10 frames through push_frame / flush) or ``bench10`` (the bench slice
+at Main10, ``internal_bit_depth=10``, on ten 10-bit frames):
   1. warm-up;
   2. torch.profiler over CPU and CUDA: device time by kernel name, the
      device-busy sum and the idle share of the wall time, and the port's
@@ -16,11 +18,11 @@ on, 10 frames through push_frame / flush):
      ``torch.cuda.synchronize()`` timers (intra analysis, motion search,
      the CTU scan, the loop filters, the fetch, and the host's QP plan,
      complexity estimate, weightp analysis, padding, syntax and CABAC
-     work; on the bench slice also the lookahead: the lowres analysis of
+     work; on the bench slices also the lookahead: the lowres analysis of
      each pushed frame, the b-adapt trellis with its pair-cost and bidir
      programs, and cuTree's host propagation, and the AQ offsets computed
      at each push as its input); the rest of the frame time is "other".
-On the bench slice it also times the lookahead's device programs alone
+On the bench slices it also times the lookahead's device programs alone
 with CUDA events at the 1080p lowres size (the lowres program, its SAD half
 that the trellis's pair costs run, and the bidir program), so that the
 lookahead stage's wall divides into device time and the host work and
@@ -105,14 +107,18 @@ def _instrument(stats, bench=False):
                                aq.aq_offsets)
 
 
+def _params(slice_):
+    from x265_tpu_torch import smoke_config as sc
+    return dict(ippp=sc.smoke_params, b=sc.smoke_params_b,
+                bench=sc.smoke_params_bench,
+                bench10=sc.smoke_params_bench10)[slice_]()
+
+
 def _encode(frames, slice_):
     import torch
     from x265_tpu_torch import Encoder, Params
-    from x265_tpu_torch.smoke_config import (smoke_params, smoke_params_b,
-                                             smoke_params_bench)
 
-    params = dict(ippp=smoke_params, b=smoke_params_b,
-                  bench=smoke_params_bench)[slice_]()
+    params = _params(slice_)
     pushed = slice_ != "ippp"
     enc = Encoder(Params(**params), device="cuda")
     enc.headers()
@@ -129,15 +135,15 @@ def _encode(frames, slice_):
     return time.perf_counter() - t0
 
 
-def _lookahead_programs_ms(frames):
+def _lookahead_programs_ms(frames, slice_):
     """Device milliseconds of one call of each lookahead program on two
     analysed 1080p frames (CUDA events, the mean of 20 after a warm call)."""
     import torch
     from x265_tpu_torch import Params
     from x265_tpu_torch.encoder.lookahead import Lookahead, LowresFrame
-    from x265_tpu_torch.smoke_config import smoke_params_bench
 
-    la = Lookahead(Params(**smoke_params_bench()), 8, "cuda")
+    params = Params(**_params(slice_))
+    la = Lookahead(params, params.internal_bit_depth, "cuda")
     f0, f1 = (LowresFrame(planes, None, None) for planes in frames[:2])
     la._analyze(f0)
     la._analyze(f1)
@@ -167,11 +173,11 @@ def _lookahead_programs_ms(frames):
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--slice", choices=("ippp", "b", "bench"),
+    ap.add_argument("--slice", choices=("ippp", "b", "bench", "bench10"),
                     default="ippp")
     ap.add_argument("--frames", type=int, default=None,
                     help="frames to encode (4 for ippp, 6 for b, 10 for "
-                         "bench)")
+                         "bench and bench10)")
     ap.add_argument("--out", default=os.path.join(ROOT, "chiprun_out",
                                                   "profile.json"))
     args = ap.parse_args()
@@ -179,14 +185,17 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch: no CUDA device")
     from torch.profiler import ProfilerActivity, profile
-    from x265_tpu_torch.smoke_config import smoke_frames
+    from x265_tpu_torch.smoke_config import (smoke_frames,
+                                             smoke_frames_bench10)
     if args.frames is None:
-        args.frames = dict(ippp=4, b=6, bench=10)[args.slice]
+        args.frames = dict(ippp=4, b=6, bench=10, bench10=10)[args.slice]
+    bench = args.slice.startswith("bench")
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
-    frames = smoke_frames(args.frames)
+    frames = (smoke_frames_bench10(n=args.frames) if args.slice == "bench10"
+              else smoke_frames(args.frames))
     warm = _encode(frames, args.slice)
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -198,7 +207,9 @@ def main():
     for ev in prof.key_averages():
         if ev.device_type == DeviceType.CUDA:      # kernels and copies
             by_kernel[ev.key] += ev.self_device_time_total / 1e3   # ms
-            if ev.key.startswith(("k1_kernel", "k2_kernel")):
+            # the kernels are templates on the bit depth: "void
+            # k1_kernel<8>(K1Args)", "void k2_kernel<10>(...)"
+            if "k1_kernel" in ev.key or "k2_kernel" in ev.key:
                 k = own[ev.key.split("(")[0]]
                 k["ms"] += ev.self_device_time_total / 1e3
                 k["launches"] += ev.count
@@ -206,14 +217,13 @@ def main():
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:25]
 
     stats = defaultdict(float)
-    _instrument(stats, bench=args.slice == "bench")
+    _instrument(stats, bench=bench)
     staged = _encode(frames, args.slice)
     stages = {k: v * 1e3 for k, v in sorted(stats.items(),
                                             key=lambda kv: -kv[1])}
     stages["other"] = staged * 1e3 - sum(stages.values())
 
-    la_ms = (_lookahead_programs_ms(frames) if args.slice == "bench"
-             else None)
+    la_ms = _lookahead_programs_ms(frames, args.slice) if bench else None
     out = dict(device=smi, slice=args.slice, frames=args.frames,
                warm_s=warm,
                wall_ms=prof_wall * 1e3, fps=args.frames / prof_wall,

@@ -1,7 +1,9 @@
-"""Small shared helpers: exact float32 fused multiply-add and table caches."""
+"""Small shared helpers: exact float32 fused multiply-add, table caches and
+the device dtype of picture samples."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 _TABLE_CACHE: dict = {}
@@ -39,6 +41,29 @@ def fma32(a, b, c) -> torch.Tensor:
     s = torch.where(tie, torch.nextafter(s, torch.where(
         err > 0, float("inf"), float("-inf")).to(s.dtype)), s)
     return s.float()
+
+
+def sample_dtype(bit_depth: int) -> torch.dtype:
+    """The device dtype of a picture's samples: uint8 at 8 bits, int16
+    above (0..1023 fit).  The host's planes are uint16 there, as the
+    reference's; torch's CUDA build does not index or compute on uint16
+    tensors, so the device holds the same values as int16."""
+    return torch.uint8 if bit_depth == 8 else torch.int16
+
+
+def to_device(a, device) -> torch.Tensor:
+    """A numpy array on ``device``; uint16 samples as int16 (the same
+    values: samples stay below 2^15)."""
+    a = np.ascontiguousarray(a)
+    if a.dtype == np.uint16:
+        a = a.view(np.int16)
+    return torch.as_tensor(a, device=device)
+
+
+def to_host_samples(t: torch.Tensor) -> np.ndarray:
+    """Device samples as a host plane: int16 back to uint16."""
+    a = t.cpu().numpy()
+    return a.view(np.uint16) if a.dtype == np.int16 else a
 
 
 def f32(x, device=None) -> torch.Tensor:

@@ -87,7 +87,7 @@ def _bind(path: str):
     lib.k1_ctu_step.restype = ci
     lib.k1_smem_bytes.argtypes = []
     lib.k1_smem_bytes.restype = ci
-    lib.k2_subpel_refine.argtypes = [vp] * 9 + [ci, ci, ci, ci, vp]
+    lib.k2_subpel_refine.argtypes = [vp] * 9 + [ci, ci, ci, ci, ci, vp]
     lib.k2_subpel_refine.restype = ci
     lib.k_error_string.argtypes = [ci]
     lib.k_error_string.restype = ctypes.c_char_p

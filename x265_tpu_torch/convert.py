@@ -15,6 +15,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ._util import to_device
+
 TABLE_NAMES = ("dct4", "dct8", "dct16", "dct32", "dst4", "quant_scales",
                "inv_quant_scales", "diag4_rank", "luma_filters",
                "chroma_filters", "intra_angles", "intra_inv_angles",
@@ -51,6 +53,6 @@ def tables_to_torch(np_tables: dict, device) -> dict:
 
 def planes_to_torch(planes, device) -> tuple:
     """(Y, Cb, Cr) numpy planes -> a tuple of tensors on ``device`` with
-    the same dtype and shape (a DPB entry of the port)."""
-    return tuple(torch.as_tensor(np.ascontiguousarray(np.asarray(p))).to(
-        device) for p in planes)
+    the same shape and dtype, uint16 samples as int16 (a DPB entry of the
+    port)."""
+    return tuple(to_device(np.asarray(p), device) for p in planes)

@@ -1,5 +1,5 @@
-// K1: one wavefront level of the CTU reconstruction scan (8-bit, 64x64
-// CTBs, 32x32 quads of four 16x16 slots).
+// K1: one wavefront level of the CTU reconstruction scan (8- or 10-bit,
+// 64x64 CTBs, 32x32 quads of four 16x16 slots).
 //
 // Replaces x265_tpu/encoder/ctu_scan_pallas.py make_pallas_step (body
 // `kernel` at :494, pallas_call at :927).  Plain version: CtuScan.make_step
@@ -54,10 +54,21 @@
 //     has its own frontiers, so lane l reads and writes only those of
 //     frame l / (L / F).  The level of a frame puts at most 15 blocks on
 //     132 SMs, so F frames' lanes cost about one frame's launch.
-// The int16 buffers hold what the plain step holds in int32: residuals of
-// 8-bit samples and predictions, the forward rows' outputs (at most
-// 255 * 64 * n >> (log2 n - 1) = 32640), clipped dequant levels and
-// inverse outputs.
+//   * the bit depth BD (8 or 10) is a template parameter of the lane and
+//     of every function with a depth-dependent constant: the forward rows'
+//     shift log2 n + BD - 9, the quant's qbits 14 + qp / 6 + 15 - BD -
+//     log2 n, the dequant's shift BD + log2 n - 5, the inverse rows' shift
+//     20 - BD, the clamps to 2^BD - 1, the substitution default 2^(BD-1)
+//     and the strong-smoothing threshold 2^(BD-5).  The flag K1_BD10 picks
+//     the instantiation; both share the shared-memory layout.
+// The int16 buffers hold what the plain step holds in int32 at both depths:
+// residuals of samples and predictions (|r| <= 1023), the forward rows'
+// outputs (the largest row of T sums to 64 n, so at most 1023 * 64 * n >>
+// (log2 n + 1) = 32736 at 10 bits and 255 * 64 * n >> (log2 n - 1) =
+// 32640 at 8; dp2a on int16 x int8 stays exact), clipped dequant levels and
+// inverse outputs.  The SSD sums are int32 per plane as in the plain step:
+// a 32x32 luma block's is at most 1024 * 1023^2 < 2^31, converted to
+// float32 with round to nearest (k_i2f).
 // Per quad: 7 block barriers for the 32x32 intra candidate, 7 per 16x16
 // slot (5 for an inter slot), 6 for the inter TU32 trial, 3 for the
 // decision and the write-back.
@@ -69,6 +80,7 @@
 #define K1_PSY 4
 #define K1_SIGN_HIDE 8
 #define K1_STRONG 16
+#define K1_BD10 32
 
 #define K1_THREADS 768
 #define K1_MAXWARPS (K1_THREADS / 32)
@@ -231,7 +243,7 @@ KDEV bool k1_filter_flag(int mode, int n, bool luma) {
 // sample k = c * KWS + lane in registers (chunk c): the gather, the
 // substitution by ballots and shuffles, the filter by shuffles, the DC sum
 // as a warp sum; only r and rf are stored.
-template <int N>
+template <int N, int BD>
 KDEV void k1_prep_ref(const short* B, int stride, int lx0, int ly0,
                       const u8* av, short* r, short* rf, int* dc, int mode,
                       bool luma, bool strong) {
@@ -248,8 +260,8 @@ KDEV void k1_prep_ref(const short* B, int stride, int lx0, int ly0,
     bal[c] = k_ballot(k < R && av[k]);
   }
   // substitution: the last available sample at or before k; before the
-  // first available one, that one; 128 when none is available
-  int carry = 128;
+  // first available one, that one; 2^(BD-1) when none is available
+  int carry = 1 << (BD - 1);
   bool found = false;
   KUNROLL
   for (int c = 0; c < NC; ++c)
@@ -274,8 +286,10 @@ KDEV void k1_prep_ref(const short* B, int stride, int lx0, int ly0,
   if constexpr (N == 32) {
     const int r32 = k_shfl(sub[32 / KWS], 32 % KWS);
     const int r96 = k_shfl(sub[96 / KWS], 96 % KWS);
-    use_strong = luma && strong && filt && k_abs(corner + tr - 2 * r96) < 8 &&
-                 k_abs(corner + bl - 2 * r32) < 8;
+    constexpr int thr = 1 << (BD - 5);
+    use_strong = luma && strong && filt &&
+                 k_abs(corner + tr - 2 * r96) < thr &&
+                 k_abs(corner + bl - 2 * r32) < thr;
   }
   int sum = 0;
   KUNROLL
@@ -316,17 +330,18 @@ KDEV void k1_prep_ref(const short* B, int stride, int lx0, int ly0,
 // Prepare the luma (N) and both chroma (N / 2) references of the block at
 // luma (x0, y0) into r, rf, dc: warp v of team t does plane v (on the host
 // the one thread does all).
-template <int N>
+template <int N, int BD>
 KDEV void k1_prep3(K1Smem* s, const KTeam& t, int x0, int y0, const u8* avl,
                    const u8* avc, int mode, bool strong, short (*r)[132],
                    short (*rf)[132], int* dc) {
   for (int v = KWARP - t.w0; v < 3; v += t.nw) {
     if (v == 0)
-      k1_prep_ref<N>(s->C, CW_, x0, y0, avl, r[0], rf[0], &dc[0], mode, true,
-                     strong);
+      k1_prep_ref<N, BD>(s->C, CW_, x0, y0, avl, r[0], rf[0], &dc[0], mode,
+                         true, strong);
     else
-      k1_prep_ref<N / 2>(s->Cc + (v - 1) * CHC * CWC, CWC, x0 / 2, y0 / 2,
-                         avc, r[v], rf[v], &dc[v], mode, false, false);
+      k1_prep_ref<N / 2, BD>(s->Cc + (v - 1) * CHC * CWC, CWC, x0 / 2,
+                             y0 / 2, avc, r[v], rf[v], &dc[v], mode, false,
+                             false);
   }
 }
 
@@ -350,6 +365,7 @@ KDEV int k1_canon(int i, bool vertical, int n, int a) {
 }
 
 // One predicted sample (y, x) of mode `mode` from prepared references.
+template <int BD>
 KDEV int k1_pred_pixel(const short* r, const short* rf, int dc, int mode,
                        int n, int y, int x, bool luma) {
   int v;
@@ -380,9 +396,11 @@ KDEV int k1_pred_pixel(const short* r, const short* rf, int dc, int mode,
       else if (x == 0)
         v = (r[2 * n - 1 - y] + 3 * dc + 2) >> 2;
     } else if (mode == 26 && x == 0) {
-      v = k_clamp(r[2 * n + 1] + ((r[2 * n - 1 - y] - corner) >> 1), 0, 255);
+      v = k_clamp(r[2 * n + 1] + ((r[2 * n - 1 - y] - corner) >> 1), 0,
+                  (1 << BD) - 1);
     } else if (mode == 10 && y == 0) {
-      v = k_clamp(r[2 * n - 1] + ((r[2 * n + 1 + x] - corner) >> 1), 0, 255);
+      v = k_clamp(r[2 * n - 1] + ((r[2 * n + 1 + x] - corner) >> 1), 0,
+                  (1 << BD) - 1);
     }
   }
   return v;
@@ -390,8 +408,9 @@ KDEV int k1_pred_pixel(const short* r, const short* rf, int dc, int mode,
 
 // --- the joint transform / quant chain -----------------------------------------
 
+template <int BD>
 KDEV int k1_quant(int c, int qp, bool intra, int log2n) {
-  const int qbits = 14 + k1_div6(qp) + (15 - 8 - log2n);
+  const int qbits = 14 + k1_div6(qp) + (15 - BD - log2n);
   const int scale = k1_qs[k1_mod6(qp)];
   const int a = k_abs(c);
   const int hi = a * (scale >> 7), lo = a * (scale & 127);
@@ -402,13 +421,15 @@ KDEV int k1_quant(int c, int qp, bool intra, int log2n) {
 }
 
 // the level clip bound of k1_dequant (one division, once per lane)
+template <int BD>
 KDEV int k1_dequant_max(int qp, int log2n) {
   const int scale_eff = (k1_iqs[k1_mod6(qp)] * 16) << k1_div6(qp);
-  return (32767 << (8 + log2n - 5)) / scale_eff + 1;
+  return (32767 << (BD + log2n - 5)) / scale_eff + 1;
 }
 
+template <int BD>
 KDEV int k1_dequant(int l, int qp, int log2n, int lmax) {
-  const int bd_shift = 8 + log2n - 5;
+  const int bd_shift = BD + log2n - 5;
   const int scale_eff = (k1_iqs[k1_mod6(qp)] * 16) << k1_div6(qp);
   const int lv = l > lmax ? lmax : (l < -lmax ? -lmax : l);
   return k_clamp((lv * scale_eff + (1 << (bd_shift - 1))) >> bd_shift, -32768,
@@ -468,7 +489,7 @@ KDEV int k1_ppos(int lg, int y, int x) {
   return ((y >> 1) << (lg + 1)) + 2 * x + (y & 1);
 }
 
-template <int lg>
+template <int lg, int BD>
 KDEV int k1_fwd_row(const K1Smem* s, const short* x, int off) {  // [y][k]
   constexpr int n = 1 << lg;
   const int y = off >> lg, k = off & (n - 1);
@@ -481,7 +502,7 @@ KDEV int k1_fwd_row(const K1Smem* s, const short* x, int off) {  // [y][k]
     const int w = t[m4 * n];
     acc = k_dp2a_hi(v.hi, w, k_dp2a_lo(v.lo, w, acc));
   }
-  return (acc + (1 << (lg - 2))) >> (lg - 1);
+  return (acc + (1 << (lg + BD - 10))) >> (lg + BD - 9);
 }
 template <int lg>
 KDEV int k1_fwd_col(const K1Smem* s, const short* xp, int off) {  // [v][u]
@@ -511,7 +532,7 @@ KDEV int k1_inv_col(const K1Smem* s, const short* xp, int off) {  // [y][u]
   }
   return k_clamp((acc + 64) >> 7, -32768, 32767);
 }
-template <int lg>
+template <int lg, int BD>
 KDEV int k1_inv_row(const K1Smem* s, const short* e, int off) {  // [y][x]
   constexpr int n = 1 << lg;
   const int y = off >> lg, x = off & (n - 1);
@@ -524,7 +545,7 @@ KDEV int k1_inv_row(const K1Smem* s, const short* e, int off) {  // [y][x]
     const int w = t[u4 * n];
     acc = k_dp2a_hi(v.hi, w, k_dp2a_lo(v.lo, w, acc));
   }
-  return k_clamp((acc + 2048) >> 12, -32768, 32767);
+  return k_clamp((acc + (1 << (19 - BD))) >> (20 - BD), -32768, 32767);
 }
 
 KDEV void k1_add3(int* a0, int* a1, int* a2, int b, int v) {
@@ -542,7 +563,7 @@ KDEV void k1_add3(int* a0, int* a1, int* a2, int b, int v) {
 // Run by team t: five team barriers; the per-warp sums run after the last
 // one.  Every pass is one element per thread; a warp never straddles two
 // blocks.
-template <int LG>
+template <int LG, int BD>
 KDEV void k1_chain(K1Smem* s, const KTeam& t, const K1Chain& c,
                    bool sign_hide, bool rd, int (*part)[6]) {
   constexpr int tot = 6 << (2 * (LG - 1));
@@ -552,15 +573,16 @@ KDEV void k1_chain(K1Smem* s, const KTeam& t, const K1Chain& c,
     const int b = k1_blk<LG>(i), base = k1_base<LG>(b), off = i - base;
     const int lg = b == 0 ? LG : LG - 1;
     wb[base + k1_ppos(lg, off >> lg, off & ((1 << lg) - 1))] =
-        (short)(b == 0 ? k1_fwd_row<LG>(s, wa, i)
-                       : k1_fwd_row<LG - 1>(s, wa + base, off));
+        (short)(b == 0 ? k1_fwd_row<LG, BD>(s, wa, i)
+                       : k1_fwd_row<LG - 1, BD>(s, wa + base, off));
   }
   K1_TSYNC(t);
   for (int i = t.tid; i < tot; i += t.nth) {  // forward columns, quant
     const int b = k1_blk<LG>(i), base = k1_base<LG>(b);
     const int v = b == 0 ? k1_fwd_col<LG>(s, wb, i)
                          : k1_fwd_col<LG - 1>(s, wb + base, i - base);
-    c.lv[i] = k1_quant(v, k1_pick(c.qp, b), c.intra, b == 0 ? LG : LG - 1);
+    c.lv[i] = k1_quant<BD>(v, k1_pick(c.qp, b), c.intra,
+                           b == 0 ? LG : LG - 1);
   }
   K1_TSYNC(t);
   int s0 = 0, s1 = 0, s2 = 0, b0 = 0, b1 = 0, b2 = 0;
@@ -577,7 +599,7 @@ KDEV void k1_chain(K1Smem* s, const KTeam& t, const K1Chain& c,
                                 c.lv + base + (gy * nb + gx) * 4, nb, &any);
     c.lv[base + pos] = l;
     wa[base + k1_ppos(lg, pos >> lg, pos & (nb - 1))] =  // pair layout
-        (short)k1_dequant(l, k1_pick(c.qp, b), lg, s->dqmax[b][lg - 3]);
+        (short)k1_dequant<BD>(l, k1_pick(c.qp, b), lg, s->dqmax[b][lg - 3]);
     int* glv = k1_pick(c.glv, b);
     if (glv) glv[pos] = l;
     k1_add3(&b0, &b1, &b2, b, k1_level_bits(l) + (rank == 0 && any ? 2 : 0));
@@ -592,9 +614,9 @@ KDEV void k1_chain(K1Smem* s, const KTeam& t, const K1Chain& c,
   for (int i = t.tid; i < tot; i += t.nth) {  // inverse rows, recon, SSD
     const int b = k1_blk<LG>(i), base = k1_base<LG>(b), off = i - base;
     const int lg = b == 0 ? LG : LG - 1;
-    const int res = b == 0 ? k1_inv_row<LG>(s, wb, i)
-                           : k1_inv_row<LG - 1>(s, wb + base, off);
-    const int rec = k_clamp(c.pred[i] + res, 0, 255);
+    const int res = b == 0 ? k1_inv_row<LG, BD>(s, wb, i)
+                           : k1_inv_row<LG - 1, BD>(s, wb + base, off);
+    const int rec = k_clamp(c.pred[i] + res, 0, (1 << BD) - 1);
     const int y = off >> lg, x = off & ((1 << lg) - 1);
     k1_pick(c.rec, b)[y * k1_pick(c.rs, b) + x] = (short)rec;
     const int d = rec - k1_pick(c.org, b)[y * (b == 0 ? 32 : 16) + x];
@@ -618,6 +640,7 @@ KDEV float k1_cost(const int* t, float ovh, float lam) {
 
 // --- the lane ------------------------------------------------------------------
 
+template <int BD>
 KDEV void k1_lane(K1Smem* s, const K1Args& a, int l) {
   const int L = a.L;
   const bool inter = a.flags & K1_INTER, decide = a.flags & K1_DECIDE32;
@@ -680,7 +703,7 @@ KDEV void k1_lane(K1Smem* s, const K1Args& a, int l) {
   }
   for (int i = KTID; i < 9; i += KNTH) {
     const int b = i / 3, qp = b == 0 ? qpy : (b == 1 ? qpc[0] : qpc[1]);
-    s->dqmax[b][i - 3 * b] = k1_dequant_max(qp, 3 + i - 3 * b);
+    s->dqmax[b][i - 3 * b] = k1_dequant_max<BD>(qp, 3 + i - 3 * b);
   }
   k_zero16(s->C, K1_CN / 8);
   k_zero16(s->Cc, K1_CCN / 8);
@@ -731,18 +754,18 @@ KDEV void k1_lane(K1Smem* s, const K1Args& a, int l) {
     // ts) read the quad's neighbours and write disjoint buffers, so the
     // two teams run side by side until the block barrier after them.
     if (k_in(tq)) {  // 32x32 intra candidate: luma and both chroma planes
-      k1_prep3<32>(s, tq, qx, qy, s->l32av + q * 129, s->c16av + q * 65, m32,
+      k1_prep3<32, BD>(s, tq, qx, qy, s->l32av + q * 129, s->c16av + q * 65, m32,
                    strong, s->r32, s->rf32, s->dc32);
       K1_TSYNC(tq);
       for (int i = tq.tid; i < 1536; i += tq.nth) {
         int v, o;
         if (i < 1024) {
-          v = k1_pred_pixel(s->r32[0], s->rf32[0], s->dc32[0], m32, 32,
+          v = k1_pred_pixel<BD>(s->r32[0], s->rf32[0], s->dc32[0], m32, 32,
                             i >> 5, i & 31, true);
           o = o32[i];
         } else {
           const int k = i - 1024, p = k >> 8, j = k & 255;
-          v = k1_pred_pixel(s->r32[1 + p], s->rf32[1 + p], s->dc32[1 + p],
+          v = k1_pred_pixel<BD>(s->r32[1 + p], s->rf32[1 + p], s->dc32[1 + p],
                             m32, 16, j >> 4, j & 15, false);
           o = oc32[p][j];
         }
@@ -754,7 +777,7 @@ KDEV void k1_lane(K1Smem* s, const K1Args& a, int l) {
                      {s->R32, s->R32 + 1024, s->R32 + 1280}, {32, 16, 16},
                      {0, 0, 0}, {qpy, qpc[0], qpc[1]}, true, s->wa32,
                      s->wb32};
-      k1_chain<5>(s, tq, c32, sh, decide, s->part[0]);
+      k1_chain<5, BD>(s, tq, c32, sh, decide, s->part[0]);
     }
 
     for (int sl = 0; sl < 4 && k_in(ts); ++sl) {
@@ -767,7 +790,7 @@ KDEV void k1_lane(K1Smem* s, const K1Args& a, int l) {
       const int* oc8[2] = {oc32[0] + oy / 2 * 16 + ox / 2,
                            oc32[1] + oy / 2 * 16 + ox / 2};  // stride 16
       if (!iv) {
-        k1_prep3<16>(s, ts, sx, sy, s->l16av + i * 65, s->c8av + i * 33, m,
+        k1_prep3<16, BD>(s, ts, sx, sy, s->l16av + i * 65, s->c8av + i * 33, m,
                      false, s->r, s->rf, s->dc);
         K1_TSYNC(ts);
       }
@@ -776,16 +799,16 @@ KDEV void k1_lane(K1Smem* s, const K1Args& a, int l) {
         if (k < 256) {
           const int y = k >> 4, x = k & 15;
           v = iv ? s->ipy[i * 256 + k]
-                 : k1_pred_pixel(s->r[0], s->rf[0], s->dc[0], m, 16, y, x,
-                                 true);
+                 : k1_pred_pixel<BD>(s->r[0], s->rf[0], s->dc[0], m, 16, y,
+                                     x, true);
           s->IPQ[(oy + y) * 32 + ox + x] = v;
           o = o16[y * 32 + x];
         } else {
           const int kk = k - 256, p = kk >> 6, j = kk & 63;
           const int y = j >> 3, x = j & 7;
           v = iv ? s->ipc[(i * 2 + p) * 64 + j]
-                 : k1_pred_pixel(s->r[1 + p], s->rf[1 + p], s->dc[1 + p], m,
-                                 8, y, x, false);
+                 : k1_pred_pixel<BD>(s->r[1 + p], s->rf[1 + p],
+                                     s->dc[1 + p], m, 8, y, x, false);
           s->IPQ[1024 + p * 256 + (oy / 2 + y) * 16 + ox / 2 + x] = v;
           o = oc8[p][y * 16 + x];
         }
@@ -807,7 +830,7 @@ KDEV void k1_lane(K1Smem* s, const K1Args& a, int l) {
                     !iv,
                     s->wa,
                     s->wb};
-      k1_chain<4>(s, ts, cs, sh, decide, s->part[1 + sl]);
+      k1_chain<4, BD>(s, ts, cs, sh, decide, s->part[1 + sl]);
     }
     KSYNC();
 
@@ -821,7 +844,7 @@ KDEV void k1_lane(K1Smem* s, const K1Args& a, int l) {
       K1Chain ct = {s->IPQ, s->LVI, {o32, oc32[0], oc32[1]},
                     {s->RI, s->RI + 1024, s->RI + 1280}, {32, 16, 16},
                     {0, 0, 0}, {qpy, qpc[0], qpc[1]}, false, s->wa, s->wb};
-      k1_chain<5>(s, all, ct, sh, true, s->part[5]);
+      k1_chain<5, BD>(s, all, ct, sh, true, s->part[5]);
     }
     if (decide && psy) {  // the psy terms of the quad's chains, 8x8 tiles:
       // 0-15 the 32x32 candidate, 16-31 the slots (4 each), 32-47 the trial
@@ -972,11 +995,26 @@ static void k1_unpack(K1Args* a, void* const* p, int L, int F, int cw,
 #define K1_NPTRS 45
 
 #ifdef __CUDACC__
+template <int BD>
 __global__ void __launch_bounds__(K1_THREADS) k1_kernel(K1Args a) {
   extern __shared__ __align__(16) unsigned char k1_smem[];
   K1_LANE_START();
-  k1_lane((K1Smem*)k1_smem, a, blockIdx.x);
+  k1_lane<BD>((K1Smem*)k1_smem, a, blockIdx.x);
   K1_LANE_END();
+}
+
+template <int BD>
+static int k1_launch(const K1Args& a, cudaStream_t stream) {
+  static bool attr_set = false;
+  if (!attr_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        k1_kernel<BD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)sizeof(K1Smem));
+    if (e != cudaSuccess) return (int)e;
+    attr_set = true;
+  }
+  k1_kernel<BD><<<a.L, K1_THREADS, sizeof(K1Smem), stream>>>(a);
+  return (int)cudaGetLastError();
 }
 
 extern "C" int k1_ctu_step(void* const* p, int np, int L, int F, int cw,
@@ -984,16 +1022,8 @@ extern "C" int k1_ctu_step(void* const* p, int np, int L, int F, int cw,
   if (np != K1_NPTRS || F < 1 || L % F) return -1;
   K1Args a;
   k1_unpack(&a, p, L, F, cw, ch, flags);
-  static bool attr_set = false;
-  if (!attr_set) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        k1_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)sizeof(K1Smem));
-    if (e != cudaSuccess) return (int)e;
-    attr_set = true;
-  }
-  k1_kernel<<<L, K1_THREADS, sizeof(K1Smem), (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+  return flags & K1_BD10 ? k1_launch<10>(a, (cudaStream_t)stream)
+                         : k1_launch<8>(a, (cudaStream_t)stream);
 }
 
 extern "C" int k1_smem_bytes() { return (int)sizeof(K1Smem); }
@@ -1005,7 +1035,12 @@ extern "C" int k1_ctu_step(void* const* p, int np, int L, int F, int cw,
   K1Args a;
   k1_unpack(&a, p, L, F, cw, ch, flags);
   K1Smem* s = (K1Smem*)malloc(sizeof(K1Smem));
-  for (int l = 0; l < L; ++l) k1_lane(s, a, l);
+  for (int l = 0; l < L; ++l) {
+    if (flags & K1_BD10)
+      k1_lane<10>(s, a, l);
+    else
+      k1_lane<8>(s, a, l);
+  }
   free(s);
   return 0;
 }

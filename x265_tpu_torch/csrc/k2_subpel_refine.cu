@@ -1,4 +1,4 @@
-// K2: subpel motion refinement of 16x16 blocks (8-bit luma).
+// K2: subpel motion refinement of 16x16 blocks (8- or 10-bit luma).
 //
 // Replaces x265_tpu/encoder/me_pallas.py make_refine_kernel (body `kernel`
 // at :112, pallas_call at :237).  Plain version: refine_plain in
@@ -69,8 +69,27 @@
 // latency, limits it from there.
 // Phase 0 (an integer position) is not a special case: the tap table's
 // {0, 0, 0, 64, ...} row gives 64 * the sample, and the horizontal pass of
-// phase 0 stores the sample itself with its 64 applied after the vertical
-// pass, which is the same integer.
+// phase 0 stores the sample itself with its 64 (>> (BD - 8)) applied after
+// the vertical pass, which is the same integer.
+//
+// 10 bits (the template parameter BD; K2_BD10 in the C entry point picks
+// the instantiation).  The reference's 10-bit MC is the spec's 14-bit
+// route (x265_tpu/ops/interp.py mc_luma_batch_ps + uni_round): the
+// horizontal pass truncates by >> (BD - 8) = 2, the vertical pass shifts
+// >> 6, then (+ 8) >> 4 and a clip to 1023; phase 0 stores the sample and
+// multiplies by 64 >> 2 = 16 (= (64 s) >> 2 exactly).  From the vertical
+// sums on one shift would do (((x >> 6) + 8) >> 4 == (x + 512) >> 10), but
+// not across the horizontal truncation, which stays a step of its own.
+// The samples do not fit bytes: the window rows are staged as int16 (24
+// a row) and the horizontal pass is four dp2a a sample on int16 pairs
+// (odd column bases take their pairs by byte permutes); the filtered row
+// pairs fit int16 (|h| <= 112 * 1023 / 4), so the vertical pass and the
+// SATDs are the 8-bit ones.  The planes P and round-2 buffers are 16-bit
+// (15.2 KB of shared memory a block; 8 blocks an SM still fit).  ptxas
+// (sm_90a): 48 registers and 24 bytes of spill stores in both
+// instantiations, as the 8-bit kernel had before the 10-bit path.
+
+#include <type_traits>
 
 #include "k_common.cuh"
 
@@ -143,10 +162,19 @@ extern "C" int k2_stage_clocks(int* lines, long long* t, int* sm) {
 #define K2_BLOCK_END() ((void)0)
 #endif
 
+#define K2_BD10 1
+
+// a prediction sample in shared memory: a byte at 8 bits, 16 bits at 10
+template <int BD>
+using K2S = typename std::conditional<BD == 8, u8, unsigned short>::type;
+
+template <int BD>
 struct K2Smem {
   int Wi[K2_WIN * K2_WIN];    // the staged window
   int ob[K2_N * K2_N];        // the staged source block
-  unsigned Wb[K2_ROWS * 8];   // window rows 0..23 as bytes, 32 a row
+  // window rows 0..23: as bytes, 32 a row (8 bits); as int16, 24 a row
+  // (10 bits)
+  unsigned Wb[K2_ROWS * (BD == 8 ? 8 : 12)];
   // the horizontal pass of phase fx at column base c, rows r = 2i (low
   // half) and 2i + 1 of the int16 pair at [fx][(i * K2_HS + c) * 2];
   // phase 0 holds W[r][c + 3] itself
@@ -156,8 +184,8 @@ struct K2Smem {
   float lam;                  // the block's lambda
   // the round-1 planes (fy, fx) = (0, 0), (0, 2), (2, 0), (2, 2): final
   // samples of candidate q at row iy1 + y, column ix1 + x
-  u8 P[4][17 * K2_PS];
-  u8 buf[8][K2_N * K2_N];     // round 2: the new candidates' predictions
+  K2S<BD> P[4][17 * K2_PS];
+  K2S<BD> buf[8][K2_N * K2_N];  // round 2: the new candidates' predictions
 };
 
 struct K2Blk {
@@ -172,7 +200,8 @@ KDEV int k2_bits_index(int mv, int q, int pmv) {
   return a < K2_MVB ? a : K2_MVB - 1;
 }
 
-KDEV float k2_cost(const K2Smem* s, int satd, int qy, int qx,
+template <int BD>
+KDEV float k2_cost(const K2Smem<BD>* s, int satd, int qy, int qx,
                    const K2Blk& k) {
   const int mqy = k.mvy * 4 + qy, mqx = k.mvx * 4 + qx;
   if (k_abs(mqy) > 4 * k.mrq || k_abs(mqx) > 4 * k.mrq) return 1073741824.0f;
@@ -183,12 +212,12 @@ KDEV float k2_cost(const K2Smem* s, int satd, int qy, int qx,
 
 // Copy the block's window rows 0..23, its source block, the 14 mv_bits
 // entries its candidates can read and its lambda in (cp.async, each thread
-// its own words), then lay the window out as bytes (Wb) and as the phase-0 row
-// pairs (Hp[0]) from the words this thread copied itself; one block
-// barrier after it covers all of it.
-KDEV void k2_stage(K2Smem* s, const int* W, const int* ob, const float* mvb,
-                   const float* lam, const K2Blk& k) {
-  u8* wb = (u8*)s->Wb;
+// its own words), then lay the window out as bytes or int16 (Wb) and as the
+// phase-0 row pairs (Hp[0]) from the words this thread copied itself; one
+// block barrier after it covers all of it.
+template <int BD>
+KDEV void k2_stage(K2Smem<BD>* s, const int* W, const int* ob,
+                   const float* mvb, const float* lam, const K2Blk& k) {
   const int npair = K2_ROWS / 2 * K2_WIN;  // 300 >= 256 >= 14
   for (int t = KTID; t < npair; t += KNTH) {
     const int o = t / K2_WIN * 2 * K2_WIN + t % K2_WIN;
@@ -207,8 +236,15 @@ KDEV void k2_stage(K2Smem* s, const int* W, const int* ob, const float* mvb,
   for (int t = KTID; t < npair; t += KNTH) {
     const int p = t / K2_WIN, c = t % K2_WIN, o = 2 * p * K2_WIN + c;
     const int a = s->Wi[o], b = s->Wi[o + K2_WIN];
-    wb[2 * p * 32 + c] = (u8)a;
-    wb[(2 * p + 1) * 32 + c] = (u8)b;
+    if constexpr (BD == 8) {
+      u8* wb = (u8*)s->Wb;
+      wb[2 * p * 32 + c] = (u8)a;
+      wb[(2 * p + 1) * 32 + c] = (u8)b;
+    } else if (c < K2_ROWS) {
+      short* ws = (short*)s->Wb;
+      ws[2 * p * K2_ROWS + c] = (short)a;
+      ws[(2 * p + 1) * K2_ROWS + c] = (short)b;
+    }
     if (c >= 3 && c < 20) {
       s->Hp[0][(p * K2_HS + c - 3) * 2] = (short)a;
       s->Hp[0][(p * K2_HS + c - 3) * 2 + 1] = (short)b;
@@ -217,39 +253,80 @@ KDEV void k2_stage(K2Smem* s, const int* W, const int* ob, const float* mvb,
 }
 
 // The horizontal pass over rows 0..23 and column bases 0..16: a task is 4
-// bases of one row (the fifth only base 16), from three words of the row's
-// bytes (window columns 0..23), whose byte windows serve every phase the
-// block needs (2; and 1, 3 at subme >= 2), two dp4a a sample.
-KDEV void k2_hpass(K2Smem* s, int subme) {
+// bases of one row (the fifth only base 16), for every phase the block
+// needs (2; and 1, 3 at subme >= 2), stored as int16 row pairs.
+// 8 bits: from three words of the row's bytes (window columns 0..23), whose
+// byte windows serve every phase, two dp4a a sample.
+template <int BD>
+KDEV void k2_hrow(K2Smem<BD>* s, int r, int g, int f0, int f1) {
+  const unsigned* row = s->Wb + r * 8 + g;
+  const int nj = g < 4 ? 4 : 1;
+  const unsigned w0 = row[0], w1 = row[1], w2 = g < 4 ? row[2] : 0u;
+  unsigned lo[4], hi[4];
+  KUNROLL
+  for (int j = 0; j < 4; ++j) {
+    const unsigned sel = 0x3210u + 0x1111u * j;
+    lo[j] = k_prmt(w0, w1, sel);
+    hi[j] = k_prmt(w1, w2, sel);
+  }
+  for (int fx = f0; fx <= f1; ++fx) {
+    const int e0 = k2_taps[fx][0], e1 = k2_taps[fx][1];
+    short* out = s->Hp[fx] + ((r >> 1) * K2_HS + 4 * g) * 2 + (r & 1);
+    KUNROLL
+    for (int j = 0; j < 4; ++j)
+      if (j < nj)
+        out[2 * j] = (short)k_dp4a_us(hi[j], e1, k_dp4a_us(lo[j], e0, 0));
+  }
+}
+
+// 10 bits: from six words of the row's int16 pairs (columns 4g..4g+11) and
+// the five pairs between them (byte permutes), four dp2a a sample, then
+// the spec's >> (BD - 8).
+template <int BD>
+KDEV void k2_hrow16(K2Smem<BD>* s, int r, int g, int f0, int f1) {
+  const short* row = (const short*)s->Wb + r * K2_ROWS + 4 * g;
+  const int nj = g < 4 ? 4 : 1;
+  int w[6], o[5];
+  KUNROLL
+  for (int m = 0; m < 6; ++m)
+    w[m] = m < 4 || g < 4 ? k_ld2s(row + 2 * m) : 0;
+  KUNROLL
+  for (int m = 0; m < 5; ++m)  // the pair (4g + 2m + 1, 4g + 2m + 2)
+    o[m] = (int)k_prmt((unsigned)w[m], (unsigned)w[m + 1], 0x5432u);
+  for (int fx = f0; fx <= f1; ++fx) {
+    const int e0 = k2_taps[fx][0], e1 = k2_taps[fx][1];
+    short* out = s->Hp[fx] + ((r >> 1) * K2_HS + 4 * g) * 2 + (r & 1);
+    KUNROLL
+    for (int j = 0; j < 4; ++j)
+      if (j < nj) {
+        const int* q = j & 1 ? o + (j >> 1) : w + (j >> 1);
+        int acc = k_dp2a_lo(q[0], e0, 0);
+        acc = k_dp2a_hi(q[1], e0, acc);
+        acc = k_dp2a_lo(q[2], e1, acc);
+        acc = k_dp2a_hi(q[3], e1, acc);
+        out[2 * j] = (short)(acc >> (BD - 8));
+      }
+  }
+}
+
+template <int BD>
+KDEV void k2_hpass(K2Smem<BD>* s, int subme) {
   const int f0 = subme >= 2 ? 1 : 2, f1 = subme >= 2 ? 3 : 2;
   for (int t = KTID; t < K2_ROWS * 5; t += KNTH) {
     const int r = t / 5, g = t - 5 * r;
-    const unsigned* row = s->Wb + r * 8 + g;
-    const int nj = g < 4 ? 4 : 1;
-    const unsigned w0 = row[0], w1 = row[1], w2 = g < 4 ? row[2] : 0u;
-    unsigned lo[4], hi[4];
-    KUNROLL
-    for (int j = 0; j < 4; ++j) {
-      const unsigned sel = 0x3210u + 0x1111u * j;
-      lo[j] = k_prmt(w0, w1, sel);
-      hi[j] = k_prmt(w1, w2, sel);
-    }
-    for (int fx = f0; fx <= f1; ++fx) {
-      const int e0 = k2_taps[fx][0], e1 = k2_taps[fx][1];
-      short* out = s->Hp[fx] + ((r >> 1) * K2_HS + 4 * g) * 2 + (r & 1);
-      KUNROLL
-      for (int j = 0; j < 4; ++j)
-        if (j < nj)
-          out[2 * j] = (short)k_dp4a_us(hi[j], e1, k_dp4a_us(lo[j], e0, 0));
-    }
+    if constexpr (BD == 8)
+      k2_hrow(s, r, g, f0, f1);
+    else
+      k2_hrow16(s, r, g, f0, f1);
   }
 }
 
 // One final sample at row v = 2p + PAR of a column, from the column's
 // row-pair words w[0..] of its horizontal phase starting at pair p (w[4]
-// only for PAR 1): the vertical taps tp as dp2a, times mul (64 where the
-// horizontal phase is 0), +2048 >> 12, clipped.
-template <int PAR>
+// only for PAR 1): the vertical taps tp as dp2a, times mul (64 >> (BD - 8)
+// where the horizontal phase is 0); 8 bits: +2048 >> 12; 10 bits: >> 6,
+// then (+ 8) >> 4; clipped.
+template <int PAR, int BD>
 KDEV int k2_sample(const int* w, const int* tp, int mul) {
   int acc;
   if (PAR == 0) {
@@ -264,7 +341,16 @@ KDEV int k2_sample(const int* w, const int* tp, int mul) {
     acc = k_dp2a_hi(w[3], tp[3], acc);
     acc = k_dp2a_lo(w[4], tp[4], acc);
   }
-  return k_clamp((acc * mul + 2048) >> 12, 0, 255);
+  if constexpr (BD == 8)
+    return k_clamp((acc * mul + 2048) >> 12, 0, 255);
+  else
+    return k_clamp((((acc * mul) >> 6) + 8) >> 4, 0, (1 << BD) - 1);
+}
+
+// the multiplier of k2_sample for horizontal phase fx
+template <int BD>
+KDEV int k2_mul(int fx) {
+  return fx ? 1 : 64 >> (BD - 8);
 }
 
 // Rows v0 .. v0 + nr - 1 (nr <= 4, v0 & 1 == PAR0) of column base c of the
@@ -272,7 +358,7 @@ KDEV int k2_sample(const int* w, const int* tp, int mul) {
 // of fx -- into out[j * ostride]: the column's six row-pair words loaded
 // once (with EDGE, those beyond row 23 read as 0, and no kept row uses
 // them; round 2's columns never reach them).
-template <int PAR0, bool EDGE, typename T>
+template <int PAR0, bool EDGE, int BD, typename T>
 KDEV void k2_column(const short* H, int v0, int c, int nr, const int* tp,
                     int mul, T* out, int ostride) {
   const int p0 = v0 >> 1;
@@ -281,10 +367,11 @@ KDEV void k2_column(const short* H, int v0, int c, int nr, const int* tp,
   for (int m = 0; m < 6; ++m)
     w[m] = !EDGE || p0 + m < K2_ROWS / 2
                ? k_ld2s(H + ((p0 + m) * K2_HS + c) * 2) : 0;
-  out[0] = k2_sample<PAR0>(w, tp, mul);
-  if (nr > 1) out[ostride] = k2_sample<1 - PAR0>(w + PAR0, tp, mul);
-  if (nr > 2) out[2 * ostride] = k2_sample<PAR0>(w + 1, tp, mul);
-  if (nr > 3) out[3 * ostride] = k2_sample<1 - PAR0>(w + 1 + PAR0, tp, mul);
+  out[0] = (T)k2_sample<PAR0, BD>(w, tp, mul);
+  if (nr > 1) out[ostride] = (T)k2_sample<1 - PAR0, BD>(w + PAR0, tp, mul);
+  if (nr > 2) out[2 * ostride] = (T)k2_sample<PAR0, BD>(w + 1, tp, mul);
+  if (nr > 3)
+    out[3 * ostride] = (T)k2_sample<1 - PAR0, BD>(w + 1 + PAR0, tp, mul);
 }
 
 KDEV void k2_load_taps(int fy, int* tp) {
@@ -297,7 +384,8 @@ KDEV void k2_load_taps(int fy, int* tp) {
 // in order ((0, 0): 4 row groups x 16 bases, (0, 2): 4 x 17, (2, 0): 5 x
 // 16, (2, 2): 5 x 17; row 16 alone in the fifth group), so most warps
 // work on one plane.
-KDEV void k2_planes(K2Smem* s, int subme) {
+template <int BD>
+KDEV void k2_planes(K2Smem<BD>* s, int subme) {
   for (int t = KTID; t < (subme ? 297 : 64); t += KNTH) {
     const int pl = t < 64 ? 0 : (t < 132 ? 1 : (t < 212 ? 2 : 3));
     const int u = t - (pl == 0 ? 0 : (pl == 1 ? 64 : (pl == 2 ? 132 : 212)));
@@ -306,26 +394,27 @@ KDEV void k2_planes(K2Smem* s, int subme) {
     const int c = fx ? u - 17 * g : 1 + (u & 15);
     int tp[5];
     k2_load_taps(fy, tp);
-    const int mul = fx ? 1 : 64;
+    const int mul = k2_mul<BD>(fx);
     if (fy)
-      k2_column<0, true>(s->Hp[fx], 4 * g, c, g == 4 ? 1 : 4, tp, mul,
-                   s->P[pl] + 4 * g * K2_PS + c, K2_PS);
+      k2_column<0, true, BD>(s->Hp[fx], 4 * g, c, g == 4 ? 1 : 4, tp, mul,
+                             s->P[pl] + 4 * g * K2_PS + c, K2_PS);
     else
-      k2_column<1, true>(s->Hp[fx], 1 + 4 * g, c, 4, tp, mul,
-                   s->P[pl] + (1 + 4 * g) * K2_PS + c, K2_PS);
+      k2_column<1, true, BD>(s->Hp[fx], 1 + 4 * g, c, 4, tp, mul,
+                             s->P[pl] + (1 + 4 * g) * K2_PS + c, K2_PS);
   }
 }
 
 // The 4x4 prediction p of a round-2 candidate (phases fy, fx) at rows
 // v0..v0+3, column bases c0..c0+3, one column at a time.
+template <int BD>
 KDEV void k2_tile(const short* H, int v0, int c0, const int* tp, int mul,
                   int* p) {
   KUNROLL
   for (int x = 0; x < 4; ++x) {
     if (v0 & 1)
-      k2_column<1, false>(H, v0, c0 + x, 4, tp, mul, p + x, 4);
+      k2_column<1, false, BD>(H, v0, c0 + x, 4, tp, mul, p + x, 4);
     else
-      k2_column<0, false>(H, v0, c0 + x, 4, tp, mul, p + x, 4);
+      k2_column<0, false, BD>(H, v0, c0 + x, 4, tp, mul, p + x, 4);
   }
 }
 
@@ -375,12 +464,14 @@ KDEV int k2_argmin(const float* cost, int n, int kc, float cc, float* best) {
 }
 
 // round-1 plane of qpel offset (qy, qx), at the candidate's sample (0, 0)
-KDEV const u8* k2_plane(K2Smem* s, int qy, int qx) {
+template <int BD>
+KDEV const K2S<BD>* k2_plane(K2Smem<BD>* s, int qy, int qx) {
   return s->P[(qy & 2) + ((qx & 3) >> 1)] + ((qy >> 2) + 1) * K2_PS +
          (qx >> 2) + 1;
 }
 
-KDEV void k2_block(K2Smem* s, int b, const int* W, const int* ob,
+template <int BD>
+KDEV void k2_block(K2Smem<BD>* s, int b, const int* W, const int* ob,
                    const int* mvi, const int* pmv, const float* lam_p,
                    const float* mvb, int* q0, int* pred, float* cost,
                    int subme, int mrq, int lam_stride) {
@@ -400,10 +491,10 @@ KDEV void k2_block(K2Smem* s, int b, const int* W, const int* ob,
   const int step = subme ? 2 : 0, n1 = subme ? 9 : 1;
   for (int j = KHALF; j < n1; j += KNHALF) {
     const int qy = (j / 3 - 1) * step, qx = (j % 3 - 1) * step;
-    const u8* pl = k2_plane(s, qy, qx);
+    const K2S<BD>* pl = k2_plane(s, qy, qx);
     int v = 0;
     for (int t = KLANE16; t < 16; t += KHS) {
-      const u8* pt = pl + (t >> 2) * 4 * K2_PS + (t & 3) * 4;
+      const K2S<BD>* pt = pl + (t >> 2) * 4 * K2_PS + (t & 3) * 4;
       int p[16];
       KUNROLL
       for (int i = 0; i < 16; ++i) p[i] = pt[(i >> 2) * K2_PS + (i & 3)];
@@ -423,7 +514,7 @@ KDEV void k2_block(K2Smem* s, int b, const int* W, const int* ob,
     for (int j = KHALF; j < 8; j += KNHALF) {
       const int k = j + (j >= 4);
       const int qy = cy + k / 3 - 1, qx = cx + k % 3 - 1;
-      const int fx = qx & 3, mul = fx ? 1 : 64;
+      const int fx = qx & 3, mul = k2_mul<BD>(fx);
       int tp[5];
       k2_load_taps(qy & 3, tp);
       int v = 0;
@@ -431,10 +522,11 @@ KDEV void k2_block(K2Smem* s, int b, const int* W, const int* ob,
         const int v0 = (qy >> 2) + 1 + (t >> 2) * 4;
         const int c0 = (qx >> 2) + 1 + (t & 3) * 4;
         int p[16];
-        k2_tile(s->Hp[fx], v0, c0, tp, mul, p);
-        u8* bt = s->buf[j] + (t >> 2) * 4 * K2_N + (t & 3) * 4;
+        k2_tile<BD>(s->Hp[fx], v0, c0, tp, mul, p);
+        K2S<BD>* bt = s->buf[j] + (t >> 2) * 4 * K2_N + (t & 3) * 4;
         KUNROLL
-        for (int i = 0; i < 16; ++i) bt[(i >> 2) * K2_N + (i & 3)] = (u8)p[i];
+        for (int i = 0; i < 16; ++i)
+          bt[(i >> 2) * K2_N + (i & 3)] = (K2S<BD>)p[i];
         v += k2_satd4(p, s->ob + (t >> 2) * 4 * K2_N + (t & 3) * 4);
       }
       v = k_sum16(v);
@@ -450,7 +542,7 @@ KDEV void k2_block(K2Smem* s, int b, const int* W, const int* ob,
       best = b2;
     }
   }
-  const u8* src = win >= 0 ? s->buf[win] : k2_plane(s, cy, cx);
+  const K2S<BD>* src = win >= 0 ? s->buf[win] : k2_plane(s, cy, cx);
   const int stride = win >= 0 ? K2_N : K2_PS;
   for (int i = KTID; i < K2_N * K2_N; i += KNTH)
     pred[(int64_t)b * K2_N * K2_N + i] = src[(i >> 4) * stride + (i & 15)];
@@ -462,39 +554,59 @@ KDEV void k2_block(K2Smem* s, int b, const int* W, const int* ob,
 }
 
 #ifdef __CUDACC__
+template <int BD>
 __global__ void __launch_bounds__(K2_THREADS, 8)
     k2_kernel(const int* W, const int* ob, const int* mvi, const int* pmv,
               const float* lam, const float* mvb, int* q0, int* pred,
               float* cost, int subme, int mrq, int lam_stride) {
-  __shared__ __align__(16) K2Smem s;
+  __shared__ __align__(16) K2Smem<BD> s;
   K2_BLOCK_START();
-  k2_block(&s, blockIdx.x, W, ob, mvi, pmv, lam, mvb, q0, pred, cost, subme,
-           mrq, lam_stride);
+  k2_block<BD>(&s, blockIdx.x, W, ob, mvi, pmv, lam, mvb, q0, pred, cost,
+               subme, mrq, lam_stride);
   K2_BLOCK_END();
+}
+
+// flags: K2_BD10 for 10-bit samples
+extern "C" int k2_subpel_refine(const int* W, const int* ob, const int* mvi,
+                                const int* pmv, const float* lam,
+                                const float* mvb, int* q0, int* pred,
+                                float* cost, int B, int subme, int mrq,
+                                int lam_stride, int flags, void* stream) {
+  if (B > 0) {
+    if (flags & K2_BD10)
+      k2_kernel<10><<<B, K2_THREADS, 0, (cudaStream_t)stream>>>(
+          W, ob, mvi, pmv, lam, mvb, q0, pred, cost, subme, mrq, lam_stride);
+    else
+      k2_kernel<8><<<B, K2_THREADS, 0, (cudaStream_t)stream>>>(
+          W, ob, mvi, pmv, lam, mvb, q0, pred, cost, subme, mrq, lam_stride);
+  }
+  return (int)cudaGetLastError();
+}
+#else
+template <int BD>
+static void k2_host(const int* W, const int* ob, const int* mvi,
+                    const int* pmv, const float* lam, const float* mvb,
+                    int* q0, int* pred, float* cost, int B, int subme,
+                    int mrq, int lam_stride) {
+  K2Smem<BD>* s = (K2Smem<BD>*)malloc(sizeof(K2Smem<BD>));
+  for (int b = 0; b < B; ++b)
+    k2_block<BD>(s, b, W, ob, mvi, pmv, lam, mvb, q0, pred, cost, subme,
+                 mrq, lam_stride);
+  free(s);
 }
 
 extern "C" int k2_subpel_refine(const int* W, const int* ob, const int* mvi,
                                 const int* pmv, const float* lam,
                                 const float* mvb, int* q0, int* pred,
                                 float* cost, int B, int subme, int mrq,
-                                int lam_stride, void* stream) {
-  if (B > 0)
-    k2_kernel<<<B, K2_THREADS, 0, (cudaStream_t)stream>>>(
-        W, ob, mvi, pmv, lam, mvb, q0, pred, cost, subme, mrq, lam_stride);
-  return (int)cudaGetLastError();
-}
-#else
-extern "C" int k2_subpel_refine(const int* W, const int* ob, const int* mvi,
-                                const int* pmv, const float* lam,
-                                const float* mvb, int* q0, int* pred,
-                                float* cost, int B, int subme, int mrq,
-                                int lam_stride, void* stream) {
+                                int lam_stride, int flags, void* stream) {
   (void)stream;
-  K2Smem* s = (K2Smem*)malloc(sizeof(K2Smem));
-  for (int b = 0; b < B; ++b)
-    k2_block(s, b, W, ob, mvi, pmv, lam, mvb, q0, pred, cost, subme, mrq,
-             lam_stride);
-  free(s);
+  if (flags & K2_BD10)
+    k2_host<10>(W, ob, mvi, pmv, lam, mvb, q0, pred, cost, B, subme, mrq,
+                lam_stride);
+  else
+    k2_host<8>(W, ob, mvi, pmv, lam, mvb, q0, pred, cost, B, subme, mrq,
+               lam_stride);
   return 0;
 }
 #endif

@@ -12,8 +12,10 @@ one call of the step, which on a CUDA device is the hand-written kernel K1
 (``ctu_scan_cuda.py``) and everywhere else the plain torch step below.
 
 Ported branches: decide32 on/off, intra and inter (with the ``m32_in``
-TU32 trial), psy-rd, sign hiding and strong intra smoothing, 8-bit.  RDOQ,
-noise reduction and the RQT split raise ``NotImplementedError``.
+TU32 trial), psy-rd, sign hiding and strong intra smoothing, at bit depth
+8 and 10 (the recon planes come out uint8, or int16 holding the
+reference's uint16 values: ``_util.sample_dtype``).
+RDOQ, noise reduction and the RQT split raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ import functools
 import numpy as np
 import torch
 
-from .._util import f32, fma32
+from .._util import f32, fma32, sample_dtype
 from ..common.geometry import PictureGeometry, intra_neighbor_coords
 from ..common.rdcost import level_bits
 from ..ops.cost import psy_cost
@@ -207,8 +209,6 @@ class CtuScan:
         if rdoq or noise_reduction:
             raise NotImplementedError(
                 "x265_tpu_torch: RDOQ and noise reduction are not ported")
-        if bit_depth != 8:
-            raise NotImplementedError("x265_tpu_torch: 8-bit only")
         self.t = build_ctu_tables(geom.width, geom.height, geom.log2_ctb)
         self.bit_depth = bit_depth
         self.sign_hide = sign_hide
@@ -622,7 +622,7 @@ class CtuScan:
                 return out.reshape(ch, cw, size, size).permute(
                     0, 2, 1, 3).reshape(ch * size, cw * size)
 
-            out_dtype = torch.uint8
+            out_dtype = sample_dtype(bd)
             rec_y = tiles_to_plane(int_y, ctb).to(out_dtype)
             rec_cb = tiles_to_plane(int_c[:, 0], ctbc).to(out_dtype)
             rec_cr = tiles_to_plane(int_c[:, 1], ctbc).to(out_dtype)

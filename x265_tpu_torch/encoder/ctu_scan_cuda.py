@@ -25,6 +25,9 @@ samples into the carry tensors in place (the lanes of a level touch
 disjoint entries), so ``launch`` returns the carry it was given; the plain
 step returns new tensors with the same contents.
 
+Bit depth.  The kernel is a template on the bit depth, instantiated for 8
+and 10 (the flag bit 32 picks the 10-bit one); any other depth raises.
+
 Exactness.  All pixel math is integer.  The float costs follow the
 reference's rounding: SSD and bit counts converted to float32, sums in
 the reference's order, ``lam * bits`` and ``plam * psy`` as single-rounding
@@ -45,8 +48,10 @@ from ..build import load_library
 from ..ops._dct_matrix import T32
 
 #: launches of K1 made by ``ctu_step`` (the wrapper counts here, once per
-#: kernel launch, and nowhere else)
+#: kernel launch, and nowhere else), and of those the launches of its
+#: 10-bit instantiation
 LAUNCHES = 0
+LAUNCHES_10BIT = 0
 
 #: the level inputs K1 reads; of the original samples only the quads'
 #: tiling (the slots' o16y / o8c hold the same samples as its sub-blocks)
@@ -68,13 +73,15 @@ def launch(lib, scan, inter: bool, decide32: bool, carry, xs):
     """Launch K1 from ``lib`` on the device of ``xs`` (the CUDA library on
     CUDA tensors; the host build of the same source on CPU tensors, which
     is how the CPU tests reach the kernel's arithmetic)."""
-    global LAUNCHES
+    global LAUNCHES, LAUNCHES_10BIT
     args, ys = kernel_args(scan, inter, decide32, carry, xs)
     rc = lib.k1_ctu_step(*args)
     if rc != 0:
         raise RuntimeError(
             f"K1 launch failed: {lib.k_error_string(rc).decode()}")
     LAUNCHES += 1
+    if scan.bit_depth == 10:
+        LAUNCHES_10BIT += 1
     lv16, lv8, lv32, lvc16, sel32, int_y, int_c = ys
     return carry, (lv16, lv8, lv32, lvc16, sel32.to(torch.bool), int_y,
                    int_c)
@@ -97,8 +104,9 @@ def kernel_args(scan, inter: bool, decide32: bool, carry, xs):
 
     t = scan.t
     g = t["geom"]
-    if g.log2_ctb != 6 or scan.bit_depth != 8:
-        raise NotImplementedError("K1 covers 8-bit, 64x64 CTBs only")
+    if g.log2_ctb != 6 or scan.bit_depth not in (8, 10):
+        raise NotImplementedError(
+            "K1 covers 64x64 CTBs at bit depths 8 and 10 only")
     psy = scan.psy_rd > 0.0 and decide32
     L = xs["cx"].shape[0]
     F = carry[0].shape[0]           # frames: L / F lanes each, frame-major
@@ -167,7 +175,8 @@ def kernel_args(scan, inter: bool, decide32: bool, carry, xs):
         dev_table("k1_tr_tt", _transform_tables, dev)]
     arr = (ctypes.c_void_p * len(ptrs))(*[p.data_ptr() for p in ptrs])
     flags = ((1 if inter else 0) | (2 if decide32 else 0) | (4 if psy else 0)
-             | (8 if scan.sign_hide else 0) | (16 if scan.strong else 0))
+             | (8 if scan.sign_hide else 0) | (16 if scan.strong else 0)
+             | (32 if scan.bit_depth == 10 else 0))
     stream = (torch.cuda.current_stream(dev).cuda_stream
               if dev.type == "cuda" else 0)
     ys = (lv16, lv8, lv32, lvc16, sel32, int_y, int_c)

@@ -23,7 +23,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .._util import dev_table, f32, fma32
+from .._util import dev_table, f32, fma32, sample_dtype
 from ..cabac.ctu import _CHROMA_QP_MAP
 from ..ops.cost import satd
 from ..ops.deblock import deblock_picture, edge_masks_np
@@ -310,7 +310,7 @@ def _filter_stage_builder(enc):
                      checksums=_plane_checksums(planes, bd, g))
         if merged is not None:
             small["m32"], small["m64"] = merged
-        out_planes = tuple(pl.to(torch.uint8) for pl in planes)
+        out_planes = tuple(pl.to(sample_dtype(bd)) for pl in planes)
         y, cb_, cr_ = out_planes
         tails = dict(
             rec_coded=(y[:g.height, :g.width],
@@ -553,7 +553,7 @@ def _inter_tools_builder(enc):
         q0, pred, cost = refine(W.contiguous(), ob.contiguous(),
                                 mvi.contiguous(), pmv.contiguous(),
                                 lam_f if lam_f.numel() == 1 else lam_b,
-                                int(enc.params.subme), MRQ)
+                                int(enc.params.subme), MRQ, bd)
         mvq = mvi * 4 + q0
 
         # MV coherence: adopt the west / north neighbour's MV when its

@@ -13,9 +13,11 @@ Scope: ``encode_frame`` with ``bframes == 0`` (zero latency, no
 lookahead); ``push_frame`` / ``flush`` with B frames, b-pyramid and the
 lookahead (``encoder/lookahead.py``: lowres analysis, cuTree offsets, the
 b-adapt trellis, the lookahead scenecut), so ``Params()`` defaults run;
-8-bit, 64x64 CTBs, on the card by default (``device="cuda"``; the tests
-pass ``device="cpu"``).  10-bit, RDOQ, noise reduction, lossless and HRD
-raise ``NotImplementedError``.
+Main (8-bit) and Main10 (``internal_bit_depth=10``: uint16 source and
+recon planes, the hash SEIs over 16-bit samples), 64x64 CTBs, on the card
+by default (``device="cuda"``; the tests pass ``device="cpu"``).  Other
+bit depths, RDOQ, noise reduction, lossless and HRD raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .._util import to_device, to_host_samples
 from ..cabac.ctu import MODE_INTER, MODE_INTRA, PicSyntax, chroma_qp
 from ..common.bitstream import (NAL_AUD, NAL_IDR_W_RADL, NAL_PPS,
                                 NAL_PREFIX_SEI, NAL_SPS, NAL_SUFFIX_SEI,
@@ -140,8 +143,8 @@ def pad_plane(p: np.ndarray, h: int, w: int) -> np.ndarray:
 def check_supported(params: Params) -> None:
     """Raise NotImplementedError for configurations the port lacks."""
     bad = []
-    if params.internal_bit_depth != 8:
-        bad.append("bit depth != 8")
+    if params.internal_bit_depth not in (8, 10):
+        bad.append("bit depth other than 8 and 10")
     if params.rdoq_level:
         bad.append("RDOQ")
     if params.noise_reduction_intra or params.noise_reduction_inter:
@@ -770,7 +773,7 @@ class Encoder:
         if k is not None:
             coded_rec = tuple(pl[k] for pl in coded_rec)
             rec_crop = tuple(pl[k] for pl in rec_crop)
-        rec_crop = tuple(pl.cpu().numpy() for pl in rec_crop)
+        rec_crop = tuple(to_host_samples(pl) for pl in rec_crop)
 
         st = SLICE_B if is_b else SLICE_P if is_p else SLICE_I
         au = self._entropy_encode(ps, st, poc)
@@ -783,7 +786,7 @@ class Encoder:
                     int(c).to_bytes(4, "big") for c in checksums)
             else:
                 payload = picture_hash_payload(
-                    [pl.cpu().numpy() for pl in coded_rec], self.bit_depth,
+                    [to_host_samples(pl) for pl in coded_rec], self.bit_depth,
                     hash_type=p.decoded_picture_hash - 1)
             sei = write_sei_rbsp([(SEI_DECODED_PICTURE_HASH, payload)])
             au += wrap_nal(NAL_SUFFIX_SEI, sei, long_start_code=False)
@@ -922,7 +925,7 @@ class Encoder:
             qp_ctb.astype(np.int32))
 
     def _dev(self, a):
-        return torch.as_tensor(np.ascontiguousarray(a), device=self.device)
+        return to_device(a, self.device)
 
     def _dispatch_i(self, orig):
         from .device_pipeline import build_i_pipeline

@@ -22,6 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .._util import to_device
 from ..ops.cost import satd as satd_fn
 from ..ops.intra import predict_all_modes, substitute_references
 
@@ -100,6 +101,8 @@ class _LowresProgram:
 
     def intra(self, cur):
         cur32 = cur.to(torch.int32)
+        # bit depth 8 even at Main10, as the reference's lowres intra (an
+        # inherited fault, kept so that the costs and streams stay equal)
         refs = substitute_references(cur32.reshape(-1)[self.ref_idx],
                                      self.av, 8)
         preds = predict_all_modes(refs, self.n, True, 8)
@@ -214,9 +217,9 @@ class Lookahead:
                          else np.uint16).astype(np.int32)
         low = ((y32[0::2, 0::2] + y32[1::2, 0::2] + y32[0::2, 1::2]
                 + y32[1::2, 1::2] + 2) >> 2)[:h2, :w2]
-        low = torch.as_tensor(
-            low.astype(np.uint8) if self.bit_depth == 8 else low,
-            device=self.device)
+        low = to_device(
+            low.astype(np.uint8 if self.bit_depth == 8 else np.uint16),
+            self.device)
         prev = self._prev_low if self._prev_low is not None else low
         out = self._prog(low, prev)
         self._ran("lowres", out)

@@ -11,7 +11,9 @@ What it computes: for each 16x16 block, from the 25x25 integer window
 around its full-pel winner, a half-pel round (step 2) then a quarter-pel
 round (step 1) of 9 candidates each (``_DELTAS`` order, first wins ties
 under strict ``<``); per candidate the exact 8-tap separable luma MC
-(8-bit, +2048 >> 12, clip), the 4x4-Hadamard SATD, plus
+(8-bit: +2048 >> 12, clip; 10-bit: the horizontal pass >> 2, the vertical
+>> 6, then ``uni_round``'s +8 >> 4 and clip to 1023), the 4x4-Hadamard
+SATD, plus
 lam * (mv_bits(dy) + mv_bits(dx)) against the seed-median pmv, with
 candidates beyond 4*merange qpel masked to 2^30.
 
@@ -19,17 +21,19 @@ Design (v2; the ``.cu`` header has the details).  One 160-thread block
 per 16x16 block, 5 block barriers at subme 2.  The window, the source
 block and the 14 mv_bits entries a block can read are staged by 4-byte
 cp.async; the horizontal pass runs once per block for every phase the
-block needs (dp4a of the 8-bit samples); round 1 fills the full-pel, H, V
-and HV planes its 9 candidates share (dp2a on int16 row pairs) and reads
-each candidate from them; round 2 filters its 8 new candidates' samples
+block needs (dp4a of 8-bit samples; at 10 bits dp2a on int16 sample
+pairs, the template instantiation ``k2_kernel<10>``); round 1 fills the
+full-pel, H, V and HV planes its 9 candidates share (dp2a on int16 row
+pairs) and reads each candidate from them; round 2 filters its 8 new candidates' samples
 and reuses the round-1 winner as its center.  One half-warp per
 candidate sums the SATD of its sixteen 4x4 Hadamards by shuffles; the
 argmin is a warp reduction of (cost, k), the lower k winning equal costs.
 Bound on an H100: its operations (``chip_smoke.k2_bound``: ~21 us a
-launch at B = 8160, the bytes ~11 us).  Measured on an H100 80GB HBM3 at
-700 W (``chip_smoke.py``): ~0.07 ms a launch at B = 8160, subme 2,
-merange 57, against v1's 0.34 ms and ~25-50 ms for ``refine_plain``;
-``tools/profile_k2_stages.py`` shows where a block's cycles go.
+launch at B = 8160, ~22 us at 10 bits, the bytes ~11 us).  Measured on an
+H100 80GB HBM3 at 700 W (``chip_smoke.py``): ~0.07 ms a launch at B =
+8160, subme 2, merange 57 (~0.076 ms at 10 bits), against v1's 0.34 ms
+and ~25-50 ms for ``refine_plain``; ``tools/profile_k2_stages.py`` shows
+where a block's cycles go.
 Costs round as the reference: ``__fmaf_rn(lam, bits, satd)``, mv_bits from
 the committed float32 table (no device log2).
 """
@@ -47,8 +51,10 @@ from ..build import load_library
 from ..ops.cost import satd
 from ..ops.interp import mc_luma_batch
 
-#: launches of K2 made by ``refine`` (counted once per kernel launch)
+#: launches of K2 made by ``refine`` (counted once per kernel launch), and
+#: of those the launches of its 10-bit path
 LAUNCHES = 0
+LAUNCHES_10BIT = 0
 
 _DELTAS = [(dy, dx) for dy in (-1, 0, 1) for dx in (-1, 0, 1)]
 MV_BITS_LEN = 1024
@@ -80,7 +86,8 @@ def mv_cost(lam, mv_q, pmv_b, base):
     return fma32(lam, mv_bits(d[..., 0]) + mv_bits(d[..., 1]), base)
 
 
-def refine_plain(W, ob, mvi, pmv, lam, subme: int, mrq: int):
+def refine_plain(W, ob, mvi, pmv, lam, subme: int, mrq: int,
+                 bit_depth: int = 8):
     """Subpel ladder over [B, 25, 25] int32 windows W (top-left at the
     full-pel winner - 4), source blocks ob [B, 16, 16], full-pel winners
     mvi [B, 2] (y, x), pmv [B, 2] qpel (y, x), lam float32: a scalar, or
@@ -101,7 +108,8 @@ def refine_plain(W, ob, mvi, pmv, lam, subme: int, mrq: int):
                              W[:, 1:n + 8, :])
             win = torch.where(ix1[:, None, None] == 0, wr[:, :, 0:n + 7],
                               wr[:, :, 1:n + 8])
-            pred = mc_luma_batch(win, q[:, 1] & 3, q[:, 0] & 3, n, n, 8)
+            pred = mc_luma_batch(win, q[:, 1] & 3, q[:, 0] & 3, n, n,
+                                 bit_depth)
             c = mv_cost(lam, mvi * 4 + q, pmv,
                         satd(ob, pred).to(torch.float32))
             qs.append(q)
@@ -124,19 +132,25 @@ def refine_plain(W, ob, mvi, pmv, lam, subme: int, mrq: int):
     return q0, pred, cost
 
 
-def refine(W, ob, mvi, pmv, lam, subme: int, mrq: int):
-    """Subpel refine of every block (``lam`` a scalar or one per block).
-    CPU tensors: ``refine_plain``.  CUDA tensors: one launch of K2 (or an
-    exception)."""
+def refine(W, ob, mvi, pmv, lam, subme: int, mrq: int,
+           bit_depth: int = 8):
+    """Subpel refine of every block (``lam`` a scalar or one per block) at
+    ``bit_depth`` 8 or 10.  CPU tensors: ``refine_plain``.  CUDA tensors:
+    one launch of K2 (or an exception)."""
     if W.device.type != "cuda":
-        return refine_plain(W, ob, mvi, pmv, lam, subme, mrq)
-    return launch(load_library(), W, ob, mvi, pmv, lam, subme, mrq)
+        return refine_plain(W, ob, mvi, pmv, lam, subme, mrq, bit_depth)
+    return launch(load_library(), W, ob, mvi, pmv, lam, subme, mrq,
+                  bit_depth)
 
 
-def launch(lib, W, ob, mvi, pmv, lam, subme: int, mrq: int):
+def launch(lib, W, ob, mvi, pmv, lam, subme: int, mrq: int,
+           bit_depth: int = 8):
     """Launch K2 from ``lib`` on the device of ``W`` (the CUDA library on
     CUDA tensors; the host build of the same source on CPU tensors)."""
-    global LAUNCHES
+    global LAUNCHES, LAUNCHES_10BIT
+    if bit_depth not in (8, 10):
+        raise NotImplementedError(
+            f"K2 covers bit depths 8 and 10, not {bit_depth}")
     B = W.shape[0]
     for nm, x, shp in (("W", W, (B, 25, 25)), ("ob", ob, (B, 16, 16)),
                        ("mvi", mvi, (B, 2)), ("pmv", pmv, (B, 2))):
@@ -160,9 +174,12 @@ def launch(lib, W, ob, mvi, pmv, lam, subme: int, mrq: int):
         W.data_ptr(), ob.data_ptr(), mvi.data_ptr(), pmv.data_ptr(),
         lam_t.data_ptr(), mvb.data_ptr(), q0.data_ptr(), pred.data_ptr(),
         cost.data_ptr(), B, int(subme), int(mrq),
-        0 if lam_t.numel() == 1 else 1, ctypes.c_void_p(stream))
+        0 if lam_t.numel() == 1 else 1, 1 if bit_depth == 10 else 0,
+        ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(
             f"K2 launch failed: {lib.k_error_string(rc).decode()}")
     LAUNCHES += 1
+    if bit_depth == 10:
+        LAUNCHES_10BIT += 1
     return q0, pred, cost
