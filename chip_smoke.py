@@ -57,6 +57,27 @@ Phases (each raises on failure; the script then exits non-zero):
      K1 and K2 launched the counts ``bench_launches`` gives, every one of
      them on the kernels' 10-bit path (counted apart), and the lookahead's
      programs on the card.
+  8. the slow slice: the bench slice's ten frames at
+     default_params("slow", qp=32, decoded_picture_hash=3) (RDOQ with
+     psy-RDOQ 1.0, ref=4, b-adapt 2, rc_lookahead=25), a warm and a timed
+     encode; MD5, size, encode-order POCs and kinds equal to
+     x265_tpu_torch/data/golden_1080p_slow.json, K1 and K2 launched the
+     counts ``bench_launches`` gives for 4 references, every K1 launch on
+     its RDOQ path (counted apart);
+  9. the NR slice: the B slice's configuration with
+     noise_reduction_intra=noise_reduction_inter=600 on ten frames (the
+     first mini-GOP is dispatched before any frame is fetched, so only the
+     second uses learned offsets; with six frames the stream is the B
+     slice's); MD5, size, encode order and kinds equal to
+     x265_tpu_torch/data/golden_1080p_nr.json, K1 and K2 launched the
+     counts ``bench_launches`` gives, every K1 launch on its
+     noise-reduction path, offsets learned.
+Phase 2 also holds K1's RDOQ (psy-RDOQ 1.0) and noise-reduction paths: the
+busiest level (I and P, F = 1 and 2, 8 and 10 bits) equal to the plain
+step, NR sums included, with seeded offsets for NR and, for RDOQ, a P
+frame's CTU planted to code a level of 8192; each with its one-launch
+time, the plain step's time and the bound (RDOQ's float operations at the
+float32 rate, ``RDOQ_FLOPS``).
 Phases 2 and 3 also hold the kernels' 10-bit instantiations: K1's busiest
 level (I and P, F = 1 and 2) on 10-bit inputs (samples 0..1023 with bands
 at 0 and 1023, QPs with the 12 of the bit-depth offset) equal to the plain
@@ -92,6 +113,16 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 16.7e12
 DP2A_MAC_PER_S = 2 * INT32_OPS_PER_S
+FP32_FLOPS_PER_S = 67e12
+# RDOQ's float operations a coefficient (k1_rdoq_level and the passes after
+# it; a fused multiply-add counts two): the dequant step 1; per candidate
+# the reconstruction, error, square, scale 4 and the rate term's fma 2, 18
+# for three; the first-minimum 4; the (y, x) group sums and the prefix sums
+# of both costs 4; the prefix carries, the block total and the end cost
+# (2 adds, a subtract, an add, an fma, the compare) 9 -- 36; psy-RDOQ on
+# luma 3 more per candidate, 9
+RDOQ_FLOPS = 36
+PSY_FLOPS = 9
 
 
 def _events_ms(fn, reps):
@@ -186,12 +217,17 @@ def _tu_chain_macs(n):
     return tu(n) + 2 * tu(n // 2)
 
 
-def k1_level_bound(xs, ys, inter):
+def k1_level_bound(xs, ys, inter, scan=None):
     """Bound of one K1 launch on level inputs ``xs``: the bytes of the
     inputs it reads (the original samples in one tiling), the frontier
     entries it reads and writes, the transform tables and its outputs; the
     multiply-adds of its transforms, counting the inter TU32 trials this
-    level's data asks for, at the dp2a rate."""
+    level's data asks for, at the dp2a rate.  With RDOQ (``scan.rdoq``)
+    also its float operations (``RDOQ_FLOPS`` a coefficient, ``PSY_FLOPS``
+    more on luma with psy-RDOQ) at the float32 rate, and the lambda table;
+    with noise reduction the offsets read and the statistics written, and
+    (every quad then runs the trial) the trial of every quad.  The bound
+    is the larger of the bytes' time and the slower pipe's time."""
     L = xs["cx"].shape[0]
     keys = ["cx", "cy", "m16", "m32", "qp_y", "qp_cb", "qp_cr", "o32y",
             "o16cb", "o16cr", "l16_av", "c8_av", "l32_av", "c16_av",
@@ -203,11 +239,27 @@ def k1_level_bound(xs, ys, inter):
     frontier = L * 4 * ((3 * 64 + 1) + (2 * 64 + 1) + 2 * ((3 * 32 + 1)
                                                           + (2 * 32 + 1)))
     tables = 4 * 4 * 336     # K1's packed DCT matrices, one bulk copy
-    nbytes = _nbytes([xs[k] for k in keys]) + frontier + tables + _nbytes(ys)
-    trials = int(xs["m32_in"].sum()) if inter else 0
+    rdoq = scan is not None and scan.rdoq
+    nr = scan is not None and scan.noise_reduction
+    if rdoq:
+        tables += 4 * 2 * 64
+    if nr:
+        tables += _nbytes([xs["nr_pack"]])
+    nbytes = _nbytes([xs[k] for k in keys]) + frontier + tables + _nbytes(
+        [y for y in ys if y is not None])
+    trials = (L * 4 if nr else int(xs["m32_in"].sum())) if inter else 0
     macs = (L * 4 * (_tu_chain_macs(32) + 4 * _tu_chain_macs(16))
             + trials * _tu_chain_macs(32))
-    return _bound(nbytes, macs, DP2A_MAC_PER_S)
+    t_ops = macs / DP2A_MAC_PER_S
+    if rdoq:
+        coefs = L * 4 * (1536 + 4 * 384) + trials * 1536
+        luma = L * 4 * (1024 + 4 * 256) + trials * 1024
+        flops = coefs * RDOQ_FLOPS + (luma * PSY_FLOPS if scan.psy_rdoq > 0
+                                      else 0)
+        t_ops = max(t_ops, flops / FP32_FLOPS_PER_S)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
 
 
 # nonzero taps of HEVC's 8-tap luma filter per quarter-pel phase (phase 0
@@ -285,18 +337,23 @@ def _capture_level(li, run):
     return out, got
 
 
-def k1_inputs(dev, bd=8):
+def k1_inputs(dev, bd=8, mode=None):
     """Seeded random inputs of the 1080p CTU scan, psy-rd 2.0, at bit depth
     ``bd`` (10: samples and predictions 0..1023 with a band of columns at 0
-    and one at 1023, QPs 36..51).  Returns ``(scan, li, n_real, go)``: the
-    busiest wavefront level ``li`` with its ``n_real`` real lanes, and
-    ``go(cfg, route, frames=1)`` that runs the 62-level scan, ``cfg`` "I"
-    or "P", ``route`` "kernel" or "plain", of one frame or of two frames
-    batched (the second from its own seed)."""
+    and one at 1023, QPs 36..51).  ``mode`` "rdoq": the scan with RDOQ and
+    psy-RDOQ 1.0, and a CTU of the busiest level planted so that a TU32
+    trial codes a level of 8192 (``smoke_config.plant_level_8192``);
+    "nr": with noise reduction, seeded offsets (some zero, DC zero).
+    Returns ``(scan, li, n_real, go)``: the busiest wavefront level ``li``
+    with its ``n_real`` real lanes, and ``go(cfg, route, frames=1)`` that
+    runs the 62-level scan, ``cfg`` "I" or "P", ``route`` "kernel" or
+    "plain", of one frame or of two frames batched (the second from its own
+    seed)."""
     import numpy as np
     import torch
     from x265_tpu_torch.common.geometry import PictureGeometry
-    from x265_tpu_torch.encoder.ctu_scan import CtuScan
+    from x265_tpu_torch.encoder.ctu_scan import NR_CATS, CtuScan
+    from x265_tpu_torch.smoke_config import plant_level_8192
 
     g = PictureGeometry(1920, 1088, 6, 3)
     ph, pw = g.ctbs_h << 6, g.ctbs_w << 6
@@ -336,14 +393,27 @@ def k1_inputs(dev, bd=8):
             m32_in=T(rng.rand(b32) < 0.4))
         return x
 
-    one = frame(1)
-    two = {k: torch.stack([v, w]) for (k, v), w in zip(
-        one.items(), frame(2).values())}
     scan = CtuScan(g, bit_depth=bd, sign_hide=True,
-                   strong_intra_smoothing=True, psy_rd=2.0)
+                   strong_intra_smoothing=True, psy_rd=2.0,
+                   rdoq=mode == "rdoq", noise_reduction=mode == "nr",
+                   psy_rdoq=1.0 if mode == "rdoq" else 0.0)
     real = (scan.t["xs"]["ctu"] < nctb).sum(1)
     li = int(real.argmax())
+    one = frame(1)
+    if mode == "rdoq":
+        plant_level_8192(one, li - 10, 5, g.ctbs_w, bd)   # cx + 2 cy = li
+    two = {k: torch.stack([v, w]) for (k, v), w in zip(
+        one.items(), frame(2).values())}
     inter_keys = ("is_inter", "ipred_y", "ipred_cb", "ipred_cr", "m32_in")
+    nr_offsets = None
+    if mode == "nr":
+        rng = np.random.RandomState(9)
+        nr_offsets = {}
+        for cat, n in NR_CATS:
+            for sfx in ("_i", "_p"):
+                v = rng.randint(0, 60, n * n) * (rng.rand(n * n) < 0.7)
+                v[0] = 0
+                nr_offsets[cat + sfx] = v.astype(np.int32)
 
     def go(cfg, route, frames=1):
         x = one if frames == 1 else two
@@ -351,6 +421,7 @@ def k1_inputs(dev, bd=8):
                           allow_kernel=route == "kernel")
         return fn(x["oy"], x["ocb"], x["ocr"], x["modes"], x["mode32"],
                   x["use32"], x["qp"], x["qp"], x["qp"], lam=x["lam"],
+                  nr_offsets=nr_offsets,
                   **({k: x[k] for k in inter_keys} if cfg == "P" else {}))
 
     return scan, li, int(real[li]), go
@@ -375,21 +446,28 @@ def _k1_level(lib, scan, li, is_p, run, label):
         _report_diff(f"{label} outputs", ys_k, ys_p)
     ms = k1_launch_ms(lib, scan, is_p, xs, carry0, 50)
     plain_ms = _events_ms(lambda: plain(carry0, xs), 3)
-    bound_ms, bound_by = k1_level_bound(xs, ys_k, is_p)
+    bound_ms, bound_by = k1_level_bound(xs, ys_k, is_p, scan)
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, err=err, L=xs["cx"].shape[0],
-                F=carry0[0].shape[0])
+                F=carry0[0].shape[0],
+                n8192=int((ys_p[2].abs() == 8192).sum())
+                if ys_p[2] is not None else 0)
 
 
-def check_k1(dev, lib, bd=8):
+def check_k1(dev, lib, bd=8, mode=None):
     """K1 vs the plain step: at 8 bits full scans of random 1080p inputs,
     then (at ``bd``) the busiest level alone (equality, one-launch time,
-    bound), for one frame and for two frames batched."""
+    bound), for one frame and for two frames batched.  ``mode`` "rdoq" /
+    "nr" (``k1_inputs``): the busiest level alone, with the outputs and
+    the NR sums equal, and with RDOQ a level of 8192 coded in the P
+    frame's planted CTU."""
     import torch
 
-    scan, li, n_real, run = k1_inputs(dev, bd)
+    scan, li, n_real, run = k1_inputs(dev, bd, mode)
     res = {}
     tag = f"K1 {bd}-bit" if bd != 8 else "K1"
+    if mode:
+        tag += f" {mode}"
     for cfg in ("I", "P"):
         is_p = cfg == "P"
 
@@ -397,7 +475,12 @@ def check_k1(dev, lib, bd=8):
             return run(cfg, route, frames)
 
         scan_err = 0.0
-        if bd == 8:
+        if mode:
+            scan_ms = _events_ms(lambda: go("kernel"), 1)
+            scan_plain_ms = None
+            print(f"{tag} {cfg}: 62-level scan {scan_ms:.3f} ms kernel",
+                  flush=True)
+        elif bd == 8:
             out_k = go("kernel")
             out_p = go("plain")
             torch.cuda.synchronize()
@@ -429,6 +512,12 @@ def check_k1(dev, lib, bd=8):
         if scan_err != 0.0 or one["err"] != 0.0 or two["err"] != 0.0:
             raise AssertionError(
                 f"{tag} differs from the plain step ({cfg})")
+        if mode == "rdoq" and is_p:
+            print(f"{tag} P: levels of 8192 at level {li}: "
+                  f"{one['n8192']}", flush=True)
+            if one["n8192"] == 0:
+                raise AssertionError(f"{tag}: the planted level 8192 was "
+                                     "not coded")
         res[cfg] = dict(one, scan_ms=scan_ms, scan_plain_ms=scan_plain_ms,
                         F2=two)
     return res
@@ -597,14 +686,15 @@ def encode_b_slice(dev):
             calls)
 
 
-def bench_launches(kinds):
+def bench_launches(kinds, refs=3):
     """K1 and K2 launches of an encode with b-pyramid at 1080p from its
     encode-order slice kinds: an anchor (I or P) and the Bs that follow it
     form a mini-GOP.  Every dispatch runs the 62-level scan (one K1 launch
-    a level); a P dispatch searches its 3 reference slots (one K2 launch
-    each), a B dispatch its two lists (one each).  n Bs take one dispatch
-    for n = 1; for n >= 2 the middle B is a reference B dispatched alone,
-    and each side of it one dispatch (batched when it holds two Bs)."""
+    a level); a P dispatch searches its ``refs`` reference slots (one K2
+    launch each: min(4, ref), 3 at the defaults, 4 for slow), a B dispatch
+    its two lists (one each).  n Bs take one dispatch for n = 1; for n >= 2
+    the middle B is a reference B dispatched alone, and each side of it one
+    dispatch (batched when it holds two Bs)."""
     groups = []
     for k in kinds:
         if k == "B":
@@ -616,7 +706,7 @@ def bench_launches(kinds):
         mid = nb // 2
         b_disp = nb if nb < 2 else 1 + (mid > 0) + (nb - 1 - mid > 0)
         k1 += 62 * (1 + b_disp)
-        k2 += (3 if anchor == "P" else 0) + 2 * b_disp
+        k2 += (refs if anchor == "P" else 0) + 2 * b_disp
     return k1, k2
 
 
@@ -654,20 +744,18 @@ def _lookahead_timers(stats):
     return unwrap
 
 
-def encode_bench_slice(dev, lookahead_stats=None, main10=False):
-    """The bench slice (``main10``: the Main10 bench slice) through
-    push_frame / flush with a fresh Encoder; returns the stream's access
-    units (headers first), the encode-order POCs and kinds, the wall
+def encode_bench_slice(dev, lookahead_stats=None, name="bench"):
+    """A slice (``name`` "bench", "bench10" or "slow", the lookahead on, or
+    "nr") through push_frame / flush with a fresh Encoder; returns the stream's
+    access units (headers first), the encode-order POCs and kinds, the wall
     seconds of each call with the POCs it returned, and the encoder.  With
     ``lookahead_stats`` (a dict) the lookahead's parts are timed into it."""
     import torch
     from x265_tpu_torch import Encoder, Params
     from x265_tpu_torch import smoke_config as sc
 
-    if main10:
-        params, frames = sc.smoke_params_bench10(), sc.smoke_frames_bench10()
-    else:
-        params, frames = sc.smoke_params_bench(), sc.smoke_frames_bench()
+    params = getattr(sc, f"smoke_params_{name}")()
+    frames = getattr(sc, f"smoke_frames_{name}")()
     unwrap = (_lookahead_timers(lookahead_stats)
               if lookahead_stats is not None else None)
     try:
@@ -687,30 +775,38 @@ def encode_bench_slice(dev, lookahead_stats=None, main10=False):
             [ef.kind for ef in efs], calls, enc)
 
 
-def check_bench_slice(dev, smi, main10=False):
-    """Phase 6 (``main10``: phase 7): the bench slice against its golden;
-    returns the K1 and K2 launches of the timed encode (phase 7: also
-    that every one of them took the kernels' 10-bit path)."""
+def check_bench_slice(dev, smi, name="bench"):
+    """Phase 6 (``name`` "bench"), 7 ("bench10") or 8 ("slow"): the slice
+    against its golden; returns the K1 and K2 launches of the timed encode
+    (phase 7: also that every one of them took the kernels' 10-bit path;
+    phase 8: every K1 launch the RDOQ path, and P frames searching 4
+    references)."""
     from x265_tpu_torch.encoder import ctu_scan_cuda, me_cuda
 
-    name = "golden_1080p_bench10.json" if main10 else "golden_1080p_bench.json"
-    with open(os.path.join(ROOT, "x265_tpu_torch", "data", name)) as f:
+    main10 = name == "bench10"
+    with open(os.path.join(ROOT, "x265_tpu_torch", "data",
+                           f"golden_1080p_{name}.json")) as f:
         golden = json.load(f)
-    encode_bench_slice(dev, main10=main10)  # warm: first-call allocations
+    encode_bench_slice(dev, name=name)  # warm: first-call allocations
     la_stats = {}
     ctu_scan_cuda.LAUNCHES = ctu_scan_cuda.LAUNCHES_10BIT = 0
+    ctu_scan_cuda.LAUNCHES_RDOQ = ctu_scan_cuda.LAUNCHES_NR = 0
     me_cuda.LAUNCHES = me_cuda.LAUNCHES_10BIT = 0
-    aus, pocs, kinds, calls, enc = encode_bench_slice(dev, la_stats, main10)
+    aus, pocs, kinds, calls, enc = encode_bench_slice(dev, la_stats, name)
     n1, n2 = ctu_scan_cuda.LAUNCHES, me_cuda.LAUNCHES
     t1, t2 = ctu_scan_cuda.LAUNCHES_10BIT, me_cuda.LAUNCHES_10BIT
+    r1, nr1 = ctu_scan_cuda.LAUNCHES_RDOQ, ctu_scan_cuda.LAUNCHES_NR
     stream = b"".join(aus)
     md5 = hashlib.md5(stream).hexdigest()
     wall = sum(c[0] for c in calls)
     la = enc.lookahead
-    what = ("Main10 bench (internal_bit_depth=10, 10-bit frames)" if main10
-            else "bench")
-    print(f"slice 1080p {what} (bench.py's Params(qp=32, "
-          f"decoded_picture_hash=3), defaults) on {smi}: bytes per AU "
+    what = {"bench": "bench (bench.py's Params(qp=32, "
+                     "decoded_picture_hash=3), defaults)",
+            "bench10": "Main10 bench (internal_bit_depth=10, 10-bit frames)",
+            "slow": 'slow (default_params("slow", qp=32, '
+                    'decoded_picture_hash=3): RDOQ, psy-RDOQ 1.0, ref=4)'
+            }[name]
+    print(f"slice 1080p {what} on {smi}: bytes per AU "
           f"{[len(a) for a in aus]}, encode order "
           f"{list(zip(pocs, kinds))}, {len(pocs)} frames in {wall:.3f} s, "
           f"{len(pocs) / wall:.3f} fps", flush=True)
@@ -722,9 +818,10 @@ def check_bench_slice(dev, smi, main10=False):
         f"{k} {v:.4f} s" for k, v in la_stats.items())
         + f"; program calls {la.calls}, outputs on {sorted(la.devices)}",
         flush=True)
-    w1, w2 = bench_launches(golden["encode_kinds"])
-    print(f"launches: K1 {n1} (want {w1}; 10-bit {t1}), K2 {n2} (want {w2}; "
-          f"10-bit {t2}); md5 {md5} (golden {golden['md5']})", flush=True)
+    w1, w2 = bench_launches(golden["encode_kinds"], enc.num_ref)
+    print(f"launches: K1 {n1} (want {w1}; 10-bit {t1}, RDOQ {r1}, NR "
+          f"{nr1}), K2 {n2} (want {w2}, {enc.num_ref} references; 10-bit "
+          f"{t2}); md5 {md5} (golden {golden['md5']})", flush=True)
     if (md5 != golden["md5"] or len(stream) != golden["total_bytes"]
             or pocs != golden["encode_pocs"]
             or kinds != golden["encode_kinds"]):
@@ -739,10 +836,72 @@ def check_bench_slice(dev, smi, main10=False):
     if n1 != w1 or n2 != w2 or (t1, t2) != ((n1, n2) if main10 else (0, 0)):
         raise AssertionError(f"the {what} slice did not run through K1/K2 "
                              "as expected")
+    if r1 != (n1 if name == "slow" else 0) or nr1 != 0 or (
+            name == "slow" and enc.num_ref != 4):
+        raise AssertionError(f"the {what} slice's K1 launches did not take "
+                             "the RDOQ path as expected")
     if (la.calls["lowres"] != len(pocs) or la.devices != {"cuda"}
             or not la.calls["pair"] or not la.calls["bidir"]):
         raise AssertionError("the lookahead's programs did not run on the "
                              "card as expected")
+    return n1, n2
+
+
+def check_nr_slice(dev, smi):
+    """Phase 9: the NR slice (the B slice's configuration with
+    noise_reduction_intra=noise_reduction_inter=600, ten frames: the second
+    mini-GOP uses the offsets learned from the first) against its golden;
+    every K1 launch on the NR path.  Returns the K1 and K2 launches."""
+    from x265_tpu_torch.encoder import ctu_scan_cuda, me_cuda
+    from x265_tpu_torch.smoke_config import smoke_frames_nr
+
+    with open(os.path.join(ROOT, "x265_tpu_torch", "data",
+                           "golden_1080p_nr.json")) as f:
+        golden = json.load(f)
+    encode_bench_slice(dev, name="nr")      # warm: first-call allocations
+    ctu_scan_cuda.LAUNCHES = ctu_scan_cuda.LAUNCHES_NR = 0
+    ctu_scan_cuda.LAUNCHES_RDOQ = 0
+    me_cuda.LAUNCHES = 0
+    aus, pocs, kinds, calls, enc = encode_bench_slice(dev, name="nr")
+    n1, n2 = ctu_scan_cuda.LAUNCHES, me_cuda.LAUNCHES
+    nr1, r1 = ctu_scan_cuda.LAUNCHES_NR, ctu_scan_cuda.LAUNCHES_RDOQ
+    stream = b"".join(aus)
+    md5 = hashlib.md5(stream).hexdigest()
+    wall = sum(c[0] for c in calls)
+    learned = sum(int(v.astype(bool).sum()) for v in enc._nr_offsets.values())
+    print(f"slice 1080p NR (the B slice's configuration, "
+          f"noise_reduction_intra=inter=600) on {smi}: bytes per AU "
+          f"{[len(a) for a in aus]}, encode order {list(zip(pocs, kinds))}, "
+          f"{len(pocs)} frames in {wall:.3f} s, {len(pocs) / wall:.3f} fps; "
+          f"nonzero offsets at the end {learned}", flush=True)
+    for i, (sec, out) in enumerate(calls):
+        what = "flush" if i == len(calls) - 1 else f"push_frame {i}"
+        print(f"  {what}: {sec:.3f} s, returned POCs {out}", flush=True)
+    # the same frames without noise reduction: where the offsets reach
+    # the stream
+    import dataclasses
+    from x265_tpu_torch import Encoder
+    off = Encoder(dataclasses.replace(enc.params, noise_reduction_intra=0,
+                                      noise_reduction_inter=0), device=dev)
+    plain = [off.headers()]
+    for planes in smoke_frames_nr() + [None]:
+        plain += [ef.au for ef in (off.flush() if planes is None
+                                   else off.push_frame(planes))]
+    first = next((i for i, (a, b) in enumerate(zip(aus, plain)) if a != b),
+                 None)
+    print(f"  against the same frames without NR: first differing AU "
+          f"{first} (POC {None if first is None else pocs[first - 1]})",
+          flush=True)
+    w1, w2 = bench_launches(golden["encode_kinds"], enc.num_ref)
+    print(f"launches: K1 {n1} (want {w1}; NR {nr1}, RDOQ {r1}), K2 {n2} "
+          f"(want {w2}); md5 {md5} (golden {golden['md5']})", flush=True)
+    if n1 != w1 or n2 != w2 or nr1 != n1 or r1 != 0 or not learned:
+        raise AssertionError("the NR slice did not run through K1/K2 as "
+                             "expected")
+    if (md5 != golden["md5"] or len(stream) != golden["total_bytes"]
+            or pocs != golden["encode_pocs"]
+            or kinds != golden["encode_kinds"]):
+        raise AssertionError("NR stream differs from x265_tpu's golden")
     return n1, n2
 
 
@@ -775,6 +934,8 @@ def main():
 
     k1 = check_k1(dev, lib)
     k1_10 = check_k1(dev, lib, 10)
+    k1m = {(mode, bd): check_k1(dev, lib, bd, mode)
+           for mode in ("rdoq", "nr") for bd in (8, 10)}
     k2 = check_k2(dev, lib)
     k2_10 = check_k2(dev, lib, 10)
 
@@ -832,17 +993,31 @@ def main():
     # phase 6: the bench slice (bench.py's configuration, the lookahead on)
     n1s, n2s = check_bench_slice(dev, smi)
     # phase 7: the Main10 bench slice
-    n1m, n2m = check_bench_slice(dev, smi, main10=True)
+    n1m, n2m = check_bench_slice(dev, smi, "bench10")
+    # phase 8: the slow slice (RDOQ with psy-RDOQ, ref=4)
+    n1w, n2w = check_bench_slice(dev, smi, "slow")
+    # phase 9: the NR slice (the B slice with noise reduction)
+    n1n, n2n = check_nr_slice(dev, smi)
 
     kp, kp10 = k1["P"], k1_10["P"]
+    # the RDOQ / NR busiest-level records: {mode}_{I|P}[_F2][_10bit]
+    extra = {}
+    for (mode, bd), r in k1m.items():
+        sfx = "_10bit" if bd == 10 else ""
+        for cfg in ("I", "P"):
+            for k, v in (("", r[cfg]), ("_F2", r[cfg]["F2"])):
+                for key in ("ms", "plain_ms", "bound_ms", "bound_by"):
+                    extra[f"{key}_{mode}_{cfg}{k}{sfx}"] = v[key]
+    err_m = max(max(r[c]["err"], r[c]["F2"]["err"]) for r in k1m.values()
+                for c in ("I", "P"))
     print(json.dumps({"kernels": [
         dict(name="K1 ctu_step", route="cuda",
              source="x265_tpu_torch/csrc/k1_ctu_step.cu",
              replaces="x265_tpu/encoder/ctu_scan_pallas.py:72",
-             launches=n1 + n1b + n1s + n1m, max_abs_err=max(
+             launches=n1 + n1b + n1s + n1m + n1w + n1n, max_abs_err=max(
                  k1["I"]["err"], kp["err"], kp["F2"]["err"],
                  k1["I"]["F2"]["err"], k1_10["I"]["err"], kp10["err"],
-                 kp10["F2"]["err"], k1_10["I"]["F2"]["err"]),
+                 kp10["F2"]["err"], k1_10["I"]["F2"]["err"], err_m),
              ms=kp["ms"], plain_ms=kp["plain_ms"], bound_ms=kp["bound_ms"],
              bound_by=kp["bound_by"], library_ms=None,
              launches_ippp=n1, launches_b=n1b, launches_bench=n1s,
@@ -854,11 +1029,13 @@ def main():
              plain_ms_10bit=kp10["plain_ms"], bound_ms_10bit=kp10["bound_ms"],
              ms_I_10bit=k1_10["I"]["ms"], ms_F2_P_10bit=kp10["F2"]["ms"],
              ms_F2_I_10bit=k1_10["I"]["F2"]["ms"],
-             scan_ms_P_10bit=kp10["scan_ms"]),
+             scan_ms_P_10bit=kp10["scan_ms"], launches_slow=n1w,
+             launches_nr=n1n, **extra),
         dict(name="K2 subpel_refine", route="cuda",
              source="x265_tpu_torch/csrc/k2_subpel_refine.cu",
              replaces="x265_tpu/encoder/me_pallas.py:71",
-             launches=n2 + n2b + n2s + n2m,
+             launches=n2 + n2b + n2s + n2m + n2w + n2n,
+             launches_slow=n2w, launches_nr=n2n,
              max_abs_err=max(k2["err"], k2_10["err"]), ms=k2["ms"],
              plain_ms=k2["plain_ms"], bound_ms=k2["bound_ms"],
              bound_by=k2["bound_by"], library_ms=None,

@@ -18,7 +18,7 @@ from x265_tpu.encoder.ctu_scan import CtuScan as RefScan
 from x265_tpu_torch.build import load_host_library
 from x265_tpu_torch.common.geometry import PictureGeometry
 from x265_tpu_torch.encoder import ctu_scan_cuda
-from x265_tpu_torch.encoder.ctu_scan import CtuScan
+from x265_tpu_torch.encoder.ctu_scan import NR_CATS, CtuScan
 from torch_threads import one_torch_thread  # noqa: F401
 
 NAMES = ("rec_y rec_cb rec_cr lv16 lv8cb lv8cr lv32 lv16cb lv16cr use32 "
@@ -151,8 +151,9 @@ def test_cpu_tensors_take_the_plain_step():
     n0 = ctu_scan_cuda.LAUNCHES
     _run(scan, torch, x, "I", True)
     assert ctu_scan_cuda.LAUNCHES == n0
+    # RDOQ and noise reduction are ported; the RQT split is not
     with pytest.raises(NotImplementedError):
-        CtuScan(g, bit_depth=8, rdoq=True)
+        CtuScan(g, bit_depth=8, rdoq=True).scan_fn(inter=True, rqt=True)
 
 
 def _run_batch(scan, xs, cfg, decide):
@@ -285,3 +286,83 @@ def test_k1_refuses_other_bit_depths():
     with pytest.raises(NotImplementedError):
         ctu_scan_cuda.kernel_args(scan, False, True, None, {
             "cx": torch.zeros(1, dtype=torch.int32)})
+
+
+# --- RDOQ (psy-RDOQ 1.0) and noise reduction, together -------------------
+
+def _nr_offsets(seed=5):
+    """Seeded offsets: 0..39 at about 60% of the positions, DC zero."""
+    rng = np.random.RandomState(seed)
+    out = {}
+    for cat, n in NR_CATS:
+        for sfx in ("_i", "_p"):
+            v = rng.randint(0, 40, n * n) * (rng.rand(n * n) < 0.6)
+            v[0] = 0
+            out[cat + sfx] = v.astype(np.int32)
+    return out
+
+
+KW_RDOQ_NR = dict(sign_hide=True, strong_intra_smoothing=True, psy_rd=2.0,
+                  rdoq=True, noise_reduction=True, psy_rdoq=1.0)
+
+
+@functools.lru_cache(maxsize=None)
+def _ref_scan_rdoq_nr(w, h, cfg, bd):
+    """The reference's jitted decide32 scan with RDOQ, psy-RDOQ and noise
+    reduction, traced once per module and configuration."""
+    scan = RefScan(RefGeometry(w, h, 6, 3), bit_depth=bd, **KW_RDOQ_NR)
+    return jax.jit(scan.scan_fn(inter=cfg == "P", decide32=True))
+
+
+def _scan_call(fn, arr, xs, cfg, nr):
+    """``fn`` on the scan inputs of one frame (``xs`` a dict) or of several
+    (a list, stacked on a leading dimension)."""
+    if isinstance(xs, list):
+        xs = {k: np.stack([x[k] for x in xs]) for k in xs[0]}
+    a = {k: (jnp.asarray(v) if arr is jnp else torch.as_tensor(v))
+         for k, v in xs.items()}
+    kw = {}
+    if cfg == "P":
+        kw = {k: a[k] for k in ("is_inter", "ipred_y", "ipred_cb",
+                                "ipred_cr", "m32_in")}
+    use32 = a["use32"] & False
+    return fn(a["oy"], a["ocb"], a["ocr"], a["modes"], a["mode32"], use32,
+              a["qp"], a["qp"], a["qp"], lam=a["lam"], nr_offsets=nr, **kw)
+
+
+def assert_scan_equal(want, got, frame=None):
+    """All twelve scan outputs equal (``frame``: the frame of a batched
+    ``got``), the NR sums of every category included."""
+    for nm, a, b in zip(NAMES, want, got):
+        if a is None and b is None:
+            continue
+        if nm == "nr":
+            assert sorted(a) == sorted(b)
+            for cat in a:
+                for i in range(4):
+                    v = b[cat][i] if frame is None else b[cat][i][frame]
+                    assert np.array_equal(np.asarray(a[cat][i]),
+                                          np.asarray(v)), (cat, i)
+            continue
+        b = b if frame is None else b[frame]
+        a, b = np.asarray(a), np.asarray(b)
+        assert a.shape == b.shape, (nm, a.shape, b.shape)
+        assert np.array_equal(a, b), (nm, int((a != b).sum()))
+
+
+@pytest.mark.parametrize("cfg,bd", [("I", 8), ("P", 10)])
+def test_scan_matches_reference_rdoq_nr(cfg, bd):
+    """RDOQ + psy-RDOQ + noise reduction, I at 8 bits and P at 10: one
+    frame, then two frames batched, each equal to the reference's scan of
+    it, the NR sums included (P at 8 bits: tests/test_torch_rdoq.py)."""
+    g, x0 = _inputs(seed=7, bd=bd)
+    _g, x1 = _inputs(seed=8, bd=bd)
+    nr = _nr_offsets()
+    ref = _ref_scan_rdoq_nr(g.width, g.height, cfg, bd)
+    fn = CtuScan(g, bit_depth=bd, **KW_RDOQ_NR).scan_fn(inter=cfg == "P",
+                                                        decide32=True)
+    w0 = _scan_call(ref, jnp, x0, cfg, nr)
+    assert_scan_equal(w0, _scan_call(fn, torch, x0, cfg, nr))
+    got = _scan_call(fn, torch, [x0, x1], cfg, nr)
+    assert_scan_equal(w0, got, 0)
+    assert_scan_equal(_scan_call(ref, jnp, x1, cfg, nr), got, 1)

@@ -80,9 +80,7 @@ def test_ipp_stream_is_byte_identical():
 
 
 @pytest.mark.parametrize("kw", [dict(hrd=True), dict(internal_bit_depth=12),
-                                dict(rdoq_level=1), dict(lossless=True),
-                                dict(ctu_size=32),
-                                dict(noise_reduction_inter=100)])
+                                dict(lossless=True), dict(ctu_size=32)])
 def test_unsupported_configs_raise(kw):
     p = Params(source_width=W, source_height=H, **kw)
     with pytest.raises(NotImplementedError):

@@ -3,8 +3,9 @@ in a fresh process where ``import jax`` and ``import x265_tpu`` both fail,
 the port imports and encodes a 128x64 I P pair, then one B mini-GOP
 (I0 P3 B1 B2, the two Bs batched), then six frames at the Params()
 defaults through the lookahead (cuTree, the b-adapt trellis), then a
-Main10 mini-GOP (10-bit frames, the lookahead on) on the CPU, and the
-streams have the expected structure."""
+Main10 mini-GOP (10-bit frames, the lookahead on), then a B mini-GOP with
+RDOQ (psy-RDOQ 1.0) and noise reduction on the CPU, and the streams have
+the expected structure."""
 
 import os
 import subprocess
@@ -72,11 +73,26 @@ assert [(ef.poc, ef.kind) for ef in ef10] == [(0, "I"), (3, "P"), (1, "B"),
                                               (2, "B")]
 assert all(ef.recon[0].dtype == np.uint16 for ef in ef10)
 assert enc10.sps.bit_depth_luma == 10 and enc10.headers()
+# RDOQ + psy-RDOQ and noise reduction through a B mini-GOP
+encr = Encoder(Params(source_width=128, source_height=64, bframes=2,
+                      b_pyramid=False, rc_lookahead=0, me_range=16,
+                      rdoq_level=2, psy_rdoq=1.0, noise_reduction_intra=600,
+                      noise_reduction_inter=600, decoded_picture_hash=3),
+               device="cpu")
+efr = []
+for t in range(4):
+    efr += encr.push_frame((np.roll(y, 2 * t, axis=1), c[0], c[1]))
+efr += encr.flush()
+assert [(ef.poc, ef.kind) for ef in efr] == [(0, "I"), (3, "P"), (1, "B"),
+                                             (2, "B")]
+scan = encr._get_ctu_scan()
+assert scan.rdoq and scan.noise_reduction
+assert any(v.any() for v in encr._nr_offsets.values())
 assert not any(m == "jax" or m.startswith(("jax.", "x265_tpu."))
                for m in sys.modules if sys.modules[m] is not None)
 print("NOJAX-OK", len(hdr), [len(au) for au, _ in aus],
       [len(ef.au) for ef in efs], [(ef.poc, ef.kind) for ef in efl],
-      [len(ef.au) for ef in ef10])
+      [len(ef.au) for ef in ef10], [len(ef.au) for ef in efr])
 """
 
 

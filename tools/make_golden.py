@@ -14,11 +14,19 @@ size, the size of each access unit and the encode-order POCs go to
 * ``x265_tpu_torch/data/golden_1080p_bench10.json``: the bench slice at
   Main10 (``internal_bit_depth=10``) on ten frames of 10-bit content,
   likewise with the encode order and kinds (the reference runs its jnp
-  scan and refine at 10 bits).
+  scan and refine at 10 bits);
+* ``x265_tpu_torch/data/golden_1080p_slow.json``: the slow slice (the
+  bench slice's frames at ``default_params("slow")``: RDOQ with psy-RDOQ,
+  ``ref=4``), likewise with the encode order and kinds;
+* ``x265_tpu_torch/data/golden_1080p_nr.json``: the NR slice (the B
+  slice's configuration with ``noise_reduction_intra=noise_reduction_inter
+  =600``, ten frames) through ``push_frame`` / ``flush``, with the encode
+  order and kinds.
 
-    JAX_PLATFORMS=cpu python tools/make_golden.py [ippp] [b] [bench] [bench10]
+    JAX_PLATFORMS=cpu python tools/make_golden.py [ippp] [b] [bench] \
+        [bench10] [slow] [nr]
 
-With no argument it writes all four.
+With no argument it writes all six.
 """
 
 import hashlib
@@ -76,6 +84,12 @@ def bslice():
            [enc.headers()] + [ef.au for ef in efs], [ef.poc for ef in efs])
 
 
+def nr():
+    from x265_tpu_torch.smoke_config import smoke_frames_nr, smoke_params_nr
+
+    _bench("golden_1080p_nr.json", smoke_params_nr(), smoke_frames_nr())
+
+
 def _bench(name, params, frames):
     from x265_tpu.common.params import Params
     from x265_tpu.encoder import Encoder
@@ -105,7 +119,21 @@ def bench10():
            smoke_frames_bench10())
 
 
+def slow():
+    from x265_tpu.common.params import default_params
+    from x265_tpu_torch.smoke_config import (smoke_frames_slow,
+                                             smoke_params_bench,
+                                             smoke_params_slow)
+
+    # the reference's own preset table, checked against the port's copy
+    ref = default_params("slow", **smoke_params_bench())
+    params = smoke_params_slow()
+    assert all(getattr(ref, k) == v for k, v in params.items())
+    _bench("golden_1080p_slow.json", params, smoke_frames_slow())
+
+
 if __name__ == "__main__":
-    which = sys.argv[1:] or ["ippp", "b", "bench", "bench10"]
+    which = sys.argv[1:] or ["ippp", "b", "bench", "bench10", "slow", "nr"]
     for name in which:
-        dict(ippp=ippp, b=bslice, bench=bench, bench10=bench10)[name]()
+        dict(ippp=ippp, b=bslice, bench=bench, bench10=bench10, slow=slow,
+             nr=nr)[name]()

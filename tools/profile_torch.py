@@ -1,6 +1,6 @@
 """Where the time of x265_tpu_torch's 1080p slices goes, on one GPU.
 
-    python3 tools/profile_torch.py [--slice ippp|b|bench|bench10]
+    python3 tools/profile_torch.py [--slice ippp|b|bench|bench10|slow|nr]
                                    [--frames N]
                                    [--out chiprun_out/profile.json]
 
@@ -8,8 +8,11 @@ Three encodes of a chip_smoke slice (1080p, Params() defaults): ``ippp``
 (bframes=0, 4 frames through encode_frame), ``b`` (bframes=4 with
 b-pyramid and the lookahead off, 6 frames through push_frame / flush:
 I0 P5 B3 B1+B2 B4), ``bench`` (bench.py's configuration, the lookahead
-on, 10 frames through push_frame / flush) or ``bench10`` (the bench slice
-at Main10, ``internal_bit_depth=10``, on ten 10-bit frames):
+on, 10 frames through push_frame / flush), ``bench10`` (the bench slice
+at Main10, ``internal_bit_depth=10``, on ten 10-bit frames), ``slow`` (the
+bench slice's frames at ``default_params("slow")``: RDOQ with psy-RDOQ,
+ref=4, the lookahead on) or ``nr`` (the B slice with noise reduction
+600 / 600):
   1. warm-up;
   2. torch.profiler over CPU and CUDA: device time by kernel name, the
      device-busy sum and the idle share of the wall time, and the port's
@@ -22,9 +25,9 @@ at Main10, ``internal_bit_depth=10``, on ten 10-bit frames):
      each pushed frame, the b-adapt trellis with its pair-cost and bidir
      programs, and cuTree's host propagation, and the AQ offsets computed
      at each push as its input); the rest of the frame time is "other".
-On the bench slices it also times the lookahead's device programs alone
-with CUDA events at the 1080p lowres size (the lowres program, its SAD half
-that the trellis's pair costs run, and the bidir program), so that the
+On the bench and slow slices it also times the lookahead's device programs
+alone with CUDA events at the 1080p lowres size (the lowres program, its SAD
+half that the trellis's pair costs run, and the bidir program), so that the
 lookahead stage's wall divides into device time and the host work and
 synchronisation around it.
 Prints a summary and writes the numbers, with the card's name and power
@@ -111,7 +114,8 @@ def _params(slice_):
     from x265_tpu_torch import smoke_config as sc
     return dict(ippp=sc.smoke_params, b=sc.smoke_params_b,
                 bench=sc.smoke_params_bench,
-                bench10=sc.smoke_params_bench10)[slice_]()
+                bench10=sc.smoke_params_bench10, slow=sc.smoke_params_slow,
+                nr=sc.smoke_params_nr)[slice_]()
 
 
 def _encode(frames, slice_):
@@ -173,11 +177,11 @@ def _lookahead_programs_ms(frames, slice_):
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--slice", choices=("ippp", "b", "bench", "bench10"),
-                    default="ippp")
+    ap.add_argument("--slice", choices=("ippp", "b", "bench", "bench10",
+                                        "slow", "nr"), default="ippp")
     ap.add_argument("--frames", type=int, default=None,
-                    help="frames to encode (4 for ippp, 6 for b, 10 for "
-                         "bench and bench10)")
+                    help="frames to encode (4 for ippp, 6 for b and nr, 10 "
+                         "for bench, bench10 and slow)")
     ap.add_argument("--out", default=os.path.join(ROOT, "chiprun_out",
                                                   "profile.json"))
     args = ap.parse_args()
@@ -188,8 +192,9 @@ def main():
     from x265_tpu_torch.smoke_config import (smoke_frames,
                                              smoke_frames_bench10)
     if args.frames is None:
-        args.frames = dict(ippp=4, b=6, bench=10, bench10=10)[args.slice]
-    bench = args.slice.startswith("bench")
+        args.frames = dict(ippp=4, b=6, bench=10, bench10=10, slow=10,
+                           nr=6)[args.slice]
+    bench = args.slice.startswith("bench") or args.slice == "slow"
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

@@ -1,8 +1,8 @@
 """Encoder parameters — the ``Params`` dataclass of
 ``x265_tpu/common/params.py`` (same fields, same defaults: x265's preset
 'medium'), copied line for line with its enums and the warnings for
-options the engine does not honour.  The reference's preset, tune and CLI
-parsing helpers are not carried.
+options the engine does not honour, and its preset and tune tables with
+``default_params``.  The reference's CLI parsing helpers are not carried.
 """
 
 from __future__ import annotations
@@ -22,6 +22,10 @@ B_ADAPT_NONE, B_ADAPT_FAST, B_ADAPT_TRELLIS = 0, 1, 2
 AQ_NONE, AQ_VARIANCE, AQ_AUTO_VARIANCE, AQ_AUTO_VARIANCE_BIASED = 0, 1, 2, 3
 
 HASH_NONE, HASH_MD5, HASH_CRC, HASH_CHECKSUM = 0, 1, 2, 3
+
+PRESETS = ["ultrafast", "superfast", "veryfast", "faster", "fast",
+           "medium", "slow", "slower", "veryslow", "placebo"]
+TUNES = ["psnr", "ssim", "grain", "fastdecode", "zerolatency"]
 
 MAX_MAX_QP = 51
 QP_BD_OFFSET_PER_DEPTH = 6  # 6*(bitDepth-8)
@@ -206,6 +210,89 @@ class Params:
         assert self.source_width % self.min_cu_size == 0 and \
             self.source_height % self.min_cu_size == 0, \
             "picture size must be a multiple of min CU size (conformance window TBD)"
+
+
+# ---------------------------------------------------------------------------
+# Presets (x265 1.9 preset matrix, doc/reST/presets.rst:26-90)
+# ---------------------------------------------------------------------------
+
+_PRESET_OVERRIDES: dict[str, dict] = {
+    # name: field overrides relative to defaults (medium)
+    "ultrafast": dict(ctu_size=32, min_cu_size=16, bframes=3, b_adapt=0,
+                      rc_lookahead=5, lookahead_slices=8, scenecut_threshold=0,
+                      ref=1, limit_refs=0, me=ME_DIA, subme=0, rd_level=2,
+                      aq_mode=AQ_NONE, aq_strength=0.0, cu_tree=False,
+                      early_skip=True, fast_intra=True, sao=False,
+                      sign_hide=False, weightp=False, deblock=True,
+                      b_intra=False, rdoq_level=0, tu_intra_depth=1,
+                      tu_inter_depth=1, max_merge=2),
+    "superfast": dict(ctu_size=32, bframes=3, b_adapt=0, rc_lookahead=10,
+                      scenecut_threshold=40, ref=1, limit_refs=0, me=ME_HEX,
+                      subme=1, rd_level=2, aq_mode=AQ_NONE, aq_strength=0.0,
+                      cu_tree=False, early_skip=True, fast_intra=True,
+                      sao=True, sign_hide=True, weightp=False, rdoq_level=0),
+    "veryfast": dict(bframes=3, b_adapt=0, rc_lookahead=15, ref=2,
+                     limit_refs=3, me=ME_HEX, subme=1, rd_level=2,
+                     early_skip=True, fast_intra=True, rdoq_level=0),
+    "faster": dict(bframes=3, b_adapt=0, rc_lookahead=15, ref=2,
+                   limit_refs=3, me=ME_HEX, subme=2, rd_level=2,
+                   fast_intra=True, rdoq_level=0),
+    "fast": dict(bframes=3, b_adapt=0, rc_lookahead=15, ref=3, me=ME_HEX,
+                 subme=2, rd_level=2, rdoq_level=0),
+    "medium": dict(),  # defaults
+    "slow": dict(b_adapt=2, rc_lookahead=25, ref=4, me=ME_STAR, subme=3,
+                 rd_level=4, rect=True, limit_modes=True, rdoq_level=2,
+                 psy_rdoq=1.0),
+    "slower": dict(b_adapt=2, bframes=8, rc_lookahead=30, ref=4, me=ME_STAR,
+                   subme=3, rd_level=6, rect=True, amp=True, limit_refs=1,
+                   limit_modes=True, rdoq_level=2, psy_rdoq=1.0,
+                   tu_intra_depth=3, tu_inter_depth=3, b_intra=True,
+                   weightb=True, max_merge=3),
+    "veryslow": dict(b_adapt=2, bframes=8, rc_lookahead=40, ref=5,
+                     me=ME_STAR, subme=4, rd_level=6, rect=True, amp=True,
+                     limit_refs=0, limit_modes=False, rdoq_level=2,
+                     psy_rdoq=1.0, tu_intra_depth=3, tu_inter_depth=3,
+                     b_intra=True, weightb=True, max_merge=4, me_range=57),
+    "placebo": dict(b_adapt=2, bframes=8, rc_lookahead=60, ref=5, me=ME_STAR,
+                    subme=5, me_range=92, rd_level=6, rect=True, amp=True,
+                    limit_refs=0, rdoq_level=2, psy_rdoq=1.0,
+                    tu_intra_depth=4, tu_inter_depth=4, b_intra=True,
+                    weightb=True, max_merge=5, tskip=True),
+}
+
+_TUNE_OVERRIDES: dict[str, dict] = {
+    "psnr": dict(aq_strength=0.0, psy_rd=0.0, psy_rdoq=0.0),
+    "ssim": dict(aq_mode=AQ_AUTO_VARIANCE, psy_rd=0.0, psy_rdoq=0.0,
+                 ssim=True),
+    "grain": dict(aq_mode=AQ_NONE, cu_tree=False, ip_factor=1.1,
+                  pb_factor=1.0, psy_rd=0.5, psy_rdoq=30.0, qp_step=1,
+                  sao=False, rc_mode=RC_CRF),
+    "fastdecode": dict(deblock=False, sao=False, weightp=False,
+                       weightb=False, b_intra=False),
+    "zerolatency": dict(b_adapt=0, bframes=0, rc_lookahead=0,
+                        frame_parallelism=1, cu_tree=False),
+}
+
+
+def default_params(preset: str = "medium", tune: str | None = None,
+                   **overrides) -> Params:
+    """x265_param_default_preset equivalent."""
+    if preset not in _PRESET_OVERRIDES:
+        raise ValueError(f"unknown preset {preset!r} (choose from {PRESETS})")
+    p = Params()
+    for k, v in _PRESET_OVERRIDES[preset].items():
+        setattr(p, k, v)
+    if tune:
+        if tune not in _TUNE_OVERRIDES:
+            raise ValueError(f"unknown tune {tune!r} (choose from {TUNES})")
+        for k, v in _TUNE_OVERRIDES[tune].items():
+            setattr(p, k, v)
+    for k, v in overrides.items():
+        if not hasattr(p, k):
+            raise ValueError(f"unknown parameter {k!r}")
+        setattr(p, k, v)
+    return p
+
 
 
 # ---------------------------------------------------------------------------

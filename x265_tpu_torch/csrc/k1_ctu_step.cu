@@ -72,6 +72,23 @@
 // Per quad: 7 block barriers for the 32x32 intra candidate, 7 per 16x16
 // slot (5 for an inter slot), 6 for the inter TU32 trial, 3 for the
 // decision and the write-back.
+//   RDOQ (K1_RDOQ, the psy-RDOQ strength in K1Args::psyq) and DCT-domain
+// noise reduction (K1_NR) live in the chain (k1_chain): NR subtracts the
+// position's offset from |coef| in the forward-columns pass and adds the
+// raw |coef| to the frame's statistics with global atomics (integers, so
+// the order does not matter); RDOQ chooses each element's level there and
+// keeps its costs by scan position, then four more team barriers run the
+// reference's last-position pass and group zeroing over 4x4 groups (one
+// thread a group) and elements (a warp minimum and a shared 64-bit atomic
+// minimum of (cost key, scan position): the first minimum, exactly).  Its
+// float sums follow XLA's order: sequential inside a group of 16 scan
+// positions, the group totals blocked by 16, the group sums in (y, x)
+// order; `cost + lambda2 * rate` and `+ lambda2 * last_bits` as fmas.
+// With NR every quad runs the TU32 trial in P frames: the plain step adds
+// every lane's trial to the statistics, and only m32_in picks its levels.
+// The two stages are compiled in or out (k1_kernel<BD, MODE>, MODE the
+// flags K1_RDOQ | K1_NR): eight instantiations, the plain ones as before,
+// without the RDOQ scratch at the end of K1Smem.
 
 #include "k_common.cuh"
 
@@ -81,6 +98,8 @@
 #define K1_SIGN_HIDE 8
 #define K1_STRONG 16
 #define K1_BD10 32
+#define K1_RDOQ 64
+#define K1_NR 128
 
 #define K1_THREADS 768
 #define K1_MAXWARPS (K1_THREADS / 32)
@@ -116,7 +135,37 @@ struct K1Args {
   int *lv16, *lv8, *lv32, *lvc16, *sel32, *int_y, *int_c;
   int *nrowf, *ncolf, *nrowfb, *ncolfb, *nrowfr, *ncolfr;
   const int* Tp;  // the packed transform matrices (see K1Smem::Tp)
+  // RDOQ: lambda2 and lambda_sad of each QP [64][2], the rate term of each
+  // level [32768] (the reference's float values, tables of the wrapper)
+  const float *rdlam, *rdrate;
+  // noise reduction: the offsets and the statistics, both in the layout
+  // K1_NRW (per category [intra, inter] x [n * n, count]); the statistics
+  // [F][K1_NRW], added to atomically
+  const int* nroff;
+  int* nrstat;
   int L, F, cw, ch, flags;  // L lanes of F frames, frame-major
+  float psyq;               // psy-RDOQ strength (luma), 0 when off
+};
+
+// noise-reduction layout: words per frame, and each category's offset
+// (y16, c8, y32, c16: [intra, inter] x [n * n sums, block count])
+#define K1_NRW 3208
+KDEV int k1_nr_base(int lg, bool luma) {  // TU size 2^lg
+  return luma ? (lg == 4 ? 0 : 644) : (lg == 3 ? 514 : 2694);
+}
+
+// One team's RDOQ scratch, indexed by chain scan position (a block's
+// elements in its scan order: 4x4 groups in diagonal order, 16 positions
+// each, in diagonal order inside the group).
+struct K1Rdoq {
+  float jb[1536];  // the chosen candidate's cost, then its prefix sums
+  float d0[1536];  // the cost of level 0, then its prefix sums
+  short sp[1536];  // the position's element in the block (y * n + x)
+  float gs[2][96];  // per group: sum of jb, of d0 in (y, x) order
+  float gx[2][96];  // per group: prefix of the group totals in its run of 16
+  unsigned long long key[3];  // per block: least (cost key, scan position)
+  float tot[3];               // per block: the total of d0
+  int live[3];                // noise reduction: a nonzero |coef| seen
 };
 
 // chains of one quad: the 32x32 candidate, four slots, the TU32 trial
@@ -161,6 +210,10 @@ struct K1Smem {
   int psyc[K1_NCHAIN];                  // and psy terms
   int dqmax[3][3];  // k1_dequant_max per plane (y, cb, cr) and log2 size - 3
   int sel, tu32;
+  // RDOQ / NR only (last: the plain kernel's shared memory ends before)
+  K1Rdoq rq[2];       // RDOQ scratch of the slots' team (and the trial),
+                      // and of the 32x32 candidate's
+  float rdlam[3][2];  // lambda2, lambda_sad per plane (y, cb, cr)
 };
 
 #if defined(__CUDACC__) && defined(K1_STAGE_CLOCKS)
@@ -455,6 +508,9 @@ struct K1Chain {
   bool intra;
   short* wa;  // the chain's work buffers
   short* wb;
+  K1Rdoq* rq;      // RDOQ / noise-reduction scratch (null without both)
+  int* nrs;        // this frame's noise-reduction statistics, or null
+  const int* nro;  // the noise-reduction offsets
 };
 
 // a[b] by selects (no indexed load from the thread's stack)
@@ -557,18 +613,83 @@ KDEV void k1_add3(int* a0, int* a1, int* a2, int b, int v) {
     *a2 += v;
 }
 
+// RDOQ of one coefficient v (after noise reduction) of a 2^lg block at
+// QP qp (the reference's _rdoq_core, per element): the candidates 0,
+// L - 1, L around the round-nearest level L, their costs D + lambda2 * R
+// (one rounding, as XLA contracts it), less the psy-RDOQ bonus psyl * the
+// reconstructed amplitude on AC positions; returns the first cheapest
+// candidate (signed) and its cost and level 0's in *jb, *d0.
+template <int BD>
+KDEV int k1_rdoq_level(int v, int qp, int lg, float lam2, float psyl, bool ac,
+                       const float* rate, float* jb, float* d0) {
+  const int ts = 15 - BD - lg, bd_shift = BD + lg - 5;
+  const int qbits = 14 + k1_div6(qp) + ts;
+  const int scale = k1_qs[k1_mod6(qp)];
+  const int scale_eff = (k1_iqs[k1_mod6(qp)] * 16) << k1_div6(qp);
+  const int a = k_abs(v);
+  const int hi = a * (scale >> 7), lo = a * (scale & 127);
+  const int lmax = k_clamp((hi + ((lo + (1 << (qbits - 1))) >> 7)) >>
+                               (qbits - 7),
+                           0, 32767);
+  const int cand[3] = {0, lmax > 0 ? lmax - 1 : 0, lmax};
+  // exact powers of two: the dequant step, the distortion's and the psy
+  // amplitude's scales
+  const float step = k_i2f(scale_eff) * k_bitsf((unsigned)(127 - bd_shift) << 23);
+  const float dsc = k_bitsf((unsigned)(127 - 2 * ts) << 23);
+  const float psc = k_bitsf((unsigned)(127 - ts) << 23);
+  const float af = k_i2f(a);
+  float j[3];
+  for (int k = 0; k < 3; ++k) {
+    const float dqf = k_i2f(cand[k]) * step;
+    const float err = af - dqf;
+    const float dist = err * err * dsc;
+    if (k == 0) *d0 = dist;
+    j[k] = KFMA(lam2, rate[cand[k]], dist);
+    if (ac) j[k] = j[k] - psyl * (dqf * psc);
+  }
+  int best = j[1] < j[0] ? 1 : 0;
+  const float jm = j[1] < j[0] ? j[1] : j[0];
+  if (j[2] < jm) best = 2;
+  *jb = j[2] < jm ? j[2] : jm;
+  const int l = k1_pick(cand, best);
+  return v < 0 ? -l : l;
+}
+
+// Prefix sum of group totals up to group k of a block, the reference's
+// blocked order: x[k] is the sum within k's run of 16 groups, then the runs'
+// totals (x[15], x[31], x[47]) in turn.
+KDEV float k1_group_incl(const float* x, int k) {
+  if (k < 16) return x[k];
+  float c = x[15];
+  for (int h = 1; h < k / 16; ++h) c = c + x[16 * h + 15];
+  return c + x[k];
+}
+
 // rec = clip(pred + inverse(dequant(sign_hide(quant(forward(wa)))))), the
 // level outputs, and, when `rd`, the chain's SSD and bit sums per warp in
 // part[] (the psy terms of a quad's chains are taken later, together).
-// Run by team t: five team barriers; the per-warp sums run after the last
-// one.  Every pass is one element per thread; a warp never straddles two
-// blocks.
-template <int LG, int BD>
+// Run by team t: five team barriers, four more with RDOQ; the per-warp
+// sums run after the last one.  Every pass is one element (or one 4x4
+// group) per thread; a warp never straddles two blocks.
+//   Noise reduction (c.nrs): the forward columns' |coef| add to the
+// frame's statistics and lose the position's offset before quant.
+//   RDOQ (c.rq): the forward columns choose each element's level
+// (k1_rdoq_level) and keep its costs by scan position; then per group
+// the (y, x)-order sums and the prefix sums in scan order (R1), per group
+// the prefix of the totals within its run of 16 (R2), per element the
+// cost of ending the block there, as a first-minimum over each block
+// (warp minimum, then a shared atomic minimum of (cost key, position))
+// (R3), and per group the cut after the last position and the group
+// zeroing (R4): the reference's last-position and group passes.
+template <int LG, int BD, int MODE>
 KDEV void k1_chain(K1Smem* s, const KTeam& t, const K1Chain& c,
-                   bool sign_hide, bool rd, int (*part)[6]) {
+                   bool sign_hide, bool rd, int (*part)[6], const K1Args& ka) {
   constexpr int tot = 6 << (2 * (LG - 1));
+  constexpr int ng = tot / 16;  // the chain's 4x4 groups
   short* wa = c.wa;  // the residual, natural layout
   short* wb = c.wb;  // the forward rows' output, pair layout
+  K1Rdoq* rq = c.rq;
+  constexpr bool rdoq = MODE & K1_RDOQ, nr = MODE & K1_NR;
   for (int i = t.tid; i < tot; i += t.nth) {  // forward rows
     const int b = k1_blk<LG>(i), base = k1_base<LG>(b), off = i - base;
     const int lg = b == 0 ? LG : LG - 1;
@@ -576,15 +697,112 @@ KDEV void k1_chain(K1Smem* s, const KTeam& t, const K1Chain& c,
         (short)(b == 0 ? k1_fwd_row<LG, BD>(s, wa, i)
                        : k1_fwd_row<LG - 1, BD>(s, wa + base, off));
   }
+  if constexpr (rdoq || nr)
+    for (int k = t.tid; k < 3; k += t.nth) {
+      rq->key[k] = ~0ull;
+      rq->live[k] = 0;
+    }
   K1_TSYNC(t);
   for (int i = t.tid; i < tot; i += t.nth) {  // forward columns, quant
-    const int b = k1_blk<LG>(i), base = k1_base<LG>(b);
-    const int v = b == 0 ? k1_fwd_col<LG>(s, wb, i)
-                         : k1_fwd_col<LG - 1>(s, wb + base, i - base);
-    c.lv[i] = k1_quant<BD>(v, k1_pick(c.qp, b), c.intra,
-                           b == 0 ? LG : LG - 1);
+    const int b = k1_blk<LG>(i), base = k1_base<LG>(b), off = i - base;
+    const int lg = b == 0 ? LG : LG - 1;
+    int v = b == 0 ? k1_fwd_col<LG>(s, wb, i)
+                   : k1_fwd_col<LG - 1>(s, wb + base, off);
+    if constexpr (nr) {  // noise reduction: statistics, then the offset
+      const int a = k_abs(v);
+      const int nb = k1_nr_base(lg, b == 0) + (c.intra ? 0 : (1 << 2 * lg) + 1);
+      if (a) {
+        k_atomic_add(c.nrs + nb + off, a);
+        rq->live[b] = 1;
+      }
+      const int m = a - c.nro[nb + off];
+      v = v < 0 ? -(m > 0 ? m : 0) : (m > 0 ? m : 0);
+    }
+    if constexpr (rdoq) {
+      const int y = off >> lg, x = off & ((1 << lg) - 1);
+      const int p = k_diag_rank(x >> 2, y >> 2, 1 << (lg - 2)) * 16 +
+                    k_diag_rank(x & 3, y & 3, 4);
+      const int bp = base + p;
+      const float psyl = b == 0 && ka.psyq > 0.0f ? ka.psyq * s->rdlam[0][1]
+                                                 : 0.0f;
+      c.lv[i] = k1_rdoq_level<BD>(v, k1_pick(c.qp, b), lg, s->rdlam[b][0],
+                                  psyl, psyl > 0.0f && off != 0, ka.rdrate,
+                                  &rq->jb[bp], &rq->d0[bp]);
+      rq->sp[bp] = (short)off;
+    } else {
+      c.lv[i] = k1_quant<BD>(v, k1_pick(c.qp, b), c.intra, lg);
+    }
   }
   K1_TSYNC(t);
+  if constexpr (rdoq) {
+    for (int i = t.tid; i < 2 * ng; i += t.nth) {  // R1: per group
+      float* v = (i & 1 ? rq->d0 : rq->jb) + 16 * (i >> 1);
+      float sum = v[0];  // (y, x) order: rank (x, y) of the 4x4 scan
+      for (int k = 1; k < 16; ++k)
+        sum = sum + v[(0xfda6eb73c8419520ull >> (4 * k)) & 15u];
+      rq->gs[i & 1][i >> 1] = sum;
+      float acc = v[0];
+      for (int r = 1; r < 16; ++r) {
+        acc = acc + v[r];
+        v[r] = acc;
+      }
+    }
+    K1_TSYNC(t);
+    for (int i = t.tid; i < 2 * ng; i += t.nth) {  // R2: per group
+      const int g = i >> 1, q = i & 1;
+      const int g0 = k1_base<LG>(k1_blk<LG>(16 * g)) / 16;  // block's first
+      const int k = g - g0;
+      const float* v = (q ? rq->d0 : rq->jb) + 16 * g0;
+      float acc = v[16 * (k & ~15) + 15];
+      for (int h = (k & ~15) + 1; h <= k; ++h) acc = acc + v[16 * h + 15];
+      rq->gx[q][g] = acc;
+    }
+    K1_TSYNC(t);
+    for (int e = t.tid; e < tot; e += t.nth) {  // R3: per element
+      const int b = k1_blk<LG>(e), base = k1_base<LG>(b), p = e - base;
+      const int lg = b == 0 ? LG : LG - 1, nb = 1 << lg;
+      const int g0 = base / 16, k = p >> 4, nk = nb * nb / 16;
+      float cj = rq->jb[e], cd = rq->d0[e];
+      if (k > 0) {
+        cj = k1_group_incl(rq->gx[0] + g0, k - 1) + cj;
+        cd = k1_group_incl(rq->gx[1] + g0, k - 1) + cd;
+      }
+      const float td =
+          k1_group_incl(rq->gx[1] + g0, nk - 2) + rq->d0[base + nb * nb - 1];
+      const int pos = rq->sp[e];
+      const int x = pos & (nb - 1), y = pos >> lg;
+      const float lb = k_i2f(2 * k_msb(x + 1) + 2 * k_msb(y + 1) + 2);
+      float cost = KFMA(s->rdlam[b][0], lb, cj + (td - cd));
+      if (c.lv[base + pos] == 0) cost = k_bitsf(0x7f800000u);  // +inf
+      if (p == 0) rq->tot[b] = td;
+      const unsigned ck = k_fkey(cost);
+      const unsigned kmin = k_warp_min(ck);
+      const unsigned pmin = k_warp_min(ck == kmin ? (unsigned)p : ~0u);
+      if (KLANE == 0)
+        k_atomic_min64(&rq->key[b], ((unsigned long long)kmin << 32) | pmin);
+    }
+    K1_TSYNC(t);
+    for (int g = t.tid; g < ng; g += t.nth) {  // R4: per group
+      const int b = k1_blk<LG>(16 * g), base = k1_base<LG>(b);
+      const float lam2 = s->rdlam[b][0];
+      const unsigned long long key = rq->key[b];
+      const int pbest = (int)(key & 0xffffffffu);
+      const bool keep = k_keyf((unsigned)(key >> 32)) <= rq->tot[b] - lam2 * 2.0f;
+      const int k = g - base / 16;
+      // the group's levels after the cut: those up to the last position
+      const int nkeep = keep ? (pbest - 16 * k + 1 < 16 ? pbest - 16 * k + 1
+                                                         : 16)
+                             : 0;
+      bool nz = false;
+      for (int r = 0; r < nkeep; ++r)
+        nz = nz || c.lv[base + rq->sp[16 * g + r]] != 0;
+      const bool zero = nz && k != pbest >> 4 &&
+                        rq->gs[1][g] < rq->gs[0][g] + lam2 * 2.0f;
+      for (int r = zero ? 0 : (nkeep > 0 ? nkeep : 0); r < 16; ++r)
+        c.lv[base + rq->sp[16 * g + r]] = 0;
+    }
+    K1_TSYNC(t);
+  }
   int s0 = 0, s1 = 0, s2 = 0, b0 = 0, b1 = 0, b2 = 0;
   for (int e = t.tid; e < tot; e += t.nth) {  // sign hiding, bits, dequant
     // elements in 4x4 group order: 16 consecutive lanes, one rank each
@@ -594,6 +812,11 @@ KDEV void k1_chain(K1Smem* s, const KTeam& t, const K1Chain& c,
     const int gy = g >> (lg - 2), gx = g & ((nb >> 2) - 1);
     const int p = k_diag4_pos(rank);
     const int pos = (gy * 4 + (p >> 2)) * nb + gx * 4 + (p & 3);
+    if constexpr (nr)
+      if (e == base && rq->live[b])  // the block's count
+        k_atomic_add(c.nrs + k1_nr_base(lg, b == 0) +
+                         (c.intra ? 0 : nb * nb + 1) + nb * nb,
+                     1);
     bool any;
     const int l = k_sign_hide16(c.lv[base + pos], rank, sign_hide,
                                 c.lv + base + (gy * nb + gx) * 4, nb, &any);
@@ -640,12 +863,13 @@ KDEV float k1_cost(const int* t, float ovh, float lam) {
 
 // --- the lane ------------------------------------------------------------------
 
-template <int BD>
+template <int BD, int MODE>
 KDEV void k1_lane(K1Smem* s, const K1Args& a, int l) {
   const int L = a.L;
   const bool inter = a.flags & K1_INTER, decide = a.flags & K1_DECIDE32;
   const bool psy = a.flags & K1_PSY, sh = a.flags & K1_SIGN_HIDE;
   const bool strong = a.flags & K1_STRONG;
+  constexpr bool rdnr = MODE != 0;
   const int cx = a.cx[l], cy = a.cy[l];
   // the lane's frame: lanes are frame-major, L / F to a frame; its
   // frontiers lie at these offsets of rows [F][cw + 1][64 | 32], columns
@@ -653,6 +877,7 @@ KDEV void k1_lane(K1Smem* s, const K1Args& a, int l) {
   const int frame = l / (L / a.F);
   const int rowst = frame * (a.cw + 1), colst = frame * (a.ch + 1);
   const int cornst = frame * (a.cw + 2) * 2;
+  int* nrs = MODE & K1_NR ? a.nrstat + (int64_t)frame * K1_NRW : nullptr;
   const int cx1 = cx + 1 < a.cw ? cx + 1 : a.cw;
   const int par = (cy - 1) & 1;
   const int qpy = a.qp_y[l];
@@ -705,6 +930,12 @@ KDEV void k1_lane(K1Smem* s, const K1Args& a, int l) {
     const int b = i / 3, qp = b == 0 ? qpy : (b == 1 ? qpc[0] : qpc[1]);
     s->dqmax[b][i - 3 * b] = k1_dequant_max<BD>(qp, 3 + i - 3 * b);
   }
+  if constexpr (MODE & K1_RDOQ)
+    for (int i = KTID; i < 6; i += KNTH) {
+      const int b = i >> 1, qp = b == 0 ? qpy : (b == 1 ? qpc[0] : qpc[1]);
+      KCHECK(qp >= 0 && qp < 64);  // the table's QPs
+      s->rdlam[b][i & 1] = a.rdlam[2 * qp + (i & 1)];
+    }
   k_zero16(s->C, K1_CN / 8);
   k_zero16(s->Cc, K1_CCN / 8);
   KSYNC();
@@ -776,8 +1007,8 @@ KDEV void k1_lane(K1Smem* s, const K1Args& a, int l) {
       K1Chain c32 = {s->P32, s->LV32, {o32, oc32[0], oc32[1]},
                      {s->R32, s->R32 + 1024, s->R32 + 1280}, {32, 16, 16},
                      {0, 0, 0}, {qpy, qpc[0], qpc[1]}, true, s->wa32,
-                     s->wb32};
-      k1_chain<5, BD>(s, tq, c32, sh, decide, s->part[0]);
+                     s->wb32, rdnr ? &s->rq[1] : nullptr, nrs, a.nroff};
+      k1_chain<5, BD, MODE>(s, tq, c32, sh, decide, s->part[0], a);
     }
 
     for (int sl = 0; sl < 4 && k_in(ts); ++sl) {
@@ -829,13 +1060,19 @@ KDEV void k1_lane(K1Smem* s, const K1Args& a, int l) {
                     {qpy, qpc[0], qpc[1]},
                     !iv,
                     s->wa,
-                    s->wb};
-      k1_chain<4, BD>(s, ts, cs, sh, decide, s->part[1 + sl]);
+                    s->wb,
+                    rdnr ? &s->rq[0] : nullptr,
+                    nrs,
+                    a.nroff};
+      k1_chain<4, BD, MODE>(s, ts, cs, sh, decide, s->part[1 + sl], a);
     }
     KSYNC();
 
-    const bool trial = s->m32in[q];
-    if (trial) {  // inter TU32 trial of the joined slot predictions
+    // the inter TU32 trial of the joined slot predictions; with noise
+    // reduction on every quad, as the plain step adds every lane's trial
+    // to the statistics (its levels count only under m32_in)
+    const bool trial = s->m32in[q] || ((MODE & K1_NR) && inter && decide);
+    if (trial) {
       for (int i = KTID; i < 1536; i += KNTH)
         s->wa[i] = (short)((i < 1024 ? o32[i]
                                      : oc32[(i - 1024) >> 8][(i - 1024) & 255]) -
@@ -843,8 +1080,9 @@ KDEV void k1_lane(K1Smem* s, const K1Args& a, int l) {
       KSYNC();
       K1Chain ct = {s->IPQ, s->LVI, {o32, oc32[0], oc32[1]},
                     {s->RI, s->RI + 1024, s->RI + 1280}, {32, 16, 16},
-                    {0, 0, 0}, {qpy, qpc[0], qpc[1]}, false, s->wa, s->wb};
-      k1_chain<5, BD>(s, all, ct, sh, true, s->part[5]);
+                    {0, 0, 0}, {qpy, qpc[0], qpc[1]}, false, s->wa, s->wb,
+                    rdnr ? &s->rq[0] : nullptr, nrs, a.nroff};
+      k1_chain<5, BD, MODE>(s, all, ct, sh, true, s->part[5], a);
     }
     if (decide && psy) {  // the psy terms of the quad's chains, 8x8 tiles:
       // 0-15 the 32x32 candidate, 16-31 the slots (4 each), 32-47 the trial
@@ -901,7 +1139,7 @@ KDEV void k1_lane(K1Smem* s, const K1Args& a, int l) {
           }
           u32 = s->qok[q] && (c32 < cost16);
           if (inter) u32 = u32 && !any_inter;
-          if (trial) {
+          if (s->m32in[q]) {
             float ci = s->cost[5];
             if (psy) ci = KFMA(plam, k_i2f(s->psyc[5]), ci);
             tu32 = ci < cost16;
@@ -961,7 +1199,7 @@ KDEV void k1_lane(K1Smem* s, const K1Args& a, int l) {
 }
 
 static void k1_unpack(K1Args* a, void* const* p, int L, int F, int cw,
-                      int ch, int flags) {
+                      int ch, int flags, float psyq) {
   int k = 0;
 #define NEXT(T) ((T)p[k++])
   a->cx = NEXT(const int*); a->cy = NEXT(const int*);
@@ -988,58 +1226,85 @@ static void k1_unpack(K1Args* a, void* const* p, int L, int F, int cw,
   a->nrowf = NEXT(int*); a->ncolf = NEXT(int*); a->nrowfb = NEXT(int*);
   a->ncolfb = NEXT(int*); a->nrowfr = NEXT(int*); a->ncolfr = NEXT(int*);
   a->Tp = NEXT(const int*);
+  a->rdlam = NEXT(const float*); a->rdrate = NEXT(const float*);
+  a->nroff = NEXT(const int*); a->nrstat = NEXT(int*);
 #undef NEXT
   a->L = L; a->F = F; a->cw = cw; a->ch = ch; a->flags = flags;
+  a->psyq = psyq;
 }
 
-#define K1_NPTRS 45
+#define K1_NPTRS 49
 
 #ifdef __CUDACC__
-template <int BD>
+// one instantiation per bit depth and mode (RDOQ / NR stages compiled in
+// or out), so the plain chain carries none of their code
+template <int BD, int MODE>
 __global__ void __launch_bounds__(K1_THREADS) k1_kernel(K1Args a) {
   extern __shared__ __align__(16) unsigned char k1_smem[];
   K1_LANE_START();
-  k1_lane<BD>((K1Smem*)k1_smem, a, blockIdx.x);
+  k1_lane<BD, MODE>((K1Smem*)k1_smem, a, blockIdx.x);
   K1_LANE_END();
 }
 
-template <int BD>
+template <int BD, int MODE>
 static int k1_launch(const K1Args& a, cudaStream_t stream) {
+  // the RDOQ / NR scratch closes K1Smem: the plain kernel leaves it out
+  constexpr int bytes = MODE ? (int)sizeof(K1Smem) : (int)offsetof(K1Smem, rq);
   static bool attr_set = false;
   if (!attr_set) {
     const cudaError_t e = cudaFuncSetAttribute(
-        k1_kernel<BD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)sizeof(K1Smem));
+        k1_kernel<BD, MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        bytes);
     if (e != cudaSuccess) return (int)e;
     attr_set = true;
   }
-  k1_kernel<BD><<<a.L, K1_THREADS, sizeof(K1Smem), stream>>>(a);
+  k1_kernel<BD, MODE><<<a.L, K1_THREADS, bytes, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
+template <int BD>
+static int k1_launch_mode(const K1Args& a, cudaStream_t stream) {
+  switch (a.flags & (K1_RDOQ | K1_NR)) {
+    case K1_RDOQ: return k1_launch<BD, K1_RDOQ>(a, stream);
+    case K1_NR: return k1_launch<BD, K1_NR>(a, stream);
+    case K1_RDOQ | K1_NR: return k1_launch<BD, K1_RDOQ | K1_NR>(a, stream);
+    default: return k1_launch<BD, 0>(a, stream);
+  }
+}
+
 extern "C" int k1_ctu_step(void* const* p, int np, int L, int F, int cw,
-                           int ch, int flags, void* stream) {
+                           int ch, int flags, float psyq, void* stream) {
   if (np != K1_NPTRS || F < 1 || L % F) return -1;
   K1Args a;
-  k1_unpack(&a, p, L, F, cw, ch, flags);
-  return flags & K1_BD10 ? k1_launch<10>(a, (cudaStream_t)stream)
-                         : k1_launch<8>(a, (cudaStream_t)stream);
+  k1_unpack(&a, p, L, F, cw, ch, flags, psyq);
+  return flags & K1_BD10 ? k1_launch_mode<10>(a, (cudaStream_t)stream)
+                         : k1_launch_mode<8>(a, (cudaStream_t)stream);
 }
 
 extern "C" int k1_smem_bytes() { return (int)sizeof(K1Smem); }
 #else
 extern "C" int k1_ctu_step(void* const* p, int np, int L, int F, int cw,
-                           int ch, int flags, void* stream) {
+                           int ch, int flags, float psyq, void* stream) {
   (void)stream;
   if (np != K1_NPTRS || F < 1 || L % F) return -1;
   K1Args a;
-  k1_unpack(&a, p, L, F, cw, ch, flags);
+  k1_unpack(&a, p, L, F, cw, ch, flags, psyq);
   K1Smem* s = (K1Smem*)malloc(sizeof(K1Smem));
+  const int mode = flags & (K1_RDOQ | K1_NR);
   for (int l = 0; l < L; ++l) {
-    if (flags & K1_BD10)
-      k1_lane<10>(s, a, l);
-    else
-      k1_lane<8>(s, a, l);
+#define K1_HOST_LANE(BD)                                     \
+  switch (mode) {                                            \
+    case K1_RDOQ: k1_lane<BD, K1_RDOQ>(s, a, l); break;       \
+    case K1_NR: k1_lane<BD, K1_NR>(s, a, l); break;           \
+    case K1_RDOQ | K1_NR: k1_lane<BD, K1_RDOQ | K1_NR>(s, a, l); break; \
+    default: k1_lane<BD, 0>(s, a, l);                        \
+  }
+    if (flags & K1_BD10) {
+      K1_HOST_LANE(10)
+    } else {
+      K1_HOST_LANE(8)
+    }
+#undef K1_HOST_LANE
   }
   free(s);
   return 0;

@@ -280,6 +280,42 @@ KDEV int k_diag4_pos(int rank) {
   return (int)((0xfbe7ad369c258140ull >> (4 * rank)) & 15u);
 }
 
+// Rank of (x, y) in the up-right diagonal scan of an m x m grid (the
+// diagonals x + y = s in turn, x rising along each).
+KDEV int k_diag_rank(int x, int y, int m) {
+  const int s = x + y;
+  if (s < m) return s * (s + 1) / 2 + x;
+  return m * m - (2 * m - 1 - s) * (2 * m - s) / 2 + x - (s - m + 1);
+}
+
+// v added to *p atomically (global memory).  Host: a plain add.
+KDEV void k_atomic_add(int* p, int v) {
+#ifdef __CUDACC__
+  atomicAdd(p, v);
+#else
+  *p += v;
+#endif
+}
+
+// *p = min(*p, v) atomically (shared memory).  Host: a plain min.
+KDEV void k_atomic_min64(unsigned long long* p, unsigned long long v) {
+#ifdef __CUDACC__
+  atomicMin(p, v);
+#else
+  if (v < *p) *p = v;
+#endif
+}
+
+// A float as an unsigned key whose order is the float's (no NaN), -0 as
+// +0; and back.
+KDEV unsigned k_fkey(float f) {
+  const unsigned u = k_fbits(f == 0.0f ? 0.0f : f);
+  return u & 0x80000000u ? ~u : u | 0x80000000u;
+}
+KDEV float k_keyf(unsigned k) {
+  return k_bitsf(k & 0x80000000u ? k & 0x7fffffffu : ~k);
+}
+
 // Sign-hiding parity fix of one 4x4 group of levels (the reference's
 // sign_hide_diag): when `on`, the first and last nonzero levels in diagonal
 // scan order are more than 3 apart, and the parity of the sum of |levels|

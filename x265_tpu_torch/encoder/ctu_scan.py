@@ -12,10 +12,10 @@ one call of the step, which on a CUDA device is the hand-written kernel K1
 (``ctu_scan_cuda.py``) and everywhere else the plain torch step below.
 
 Ported branches: decide32 on/off, intra and inter (with the ``m32_in``
-TU32 trial), psy-rd, sign hiding and strong intra smoothing, at bit depth
-8 and 10 (the recon planes come out uint8, or int16 holding the
-reference's uint16 values: ``_util.sample_dtype``).
-RDOQ, noise reduction and the RQT split raise ``NotImplementedError``.
+TU32 trial), psy-rd, sign hiding, strong intra smoothing, RDOQ with
+psy-RDOQ and DCT-domain noise reduction, at bit depth 8 and 10 (the recon
+planes come out uint8, or int16 holding the reference's uint16 values:
+``_util.sample_dtype``).  The RQT split raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -30,7 +30,7 @@ from ..common.geometry import PictureGeometry, intra_neighbor_coords
 from ..common.rdcost import level_bits
 from ..ops.cost import psy_cost
 from ..ops.intra import filter_flag
-from ..ops.quantize import dequant, quant_masked, sign_hide_diag
+from ..ops.quantize import _rdoq_core, dequant, quant_masked, sign_hide_diag
 from ..ops.transforms import forward_transform, inverse_transform
 from .wavefront import _predict_lanes, _substitute
 
@@ -40,6 +40,19 @@ OVH16, OVH32 = 9.0, 12.0
 # float32(1 / 0.85): XLA folds ``lam / 0.85`` into a multiply by the
 # constant's inverse, so the reference's psy lambda rounds this way
 _INV_085 = np.float32(1.0) / np.float32(0.85)
+# noise-reduction categories (the reference's order) and their TU sizes
+NR_CATS = (("y16", 16), ("c8", 8), ("y32", 32), ("c16", 16))
+
+
+def nr_layout():
+    """{cat: (word offset, n * n)} of the packed NR statistics of one
+    frame: per category [intra, inter] x [n * n |coef| sums, block count],
+    the layout of the pipelines' ``nr_<cat>`` outputs; and the total."""
+    out, off = {}, 0
+    for cat, n in NR_CATS:
+        out[cat] = (off, n * n)
+        off += 2 * (n * n + 1)
+    return out, off
 
 
 @functools.lru_cache(maxsize=8)
@@ -206,14 +219,14 @@ class CtuScan:
                  strong_intra_smoothing: bool = False,
                  rdoq: bool = False, noise_reduction: bool = False,
                  psy_rd: float = 0.0, psy_rdoq: float = 0.0):
-        if rdoq or noise_reduction:
-            raise NotImplementedError(
-                "x265_tpu_torch: RDOQ and noise reduction are not ported")
         self.t = build_ctu_tables(geom.width, geom.height, geom.log2_ctb)
         self.bit_depth = bit_depth
         self.sign_hide = sign_hide
         self.strong = strong_intra_smoothing
+        self.rdoq = rdoq
+        self.noise_reduction = noise_reduction
         self.psy_rd = float(psy_rd)
+        self.psy_rdoq = float(psy_rdoq)
         self.geom = geom
 
     # -- the per-level step (plain torch; K1's reference) -------------------
@@ -228,7 +241,10 @@ class CtuScan:
         l belongs to frame l // (L / F); see ``scan_fn``).  ys: (lv16
         [nslots, L, 16, 16], lv8 [nslots, 2L, 8, 8], lv32 [nq, L, 32, 32],
         lvc16 [nq, 2L, 16, 16], sel32 [nq, L], int_y [L, ctb, ctb], int_c
-        [2L, ctbc, ctbc])."""
+        [2L, ctbc, ctbc], nr [F, W] int32 or None: with noise reduction
+        the level's NR statistics of each frame, ``nr_layout()``); with
+        noise reduction xs also holds the offsets ``nr_pack`` [W] int32 in
+        the statistics' layout (the count words zero)."""
         t = self.t
         bd = self.bit_depth
         g = t["geom"]
@@ -254,9 +270,40 @@ class CtuScan:
             top = C[:, ly0, lx0 + 1:lx0 + 2 * nsz + 1]
             return torch.cat([leftc, top], 1)
 
-        def tq(pred, orig, qp, intra_mask, n):
+        use_rdoq, use_nr = self.rdoq, self.noise_reduction
+        nr_off, nr_words = nr_layout()
+
+        def tq(pred, orig, qp, intra_mask, n, nr_cat, nr=None, luma=True):
+            """One TU stage.  With noise reduction, the category's offsets
+            come off |coef| and its statistics (|coef| before that, and the
+            blocks with any nonzero coefficient, by intra / inter) add to
+            ``nr`` [F, W]; with RDOQ the levels are ``_rdoq_core``'s
+            (psy-RDOQ on luma only)."""
             coef = forward_transform(orig - pred, bd)
-            levels = quant_masked(coef, qp, intra_mask, bd)
+            if use_nr:
+                K = coef.shape[0]
+                a = coef.abs().reshape(K, n * n)
+                base, nn = nr_off[nr_cat]
+                pack = nr["xs"]["nr_pack"]
+                off = torch.where(intra_mask[:, None],
+                                  pack[base:base + nn][None],
+                                  pack[base + nn + 1:base + 2 * nn + 1][None])
+                live = (a != 0).any(1)
+                # the frame of each lane (chroma lanes: cb, then cr)
+                fk = nr["fi"].repeat(K // nr["fi"].shape[0])
+                for cls, m in enumerate((intra_mask & live,
+                                         ~intra_mask & live)):
+                    o = base + cls * (nn + 1)
+                    mi = m.to(torch.int32)
+                    nr["acc"][:, o:o + nn].index_add_(0, fk, a * mi[:, None])
+                    nr["acc"][:, o + nn].index_add_(0, fk, mi)
+                coef = (coef.sign().reshape(K, n * n)
+                        * (a - off).clamp(min=0)).reshape(K, n, n)
+            if use_rdoq:
+                levels = _rdoq_core(coef, qp, bd,
+                                    psy_scale=self.psy_rdoq if luma else 0.0)
+            else:
+                levels = quant_masked(coef, qp, intra_mask, bd)
             if sign_hide:
                 levels = sign_hide_diag(levels)
             r2 = inverse_transform(dequant(levels, qp, bd), bd)
@@ -312,6 +359,11 @@ class CtuScan:
             lv16_o, lv8_o, lv32_o, lvc16_o, u32_o = [], [], [], [], []
 
             fi = torch.arange(L, device=dev) // (L // rowf.shape[0])
+            nr = None
+            if use_nr:
+                nr = dict(xs=xs, fi=fi, acc=torch.zeros(
+                    (rowf.shape[0], nr_words), dtype=torch.int32,
+                    device=dev))
             cx1 = torch.clamp(cx + 1, max=cw)
             par = (cy - 1) & 1
             C = torch.zeros((L, CH_, CW_), dtype=torch.int32, device=dev)
@@ -335,12 +387,14 @@ class CtuScan:
                     o32y = xs["o32y"][:, q]
                     pred32 = predict32(refs_from(C, qx, qy, 32),
                                        xs["l32_av"][:, q], m32)
-                    lv32, rec32 = tq(pred32, o32y, qp_y, ones_l, 32)
+                    lv32, rec32 = tq(pred32, o32y, qp_y, ones_l, 32, "y32",
+                                     nr)
                     refc = _substitute(refs_from(Cc, qx // 2, qy // 2, 16),
                                        cat2(xs["c16_av"][:, q]), bd)
                     predc = _predict_lanes(refc, cat2(m32), 16, False, bd)
                     oc32 = torch.cat([xs["o16cb"][:, q], xs["o16cr"][:, q]])
-                    lvc32, recc32 = tq(predc, oc32, qp_c2, ones_2l, 16)
+                    lvc32, recc32 = tq(predc, oc32, qp_c2, ones_2l, 16,
+                                       "c16", nr, luma=False)
                     if decide32:
                         cost32 = rd(rec32, o32y, recc32, oc32, lv32, lvc32,
                                     OVH32, lam, L)
@@ -367,7 +421,7 @@ class CtuScan:
                         imask = ones_l
                     o16 = xs["o16y"][:, i]
                     slot_preds.append(pred)
-                    lv, rec = tq(pred, o16, qp_y, imask, 16)
+                    lv, rec = tq(pred, o16, qp_y, imask, 16, "y16", nr)
                     refc = _substitute(refs_from(Cc, sx // 2, sy // 2, 8),
                                        cat2(xs["c8_av"][:, i]), bd)
                     predc = _predict_lanes(refc, cat2(m), 8, False, bd)
@@ -380,7 +434,8 @@ class CtuScan:
                         imask2 = ones_2l
                     oc = split_c(xs["o8c"][:, i])
                     slot_predcs.append(predc)
-                    lvc, recc = tq(predc, oc, qp_c2, imask2, 8)
+                    lvc, recc = tq(predc, oc, qp_c2, imask2, 8, "c8", nr,
+                                   luma=False)
                     lv16_o.append(lv)
                     lv8_o.append(lvc)
                     C[:, 1 + sy:1 + sy + 16, 1 + sx:1 + sx + 16] = rec
@@ -406,9 +461,10 @@ class CtuScan:
                         # inter TU32 trial of uniform-motion quads
                         ip32 = _join4(torch.cat(slot_preds), 16)
                         ipc16 = _join4(torch.cat(slot_predcs), 8)
-                        lv32i, rec32i = tq(ip32, o32y, qp_y, ~ones_l, 32)
+                        lv32i, rec32i = tq(ip32, o32y, qp_y, ~ones_l, 32,
+                                           "y32", nr)
                         lvc16i, recc16i = tq(ipc16, oc32, qp_c2, ~ones_2l,
-                                             16)
+                                             16, "c16", nr, luma=False)
                         c32i = rd(rec32i, o32y, recc16i, oc32, lv32i,
                                   lvc16i, OVH32, lam, L)
                         if psy:
@@ -456,7 +512,8 @@ class CtuScan:
             ys = (stack(lv16_o), stack(lv8_o), stack(lv32_o),
                   stack(lvc16_o), stack(u32_o),
                   C[:, 1:1 + ctb, 1:1 + ctb].contiguous(),
-                  Cc[:, 1:1 + ctbc, 1:1 + ctbc].contiguous())
+                  Cc[:, 1:1 + ctbc, 1:1 + ctbc].contiguous(),
+                  nr["acc"] if use_nr else None)
             return (rowf, colf, cornf, rowfb, colfb, cornfb,
                     rowfr, colfr, cornfr), ys
 
@@ -467,13 +524,18 @@ class CtuScan:
     def scan_fn(self, inter: bool, decide32: bool = False,
                 rqt: bool = False, allow_kernel: bool = True):
         """Returns run(...) -> (rec_y, rec_cb, rec_cr, lv16_y, lv8_cb,
-        lv8_cr, lv32_y, lv16_cb, lv16_cr, use32, tu8, None), the
-        reference's ``scan_fn`` contract.  Inputs are torch tensors on
+        lv8_cr, lv32_y, lv16_cb, lv16_cr, use32, tu8, nr), the
+        reference's ``scan_fn`` contract (``nr``: with noise reduction
+        {cat: (s_i, c_i, s_p, c_p)} summed over the levels, else None).
+        Inputs are torch tensors on
         one device, of one frame or of F frames on a leading dimension
         (the outputs then have it too; each level is one step over the
         F x L lanes); ``lam`` [nctb] float32 SSD-domain lambdas with
         decide32; ``is_inter`` / ``ipred_*`` / ``m32_in`` with ``inter``.
-        ``allow_kernel=False`` runs the plain step on any device."""
+        ``nr_offsets`` ({"<cat>_i" / "<cat>_p": [n * n] int32}, missing
+        entries zero) with noise reduction; the frames of a batched call
+        share them.  ``allow_kernel=False`` runs the plain step on any
+        device."""
         if rqt:
             raise NotImplementedError("x265_tpu_torch: RQT is not ported")
         from .ctu_scan_cuda import ctu_step
@@ -502,9 +564,6 @@ class CtuScan:
         def run(oy, ocb, ocr, mode16, mode32, use32, qp_y, qp_cb, qp_cr,
                 lam=None, is_inter=None, ipred_y=None, ipred_cb=None,
                 ipred_cr=None, m32_in=None, rqt_ok=None, nr_offsets=None):
-            if nr_offsets is not None:
-                raise NotImplementedError(
-                    "x265_tpu_torch: noise reduction is not ported")
             dev = oy.device
             i32 = torch.int32
             # one frame, or F frames on a leading dimension: each level is
@@ -571,6 +630,18 @@ class CtuScan:
                             if m32_in is None else fr(m32_in).to(torch.bool))
                     xs["m32_in"] = lev(m32b.reshape(F, -1), b32t)
             xs = {k: v.contiguous() for k, v in xs.items()}
+            nr_xs = {}
+            if self.noise_reduction:
+                # the offsets in the statistics' layout, count words zero
+                lay, words = nr_layout()
+                pack = np.zeros((words,), np.int32)
+                for cat, (o, nn) in lay.items():
+                    for cls, sfx in enumerate(("_i", "_p")):
+                        v = (nr_offsets or {}).get(cat + sfx)
+                        if v is not None:
+                            o1 = o + cls * (nn + 1)
+                            pack[o1:o1 + nn] = np.asarray(v)
+                nr_xs["nr_pack"] = torch.as_tensor(pack).to(dev)
 
             def z(*shape):
                 return torch.zeros((F,) + shape, dtype=i32, device=dev)
@@ -579,14 +650,18 @@ class CtuScan:
                      z(cw + 1, ctbc), z(ch + 1, ctbc), z(cw + 2, 2),
                      z(cw + 1, ctbc), z(ch + 1, ctbc), z(cw + 2, 2))
             ys_all = []
+            nr_sum = None
             for li in range(n_levels):
                 xl = {k: v[li] for k, v in xs.items()}
+                xl.update(nr_xs)
                 if allow_kernel:
                     carry, ys = ctu_step(self, inter, decide32, carry, xl,
                                          plain)
                 else:
                     carry, ys = plain(carry, xl)
-                ys_all.append(ys)
+                ys_all.append(ys[:7])
+                if ys[7] is not None:
+                    nr_sum = ys[7] if nr_sum is None else nr_sum + ys[7]
             (lv16_s, lv8_s, lv32_s, lvc16_s, u32_s, int_y, int_c) = (
                 torch.stack([y[k] for y in ys_all]) if ys_all[0][k]
                 is not None else None for k in range(7))
@@ -597,17 +672,22 @@ class CtuScan:
                 *(None if v is None else v.reshape(
                     v.shape[:dim] + (2, F, lmax) + v.shape[dim + 1:]).select(
                         dim + 1, f)
-                  for v, dim in ((lv8_s, 2), (lvc16_s, 2), (int_c, 1))))
+                  for v, dim in ((lv8_s, 2), (lvc16_s, 2), (int_c, 1))),
+                None if nr_sum is None else nr_sum[f])
                 for f in range(F)]
             if not batched:
                 return outs[0]
             return tuple(None if o[0] is None else torch.stack(o)
-                         for o in zip(*outs))
+                         for o in list(zip(*outs))[:11]) + (
+                None if nr_sum is None else {
+                    cat: tuple(torch.stack(v) for v in zip(
+                        *(o[11][cat] for o in outs)))
+                    for cat in outs[0][11]},)
 
         def frame_outputs(lv16_s, lv32_s, u32_s, int_y, lv8_s, lvc16_s,
-                          int_c):
+                          int_c, nr):
             """One frame's outputs from its lanes of the level stacks (the
-            chroma stacks as [..., 2, lmax, ...])."""
+            chroma stacks as [..., 2, lmax, ...]) and its NR statistics."""
             dev = int_y.device
 
             def T(a):
@@ -649,8 +729,19 @@ class CtuScan:
                 lv32_y = lv16_cb = lv16_cr = None
                 use32_out = torch.zeros((B32,), dtype=torch.bool, device=dev)
             tu8_out = torch.zeros((B16,), dtype=torch.bool, device=dev)
+            nr_out = None
+            if nr is not None:
+                lay, _ = nr_layout()
+                nr_out = {}
+                for cat, _n in NR_CATS:
+                    if not has32 and cat in ("y32", "c16"):
+                        continue
+                    o, nn = lay[cat]
+                    nr_out[cat] = (nr[o:o + nn], nr[o + nn],
+                                   nr[o + nn + 1:o + 2 * nn + 1],
+                                   nr[o + 2 * nn + 1])
             return (rec_y, rec_cb, rec_cr, lv16_y, lv8_cb, lv8_cr,
-                    lv32_y, lv16_cb, lv16_cr, use32_out, tu8_out, None)
+                    lv32_y, lv16_cb, lv16_cr, use32_out, tu8_out, nr_out)
 
         return run
 

@@ -34,6 +34,16 @@ the reference's order, ``lam * bits`` and ``plam * psy`` as single-rounding
 FMAs (``__fmaf_rn``), everything else compiled with ``--fmad=false``.  The
 psy lambda comes in precomputed (``xs["plam"]``) so kernel and plain step
 read the same float32 values.
+
+RDOQ and noise reduction (flags 64 and 128).  With RDOQ every chain
+chooses its levels as ``ops.quantize._rdoq_core`` does (psy-RDOQ on luma),
+reading the same lambda and rate tables, in the same float order (the
+prefix sums blocked by 16, the group sums in (y, x) order, first minima);
+with noise reduction the position offsets (``xs["nr_pack"]``) come off
+|coef| and the statistics of each frame add up in a zeroed per-launch
+buffer, the step's ``ys[7]``.  Such a launch is also counted in
+``LAUNCHES_RDOQ`` / ``LAUNCHES_NR``; on CUDA tensors these modes run the
+kernel or raise, like every other.
 """
 
 from __future__ import annotations
@@ -46,12 +56,16 @@ import torch
 from .._util import dev_table
 from ..build import load_library
 from ..ops._dct_matrix import T32
+from ..ops.quantize import rdoq_lambda_table, rdoq_rate_table
+from .ctu_scan import nr_layout
 
 #: launches of K1 made by ``ctu_step`` (the wrapper counts here, once per
 #: kernel launch, and nowhere else), and of those the launches of its
-#: 10-bit instantiation
+#: 10-bit instantiation, with RDOQ and with noise reduction
 LAUNCHES = 0
 LAUNCHES_10BIT = 0
+LAUNCHES_RDOQ = 0
+LAUNCHES_NR = 0
 
 #: the level inputs K1 reads; of the original samples only the quads'
 #: tiling (the slots' o16y / o8c hold the same samples as its sub-blocks)
@@ -73,7 +87,7 @@ def launch(lib, scan, inter: bool, decide32: bool, carry, xs):
     """Launch K1 from ``lib`` on the device of ``xs`` (the CUDA library on
     CUDA tensors; the host build of the same source on CPU tensors, which
     is how the CPU tests reach the kernel's arithmetic)."""
-    global LAUNCHES, LAUNCHES_10BIT
+    global LAUNCHES, LAUNCHES_10BIT, LAUNCHES_RDOQ, LAUNCHES_NR
     args, ys = kernel_args(scan, inter, decide32, carry, xs)
     rc = lib.k1_ctu_step(*args)
     if rc != 0:
@@ -82,9 +96,13 @@ def launch(lib, scan, inter: bool, decide32: bool, carry, xs):
     LAUNCHES += 1
     if scan.bit_depth == 10:
         LAUNCHES_10BIT += 1
-    lv16, lv8, lv32, lvc16, sel32, int_y, int_c = ys
+    if scan.rdoq:
+        LAUNCHES_RDOQ += 1
+    if scan.noise_reduction:
+        LAUNCHES_NR += 1
+    lv16, lv8, lv32, lvc16, sel32, int_y, int_c, nr = ys
     return carry, (lv16, lv8, lv32, lvc16, sel32.to(torch.bool), int_y,
-                   int_c)
+                   int_c, nr if scan.noise_reduction else None)
 
 
 def kernel_args(scan, inter: bool, decide32: bool, carry, xs):
@@ -159,6 +177,13 @@ def kernel_args(scan, inter: bool, decide32: bool, carry, xs):
                        ("cornfr", cornfr, (F, cw + 2, 2))):
         _check(nm, x, i32, shp)
 
+    if scan.noise_reduction:
+        nro = xs["nr_pack"]
+        _check("nr_pack", nro, i32, (nr_layout()[1],))
+        nrs = torch.zeros((F, nr_layout()[1]), dtype=i32, device=dev)
+    else:
+        nro = nrs = dummy["i1"]
+
     def out(*shape):
         return torch.empty(shape, dtype=i32, device=dev)
 
@@ -172,15 +197,20 @@ def kernel_args(scan, inter: bool, decide32: bool, carry, xs):
         rowf, colf, cornf, rowfb, colfb, cornfb, rowfr, colfr, cornfr,
         lv16, lv8, lv32, lvc16, sel32, int_y, int_c,
         rowf, colf, rowfb, colfb, rowfr, colfr,
-        dev_table("k1_tr_tt", _transform_tables, dev)]
+        dev_table("k1_tr_tt", _transform_tables, dev),
+        dev_table("rdoq_lam", rdoq_lambda_table, dev),
+        dev_table("rdoq_rate", rdoq_rate_table, dev), nro, nrs]
     arr = (ctypes.c_void_p * len(ptrs))(*[p.data_ptr() for p in ptrs])
     flags = ((1 if inter else 0) | (2 if decide32 else 0) | (4 if psy else 0)
              | (8 if scan.sign_hide else 0) | (16 if scan.strong else 0)
-             | (32 if scan.bit_depth == 10 else 0))
+             | (32 if scan.bit_depth == 10 else 0)
+             | (64 if scan.rdoq else 0)
+             | (128 if scan.noise_reduction else 0))
     stream = (torch.cuda.current_stream(dev).cuda_stream
               if dev.type == "cuda" else 0)
-    ys = (lv16, lv8, lv32, lvc16, sel32, int_y, int_c)
-    return (arr, len(ptrs), L, F, cw, ch, flags,
+    ys = (lv16, lv8, lv32, lvc16, sel32, int_y, int_c, nrs)
+    psyq = scan.psy_rdoq if scan.rdoq else 0.0
+    return (arr, len(ptrs), L, F, cw, ch, flags, ctypes.c_float(psyq),
             ctypes.c_void_p(stream)), ys
 
 

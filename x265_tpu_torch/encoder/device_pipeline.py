@@ -397,11 +397,20 @@ def _extend_builder(enc):
     return extend
 
 
+def nr_outputs(nr) -> dict:
+    """The scan's noise-reduction statistics as small outputs:
+    ``nr_<cat>`` = [s_i (n * n), c_i, s_p (n * n), c_p] int32."""
+    if nr is None:
+        return {}
+    return {"nr_" + cat: torch.cat([si, ci.reshape(1), sp, cp.reshape(1)])
+            for cat, (si, ci, sp, cp) in nr.items()}
+
+
 def build_i_pipeline(enc):
     """I-frame program: 16/32 intra analysis, the CTU scan with the
     in-scan 32-vs-16 RD decision, loop filters, DPB extension.
     run(oy, ocb, ocr, qpy, qpb, qpr, lam, qp_base, dqp_cb, dqp_cr,
-    sao_lam, qp_base_ctb) -> (small, tails, ext)."""
+    sao_lam, qp_base_ctb[, nr_offsets]) -> (small, tails, ext)."""
     g = enc.geom
     n = 16
     ph = g.ctbs_h << g.log2_ctb
@@ -419,7 +428,7 @@ def build_i_pipeline(enc):
     extend = _extend_builder(enc)
 
     def run(oy, ocb, ocr, qpy, qpb, qpr, lam, qp_base, dqp_cb, dqp_cr,
-            sao_lam, qp_base_ctb):
+            sao_lam, qp_base_ctb, nr_offsets=None):
         modes, _cost = analyse(oy)
         if decide:
             mode32, _c32 = analyse32(oy)
@@ -427,11 +436,12 @@ def build_i_pipeline(enc):
             mode32 = torch.zeros((B32,), dtype=torch.int32, device=dev)
         out = run_scan(oy, ocb, ocr, modes, mode32,
                        torch.zeros((B32,), dtype=torch.bool, device=dev),
-                       qpy, qpb, qpr, lam=lam)
+                       qpy, qpb, qpr, lam=lam, nr_offsets=nr_offsets)
         small, tails, fplanes = finish((oy, ocb, ocr), out, qp_base,
                                        dqp_cb, dqp_cr, sao_lam,
                                        qp_base_ctb=qp_base_ctb)
-        small = dict(small, modes=modes, mode32=mode32, use32=out[9])
+        small = dict(small, modes=modes, mode32=mode32, use32=out[9],
+                     **nr_outputs(out[11]))
         return small, tails, extend(fplanes)
 
     return run
@@ -777,7 +787,7 @@ def build_p_pipeline(enc, nr: int = 1):
 
     def main(oy, ocb, ocr, modes, mode32, mv, rsel, inter, pred_y, pred_cb,
              pred_cr, qpy, qpb, qpr, lam, qp_base, dqp_cb, dqp_cr, sao_lam,
-             qp_base_ctb, ref_pocs):
+             qp_base_ctb, ref_pocs, nr_offsets=None):
         merged = finish.merged_masks(inter, (mv, rsel))
         m32_in = None
         if merged is not None:
@@ -788,7 +798,7 @@ def build_p_pipeline(enc, nr: int = 1):
                        torch.zeros((B32,), dtype=torch.bool, device=dev),
                        qpy, qpb, qpr, lam=lam, is_inter=inter,
                        ipred_y=pred_y, ipred_cb=pred_cb, ipred_cr=pred_cr,
-                       m32_in=m32_in)
+                       m32_in=m32_in, nr_offsets=nr_offsets)
 
         def rep4(a):
             return a.reshape(gh, gw, -1).repeat_interleave(
@@ -804,12 +814,12 @@ def build_p_pipeline(enc, nr: int = 1):
                                        motion_b=motion_b,
                                        qp_base_ctb=qp_base_ctb,
                                        merged=merged)
-        small = dict(small, use32=out[9])
+        small = dict(small, use32=out[9], **nr_outputs(out[11]))
         return small, tails, extend(fplanes)
 
     def run(oy, ocb, ocr, refs_y, refs_cb, refs_cr, qpy, qpb, qpr, lam,
             qp_base, dqp_cb, dqp_cr, sao_lam, qp_base_ctb, ref_pocs,
-            wy=64, wo=0, n_act=None):
+            wy=64, wo=0, n_act=None, nr_offsets=None):
         if n_act is None:
             n_act = len(refs_y)
         rbits = ref_idx_bits(nr, n_act)
@@ -821,7 +831,7 @@ def build_p_pipeline(enc, nr: int = 1):
             oy, ocb, ocr, modes, mode32, mv, rsel, inter, pred_y, pred_cb,
             pred_cr, qpy, qpb, qpr, lam, qp_base, dqp_cb, dqp_cr, sao_lam,
             qp_base_ctb, torch.as_tensor(np.asarray(ref_pocs, np.int32),
-                                         device=dev))
+                                         device=dev), nr_offsets)
         small = dict(small, modes=modes, mode32=mode32, mv=mv.to(torch.int16),
                      ref_idx=rsel, inter=inter, cost_p=cost_p, cost_i=cost_i)
         return small, tails, ext
@@ -1012,7 +1022,7 @@ def build_b_pipeline(enc, batch: int | None = None, make_ext: bool = False):
 
     def main(oy, ocb, ocr, modes, mode32, mv0, mv1, d, inter, pred_y,
              pred_cb, pred_cr, qpy, qpb, qpr, lam, qp_base, dqp_cb, dqp_cr,
-             sao_lam, poc_l0, poc_l1, qp_base_ctb):
+             sao_lam, poc_l0, poc_l1, qp_base_ctb, nr_offsets=None):
         args = [oy, ocb, ocr, modes, mode32, mv0, mv1, d, inter, pred_y,
                 pred_cb, pred_cr, qpy, qpb, qpr, lam, qp_base_ctb]
         if not batch:
@@ -1032,7 +1042,8 @@ def build_b_pipeline(enc, batch: int | None = None, make_ext: bool = False):
                        torch.zeros((F, B32), dtype=torch.bool, device=dev),
                        qpy, qpb, qpr, lam=lam, is_inter=inter,
                        ipred_y=pred_y, ipred_cb=pred_cb, ipred_cr=pred_cr,
-                       m32_in=m32_in)
+                       m32_in=m32_in, nr_offsets=nr_offsets)
+        nr = out[11]
         res = []
         for f in range(F):
             # normalised per-4x4 two-list motion for the deblock
@@ -1048,11 +1059,14 @@ def build_b_pipeline(enc, batch: int | None = None, make_ext: bool = False):
                         rep4(pocb.to(torch.int32))[:, :, 0])
             small, tails, fplanes = finish(
                 (oy[f], ocb[f], ocr[f]),
-                tuple(None if x is None else x[f] for x in out), qp_base[f],
+                tuple(None if x is None else x[f] for x in out[:11]) + (None,),
+                qp_base[f],
                 dqp_cb[f], dqp_cr[f], sao_lam[f], inter=inter[f],
                 mv=mv0[f], motion_b=motion_b, qp_base_ctb=qp_base_ctb[f],
                 merged=merged[f])
-            small = dict(small, use32=out[9][f])
+            small = dict(small, use32=out[9][f], **nr_outputs(
+                None if nr is None else {c: tuple(v[f] for v in t)
+                                         for c, t in nr.items()}))
             res.append((small, tails,
                         extend(fplanes) if make_ext else None))
         if not batch:
@@ -1067,13 +1081,13 @@ def build_b_pipeline(enc, batch: int | None = None, make_ext: bool = False):
 
     def run(oy, ocb, ocr, r0y, r0cb, r0cr, r1y, r1cb, r1cr, qpy, qpb, qpr,
             lam, qp_base, dqp_cb, dqp_cr, sao_lam, poc_l0, poc_l1,
-            qp_base_ctb):
+            qp_base_ctb, nr_offsets=None):
         (modes, mode32, mv0, mv1, d, inter, pred_y, pred_cb,
          pred_cr) = prep(oy, r0y, r0cb, r0cr, r1y, r1cb, r1cr, qp_base)
         small, tails, ext = main(oy, ocb, ocr, modes, mode32, mv0, mv1, d,
                                  inter, pred_y, pred_cb, pred_cr, qpy, qpb,
                                  qpr, lam, qp_base, dqp_cb, dqp_cr, sao_lam,
-                                 poc_l0, poc_l1, qp_base_ctb)
+                                 poc_l0, poc_l1, qp_base_ctb, nr_offsets)
         small = dict(small, modes=modes, mode32=mode32,
                      mv0=mv0.to(torch.int16), mv1=mv1.to(torch.int16),
                      dirs=d.to(torch.uint8), inter=inter)

@@ -15,9 +15,10 @@ lookahead (``encoder/lookahead.py``: lowres analysis, cuTree offsets, the
 b-adapt trellis, the lookahead scenecut), so ``Params()`` defaults run;
 Main (8-bit) and Main10 (``internal_bit_depth=10``: uint16 source and
 recon planes, the hash SEIs over 16-bit samples), 64x64 CTBs, on the card
-by default (``device="cuda"``; the tests pass ``device="cpu"``).  Other
-bit depths, RDOQ, noise reduction, lossless and HRD raise
-``NotImplementedError``.
+by default (``device="cuda"``; the tests pass ``device="cpu"``); RDOQ with
+psy-RDOQ (the slow presets) and DCT-domain noise reduction
+(``noise_reduction_intra`` / ``_inter``).  Other bit depths, lossless and
+HRD raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -145,10 +146,6 @@ def check_supported(params: Params) -> None:
     bad = []
     if params.internal_bit_depth not in (8, 10):
         bad.append("bit depth other than 8 and 10")
-    if params.rdoq_level:
-        bad.append("RDOQ")
-    if params.noise_reduction_intra or params.noise_reduction_inter:
-        bad.append("noise reduction")
     if params.lossless:
         bad.append("lossless")
     if params.ctu_size != 64:
@@ -247,6 +244,23 @@ class Encoder:
         self.me_fine = min(8, mr)
         self.me_coarse = max(0, (mr - self.me_fine) // 4)
         self.me_range = 4 * self.me_coarse + self.me_fine
+        # DCT-domain noise reduction (x265 --nr-intra/--nr-inter;
+        # quant.cpp:205 denoiseDct + frameencoder.cpp:1331 update):
+        # host-side running sums drive per-position offsets fed to the
+        # device scan each frame
+        self._nr_enabled = bool(params.noise_reduction_intra
+                                or params.noise_reduction_inter)
+        self._nr_sizes = {"y16": (256, 16), "c8": (64, 8),
+                          "y32": (1024, 32), "c16": (256, 16)}
+        self._nr_state = {}
+        self._nr_offsets = {}
+        if self._nr_enabled:
+            for cat, (nn, _) in self._nr_sizes.items():
+                for sfx in ("_i", "_p"):
+                    self._nr_state[cat + sfx] = [
+                        np.zeros((nn,), np.int64), 0]
+                    self._nr_offsets[cat + sfx] = np.zeros((nn,),
+                                                           np.int32)
         from .ratecontrol import RateControl
         self.rc = RateControl(params)
         self.hrd = bool(params.hrd)
@@ -818,10 +832,44 @@ class Encoder:
                 strong_intra_smoothing=bool(
                     self.sps.strong_intra_smoothing),
                 rdoq=self.params.rdoq_level > 0,
-                noise_reduction=False,
+                noise_reduction=self._nr_enabled,
                 psy_rd=self.params.psy_rd,
                 psy_rdoq=self.params.psy_rdoq)
         return self._ctu_scan
+
+    def _nr_update(self, o):
+        """Noise-reduction running-average update from the frame's
+        fetched |DCT coef| sums (frameencoder.cpp:1331
+        noiseReductionUpdate, incl. the halving cap and the
+        don't-denoise-DC rule)."""
+        p = self.params
+        max_blocks = {4: 1 << 18, 8: 1 << 16, 16: 1 << 14, 32: 1 << 12}
+        for cat, (nn, size) in self._nr_sizes.items():
+            key = "nr_" + cat
+            if key not in o:
+                continue
+            v = np.asarray(o[key]).astype(np.int64)
+            si, ci = v[:nn], int(v[nn])
+            sp, cp = v[nn + 1:2 * nn + 1], int(v[2 * nn + 1])
+            for sfx, s_, c_ in (("_i", si, ci), ("_p", sp, cp)):
+                st = self._nr_state[cat + sfx]
+                st[0] += s_
+                st[1] += c_
+                if st[1] > max_blocks[size]:
+                    st[0] >>= 1
+                    st[1] >>= 1
+                strength = (p.noise_reduction_intra if sfx == "_i"
+                            else p.noise_reduction_inter)
+                num = strength * st[1] + st[0] // 2
+                off = (num // (st[0] + 1)).astype(np.int32)
+                off[0] = 0               # never denoise DC
+                self._nr_offsets[cat + sfx] = off
+
+    def _nr_args(self) -> dict:
+        """The dispatch's noise-reduction offsets (those current now: the
+        scan reads them at the call, and ``_nr_update`` replaces entries)."""
+        return dict(nr_offsets=self._nr_offsets if self._nr_enabled
+                    else None)
 
     def _fetch_outputs(self, pend):
         """Fetch the frame's small outputs (one packed copy, shared by the
@@ -834,6 +882,8 @@ class Encoder:
             o = f if k is None else {key: v[k] for key, v in f.items()}
         else:
             o = fetch_packed(small)
+        if self._nr_enabled:
+            self._nr_update(o)
         return o, (o["cy"], o["ccb"], o["ccr"])
 
     def _scatter_syntax(self, ps, o, coeffs):
@@ -935,7 +985,8 @@ class Encoder:
         qp_base, dq_cb, dq_cr, sao_lam = self._filter_qps()
         small, tails, ext = self._i_pipeline(
             *(self._dev(pl) for pl in orig), qpy, qpb, qpr, lam,
-            int(qp_base), int(dq_cb), int(dq_cr), float(sao_lam), qp_ctb)
+            int(qp_base), int(dq_cb), int(dq_cr), float(sao_lam), qp_ctb,
+            **self._nr_args())
         return (small, tails), ext
 
     def _finish_i(self, pend):
@@ -978,7 +1029,7 @@ class Encoder:
             tuple(r[2] for r in refs),
             qpy, qpb, qpr, lam, int(qp_base), int(dq_cb), int(dq_cr),
             float(sao_lam), qp_ctb, np.asarray(pocs, np.int32),
-            int(wp[0]), int(wp[1]), n_act=len(ref_pocs))
+            int(wp[0]), int(wp[1]), n_act=len(ref_pocs), **self._nr_args())
         return (small, tails), ext
 
     def _finish_p(self, pend):
@@ -1033,7 +1084,7 @@ class Encoder:
         if self._b_pipeline is None:
             self._b_pipeline = build_b_pipeline(self)
         small, tails, _ = self._b_pipeline(
-            *self._b_inputs(orig, l0_poc, l1_poc))
+            *self._b_inputs(orig, l0_poc, l1_poc), **self._nr_args())
         return (small, tails)
 
     def _dispatch_b_ref(self, orig, l0_poc, l1_poc):
@@ -1043,7 +1094,7 @@ class Encoder:
         if self._b_ref_pipeline is None:
             self._b_ref_pipeline = build_b_pipeline(self, make_ext=True)
         small, tails, ext = self._b_ref_pipeline(
-            *self._b_inputs(orig, l0_poc, l1_poc))
+            *self._b_inputs(orig, l0_poc, l1_poc), **self._nr_args())
         return (small, tails), ext
 
     def _dispatch_b_batch(self, pends, l0_poc, l1_poc):
@@ -1065,7 +1116,8 @@ class Encoder:
         fq = [np.stack([p.filter_qps[i] for p in pends]) for i in range(4)]
         small, tails, _ = pipe(
             *orig, *refs0, *refs1, qs[0], qs[1], qs[2], qs[3], fq[0],
-            fq[1], fq[2], fq[3], int(l0_poc), int(l1_poc), qs[4])
+            fq[1], fq[2], fq[3], int(l0_poc), int(l1_poc), qs[4],
+            **self._nr_args())
         handle = _BatchFetch(small)
         for k, p in enumerate(pends):
             p.out_dev = (handle, tails)

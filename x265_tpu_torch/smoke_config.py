@@ -14,11 +14,24 @@ content (8-bit; ``synthetic_frame10`` at Main10):
   b-adapt 2, ``rc_lookahead=20``, cuTree, merange 57), ten frames through
   ``push_frame`` / ``flush``: the lookahead chooses the mini-GOPs;
 * bench10: the bench slice at Main10 (``internal_bit_depth=10``), ten
-  frames of ``synthetic_frame10`` panning 3 px a frame."""
+  frames of ``synthetic_frame10`` panning 3 px a frame;
+* slow: the bench slice's ten frames at ``default_params("slow", qp=32,
+  decoded_picture_hash=3)``: RDOQ (``rdoq_level=2``) with psy-RDOQ 1.0,
+  ``ref=4``, b-adapt 2 and ``rc_lookahead=25`` (the whole slice in one
+  lookahead window);
+* nr: the B slice's configuration with DCT-domain noise reduction,
+  ``noise_reduction_intra=noise_reduction_inter=600``, on ten frames: the
+  first mini-GOP is dispatched before any frame is fetched, so its offsets
+  are still zero, and the second (P9 B7 B6 B8) uses the ones learned from
+  the first.  With six frames the stream would equal the B slice's."""
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
+
+from .common.params import default_params
 
 WIDTH, HEIGHT, FRAMES = 1920, 1080, 4
 FRAMES_B = 6
@@ -43,6 +56,19 @@ def smoke_params_bench() -> dict:
 
 def smoke_params_bench10() -> dict:
     return dict(smoke_params_bench(), internal_bit_depth=10)
+
+
+def smoke_params_slow() -> dict:
+    """``default_params("slow", ...)``'s fields that differ from
+    ``Params()``, with the bench slice's size, QP and hash."""
+    p = dataclasses.asdict(default_params("slow", **smoke_params_bench()))
+    base = dataclasses.asdict(default_params())
+    return {k: v for k, v in p.items() if v != base[k]}
+
+
+def smoke_params_nr() -> dict:
+    return dict(smoke_params_b(), noise_reduction_intra=600,
+                noise_reduction_inter=600)
 
 
 def synthetic_frame(w, h, seed=0):
@@ -74,6 +100,37 @@ def smoke_frames_b() -> list:
 def smoke_frames_bench() -> list:
     """The bench slice's ten display-order frames (``bench.py``'s)."""
     return smoke_frames(FRAMES_BENCH)
+
+
+def smoke_frames_slow() -> list:
+    """The slow slice's ten display-order frames (the bench slice's)."""
+    return smoke_frames(FRAMES_BENCH)
+
+
+def smoke_frames_nr() -> list:
+    """The NR slice's ten display-order frames (the bench slice's)."""
+    return smoke_frames(FRAMES_BENCH)
+
+
+def plant_level_8192(x: dict, cx: int, cy: int, cw: int, bd: int) -> None:
+    """Make the inter TU32 trial of CTU (cx, cy)'s first quad code a DC
+    level of 8192 (the rate table's odd entry) on scan inputs ``x``
+    (numpy arrays or tensors, ``chip_smoke.k1_inputs``' keys): its four
+    16x16 blocks inter with a flat prediction and a flat residual r (the
+    32x32 DC coefficient 128 r at 8 bits, 32 r at 10), r = 160 at 8 bits
+    and 640 at 10, at the CTU's QP 0 (12 with Main10's offset), where
+    levels are (coef * 26214 + 2^15) >> 16: DC 20480 -> 8192."""
+    pw = x["oy"].shape[-1]
+    gw16, gw32 = pw // 16, pw // 32
+    base, r = (40, 160) if bd == 8 else (100, 640)
+    x["oy"][64 * cy:64 * cy + 32, 64 * cx:64 * cx + 32] = base + r
+    for dy in (0, 1):
+        for dx in (0, 1):
+            b = (4 * cy + dy) * gw16 + 4 * cx + dx
+            x["ipred_y"][b] = base
+            x["is_inter"][b] = True
+    x["m32_in"][2 * cy * gw32 + 2 * cx] = True
+    x["qp"][cy * cw + cx] = 6 * (bd - 8)
 
 
 def synthetic_frame10(w, h, seed=0):
