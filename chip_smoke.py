@@ -6,7 +6,9 @@
 Phases (each raises on failure; the script then exits non-zero):
   1. the card's name and power limit (nvidia-smi), then the build of the
      kernels K1 and K2 from x265_tpu_torch/csrc/ with nvcc for sm_90a (one
-     nvcc per source, all started together);
+     nvcc per source, all started together: K1's instantiations at CTB
+     64, 32 and 16 are three sources), its time and ptxas's registers and
+     spills per instantiation;
   2. K1 against its plain torch step on the card, I and P, psy-rd 2.0:
      the whole 62-level CTU scan of seeded random 1920x1088 inputs (every
      output equal), then the busiest level alone (L = 15 real lanes): one
@@ -71,13 +73,31 @@ Phases (each raises on failure; the script then exits non-zero):
      slice's); MD5, size, encode order and kinds equal to
      x265_tpu_torch/data/golden_1080p_nr.json, K1 and K2 launched the
      counts ``bench_launches`` gives, every K1 launch on its
-     noise-reduction path, offsets learned.
+     noise-reduction path, offsets learned;
+ 10. the superfast slice: the bench slice's ten frames at
+     default_params("superfast", qp=32, decoded_picture_hash=1) (CTU 32:
+     126 wavefront levels; bframes=3 with a fixed GOP, one reference,
+     subme 1), a warm and a timed encode; MD5, size, encode-order POCs and
+     kinds equal to x265_tpu_torch/data/golden_1080p_superfast.json, K1
+     and K2 launched the counts ``bench_launches`` gives for 126 levels,
+     every K1 launch at CTB 32 (counted apart);
+ 11. the ultrafast slice: the same at default_params("ultrafast") (also
+     subme 0, no SAO, no sign hiding) against golden_1080p_ultrafast.json;
+ 12. the IPPP slice at ctu_size=16 (254 levels, no 32x32 candidate) with
+     the MD5 hash SEI through encode_frame, warm and timed, against
+     golden_1080p_ctu16.json: K1 254 launches a frame, all at CTB 16.
 Phase 2 also holds K1's RDOQ (psy-RDOQ 1.0) and noise-reduction paths: the
 busiest level (I and P, F = 1 and 2, 8 and 10 bits) equal to the plain
 step, NR sums included, with seeded offsets for NR and, for RDOQ, a P
 frame's CTU planted to code a level of 8192; each with its one-launch
 time, the plain step's time and the bound (RDOQ's float operations at the
 float32 rate, ``RDOQ_FLOPS``).
+Phase 2 also holds K1 at CTB 32 and 16 (``k1_inputs(..., log2_ctb)``, the
+126- and 254-level scans of the same 1080p planes, decide32 at CTB 32 as
+the pipelines run it): the whole scan, then the busiest level (30 and 60
+lanes) I and P at F = 1 and 2, P at 10 bits, and at CTB 32 the RDOQ P
+launch with a planted level of 8192, each equal to the plain step with
+its one-launch time, the plain step's time and the bound.
 Phases 2 and 3 also hold the kernels' 10-bit instantiations: K1's busiest
 level (I and P, F = 1 and 2) on 10-bit inputs (samples 0..1023 with bands
 at 0 and 1023, QPs with the 12 of the bit-depth offset) equal to the plain
@@ -142,8 +162,9 @@ def _events_ms(fn, reps):
 
 
 def k1_launch_ms(lib, scan, inter, xs, carry0, reps):
-    """Mean device milliseconds of one K1 launch (decide32) from ``lib`` on
-    level inputs ``xs``, timed with CUDA events around each launch alone.
+    """Mean device milliseconds of one K1 launch (decide32 where the CTB
+    has 32x32 quads, as the pipelines run it) from ``lib`` on level inputs
+    ``xs``, timed with CUDA events around each launch alone.
     K1 writes the frontiers into its carry, so every launch gets a fresh
     copy of ``carry0``, made outside the timed events; the launches are
     queued behind a sleep on the card so that the host's launch time falls
@@ -152,7 +173,8 @@ def k1_launch_ms(lib, scan, inter, xs, carry0, reps):
     from x265_tpu_torch.encoder import ctu_scan_cuda
     ck = tuple(c.clone() for c in carry0)
     # args holds raw pointers into ck, xs and the outputs _ys
-    args, _ys = ctu_scan_cuda.kernel_args(scan, inter, True, ck, xs)
+    args, _ys = ctu_scan_cuda.kernel_args(scan, inter, scan.t["has32"], ck,
+                                          xs)
     ev = [(torch.cuda.Event(enable_timing=True),
            torch.cuda.Event(enable_timing=True)) for _ in range(reps + 1)]
     torch.cuda.synchronize()
@@ -217,43 +239,50 @@ def _tu_chain_macs(n):
     return tu(n) + 2 * tu(n // 2)
 
 
-def k1_level_bound(xs, ys, inter, scan=None):
-    """Bound of one K1 launch on level inputs ``xs``: the bytes of the
-    inputs it reads (the original samples in one tiling), the frontier
-    entries it reads and writes, the transform tables and its outputs; the
-    multiply-adds of its transforms, counting the inter TU32 trials this
-    level's data asks for, at the dp2a rate.  With RDOQ (``scan.rdoq``)
-    also its float operations (``RDOQ_FLOPS`` a coefficient, ``PSY_FLOPS``
-    more on luma with psy-RDOQ) at the float32 rate, and the lambda table;
-    with noise reduction the offsets read and the statistics written, and
-    (every quad then runs the trial) the trial of every quad.  The bound
-    is the larger of the bytes' time and the slower pipe's time."""
+def k1_level_bound(xs, ys, inter, scan):
+    """Bound of one K1 launch of ``scan`` on level inputs ``xs``: the bytes
+    of the inputs it reads (the original samples in one tiling: the
+    quads', at CTB 16 the slot's), the frontier entries it reads and
+    writes, the transform tables and its outputs; the multiply-adds of its
+    transforms (per quad the 32x32 candidate and four 16x16 slots, at CTB
+    16 one slot), counting the inter TU32 trials this level's data asks
+    for, at the dp2a rate.  With RDOQ (``scan.rdoq``) also its float
+    operations (``RDOQ_FLOPS`` a coefficient, ``PSY_FLOPS`` more on luma
+    with psy-RDOQ) at the float32 rate, and the lambda table; with noise
+    reduction the offsets read and the statistics written, and (every quad
+    then runs the trial) the trial of every quad.  The bound is the larger
+    of the bytes' time and the slower pipe's time."""
     L = xs["cx"].shape[0]
-    keys = ["cx", "cy", "m16", "m32", "qp_y", "qp_cb", "qp_cr", "o32y",
-            "o16cb", "o16cr", "l16_av", "c8_av", "l32_av", "c16_av",
-            "quad_ok", "lam", "plam"]
+    t = scan.t
+    has32, nq, spq = t["has32"], t["n_quads"], t["slots_per_quad"]
+    ctb = 1 << t["geom"].log2_ctb
+    ctbc = ctb // 2
+    keys = ["cx", "cy", "m16", "qp_y", "qp_cb", "qp_cr", "l16_av", "c8_av",
+            "lam", "plam"]
+    keys += (["m32", "o32y", "o16cb", "o16cr", "l32_av", "c16_av",
+              "quad_ok"] if has32 else ["o16y", "o8c"])
     if inter:
         keys += ["inter", "ipy", "ipc", "m32_in"]
     # per lane: reads 2 rows + 1 column + 1 corner of each plane's frontier,
     # writes 1 row + 1 column + 1 corner of each
-    frontier = L * 4 * ((3 * 64 + 1) + (2 * 64 + 1) + 2 * ((3 * 32 + 1)
-                                                          + (2 * 32 + 1)))
+    frontier = L * 4 * ((3 * ctb + 1) + (2 * ctb + 1) + 2 * (
+        (3 * ctbc + 1) + (2 * ctbc + 1)))
     tables = 4 * 4 * 336     # K1's packed DCT matrices, one bulk copy
-    rdoq = scan is not None and scan.rdoq
-    nr = scan is not None and scan.noise_reduction
-    if rdoq:
+    if scan.rdoq:
         tables += 4 * 2 * 64
-    if nr:
+    if scan.noise_reduction:
         tables += _nbytes([xs["nr_pack"]])
-    nbytes = _nbytes([xs[k] for k in keys]) + frontier + tables + _nbytes(
-        [y for y in ys if y is not None])
-    trials = (L * 4 if nr else int(xs["m32_in"].sum())) if inter else 0
-    macs = (L * 4 * (_tu_chain_macs(32) + 4 * _tu_chain_macs(16))
+    nbytes = _nbytes([xs[k] for k in keys if k in xs]) + frontier + \
+        tables + _nbytes([y for y in ys if y is not None])
+    trials = ((L * nq if scan.noise_reduction else int(xs["m32_in"].sum()))
+              if inter and has32 else 0)
+    macs = (L * nq * ((_tu_chain_macs(32) if has32 else 0)
+                      + spq * _tu_chain_macs(16))
             + trials * _tu_chain_macs(32))
     t_ops = macs / DP2A_MAC_PER_S
-    if rdoq:
-        coefs = L * 4 * (1536 + 4 * 384) + trials * 1536
-        luma = L * 4 * (1024 + 4 * 256) + trials * 1024
+    if scan.rdoq:
+        coefs = L * nq * ((1536 if has32 else 0) + spq * 384) + trials * 1536
+        luma = L * nq * ((1024 if has32 else 0) + spq * 256) + trials * 1024
         flops = coefs * RDOQ_FLOPS + (luma * PSY_FLOPS if scan.psy_rdoq > 0
                                       else 0)
         t_ops = max(t_ops, flops / FP32_FLOPS_PER_S)
@@ -337,16 +366,18 @@ def _capture_level(li, run):
     return out, got
 
 
-def k1_inputs(dev, bd=8, mode=None):
+def k1_inputs(dev, bd=8, mode=None, log2_ctb=6):
     """Seeded random inputs of the 1080p CTU scan, psy-rd 2.0, at bit depth
     ``bd`` (10: samples and predictions 0..1023 with a band of columns at 0
-    and one at 1023, QPs 36..51).  ``mode`` "rdoq": the scan with RDOQ and
-    psy-RDOQ 1.0, and a CTU of the busiest level planted so that a TU32
-    trial codes a level of 8192 (``smoke_config.plant_level_8192``);
-    "nr": with noise reduction, seeded offsets (some zero, DC zero).
-    Returns ``(scan, li, n_real, go)``: the busiest wavefront level ``li``
-    with its ``n_real`` real lanes, and ``go(cfg, route, frames=1)`` that
-    runs the 62-level scan, ``cfg`` "I" or "P", ``route`` "kernel" or
+    and one at 1023, QPs 36..51) and CTB size ``1 << log2_ctb``.  ``mode``
+    "rdoq": the scan with RDOQ and psy-RDOQ 1.0, and a CTU of the busiest
+    level planted so that a TU32 trial codes a level of 8192
+    (``smoke_config.plant_level_8192``); "nr": with noise reduction, seeded
+    offsets (some zero, DC zero).  Returns ``(scan, li, n_real, go)``: the
+    busiest wavefront level ``li`` with its ``n_real`` real lanes, and
+    ``go(cfg, route, frames=1)`` that runs the whole scan (62 levels at CTB
+    64, 126 at 32, 254 at 16; decide32 where the CTB has 32x32 quads, as
+    the pipelines run it), ``cfg`` "I" or "P", ``route`` "kernel" or
     "plain", of one frame or of two frames batched (the second from its own
     seed)."""
     import numpy as np
@@ -355,8 +386,8 @@ def k1_inputs(dev, bd=8, mode=None):
     from x265_tpu_torch.encoder.ctu_scan import NR_CATS, CtuScan
     from x265_tpu_torch.smoke_config import plant_level_8192
 
-    g = PictureGeometry(1920, 1088, 6, 3)
-    ph, pw = g.ctbs_h << 6, g.ctbs_w << 6
+    g = PictureGeometry(1920, 1088, log2_ctb, 3)
+    ph, pw = g.ctbs_h << log2_ctb, g.ctbs_w << log2_ctb
     b16, b32, nctb = (ph // 16) * (pw // 16), (ph // 32) * (pw // 32), \
         g.n_ctbs
 
@@ -400,8 +431,11 @@ def k1_inputs(dev, bd=8, mode=None):
     real = (scan.t["xs"]["ctu"] < nctb).sum(1)
     li = int(real.argmax())
     one = frame(1)
-    if mode == "rdoq":
-        plant_level_8192(one, li - 10, 5, g.ctbs_w, bd)   # cx + 2 cy = li
+    if mode == "rdoq":   # a CTU of level li (cx + 2 cy = li)
+        c = int(scan.t["xs"]["ctu"][li][0]) if log2_ctb != 6 else \
+            5 * g.ctbs_w + li - 10
+        plant_level_8192(one, c % g.ctbs_w, c // g.ctbs_w, g.ctbs_w, bd,
+                         1 << log2_ctb)
     two = {k: torch.stack([v, w]) for (k, v), w in zip(
         one.items(), frame(2).values())}
     inter_keys = ("is_inter", "ipred_y", "ipred_cb", "ipred_cr", "m32_in")
@@ -417,7 +451,7 @@ def k1_inputs(dev, bd=8, mode=None):
 
     def go(cfg, route, frames=1):
         x = one if frames == 1 else two
-        fn = scan.scan_fn(inter=cfg == "P", decide32=True,
+        fn = scan.scan_fn(inter=cfg == "P", decide32=scan.t["has32"],
                           allow_kernel=route == "kernel")
         return fn(x["oy"], x["ocb"], x["ocr"], x["modes"], x["mode32"],
                   x["use32"], x["qp"], x["qp"], x["qp"], lam=x["lam"],
@@ -437,7 +471,8 @@ def _k1_level(lib, scan, li, is_p, run, label):
     _out, lvl = _capture_level(li, run)
     xs, carry0, plain = lvl["xs"], lvl["carry"], lvl["plain"]
     ck = tuple(c.clone() for c in carry0)
-    carry_k, ys_k = ctu_scan_cuda.launch(lib, scan, is_p, True, ck, xs)
+    carry_k, ys_k = ctu_scan_cuda.launch(lib, scan, is_p, scan.t["has32"],
+                                         ck, xs)
     carry_p, ys_p = plain(tuple(c.clone() for c in carry0), xs)
     torch.cuda.synchronize()
     err = max(_max_abs_err(carry_k, carry_p), _max_abs_err(ys_k, ys_p))
@@ -454,21 +489,28 @@ def _k1_level(lib, scan, li, is_p, run, label):
                 if ys_p[2] is not None else 0)
 
 
-def check_k1(dev, lib, bd=8, mode=None):
-    """K1 vs the plain step: at 8 bits full scans of random 1080p inputs,
-    then (at ``bd``) the busiest level alone (equality, one-launch time,
-    bound), for one frame and for two frames batched.  ``mode`` "rdoq" /
-    "nr" (``k1_inputs``): the busiest level alone, with the outputs and
-    the NR sums equal, and with RDOQ a level of 8192 coded in the P
-    frame's planted CTU."""
+def _ctb_tag(log2_ctb):
+    return "" if log2_ctb == 6 else f" CTB {1 << log2_ctb}"
+
+
+def check_k1(dev, lib, bd=8, mode=None, log2_ctb=6, cfgs=("I", "P"),
+             batched=True):
+    """K1 vs the plain step at CTB size ``1 << log2_ctb``: at 8 bits full
+    scans of random 1080p inputs, then (at ``bd``) the busiest level alone
+    (equality, one-launch time, bound), for one frame and (``batched``)
+    for two frames batched, for each of ``cfgs``.  ``mode`` "rdoq" / "nr"
+    (``k1_inputs``): the busiest level alone, with the outputs and the NR
+    sums equal, and with RDOQ a level of 8192 coded in the P frame's
+    planted CTU."""
     import torch
 
-    scan, li, n_real, run = k1_inputs(dev, bd, mode)
+    scan, li, n_real, run = k1_inputs(dev, bd, mode, log2_ctb)
+    nl = scan.t["n_levels"]
     res = {}
-    tag = f"K1 {bd}-bit" if bd != 8 else "K1"
+    tag = (f"K1 {bd}-bit" if bd != 8 else "K1") + _ctb_tag(log2_ctb)
     if mode:
         tag += f" {mode}"
-    for cfg in ("I", "P"):
+    for cfg in cfgs:
         is_p = cfg == "P"
 
         def go(route, frames=1, cfg=cfg):
@@ -478,7 +520,7 @@ def check_k1(dev, lib, bd=8, mode=None):
         if mode:
             scan_ms = _events_ms(lambda: go("kernel"), 1)
             scan_plain_ms = None
-            print(f"{tag} {cfg}: 62-level scan {scan_ms:.3f} ms kernel",
+            print(f"{tag} {cfg}: {nl}-level scan {scan_ms:.3f} ms kernel",
                   flush=True)
         elif bd == 8:
             out_k = go("kernel")
@@ -489,37 +531,39 @@ def check_k1(dev, lib, bd=8, mode=None):
                 _report_diff("scan", out_k, out_p)
             scan_ms = _events_ms(lambda: go("kernel"), 2)
             scan_plain_ms = _events_ms(lambda: go("plain"), 1)
-            print(f"{tag} {cfg}: 62-level scan {scan_ms:.3f} ms kernel, "
+            print(f"{tag} {cfg}: {nl}-level scan {scan_ms:.3f} ms kernel, "
                   f"{scan_plain_ms:.3f} ms plain, max_abs_err {scan_err}",
                   flush=True)
         else:
             scan_ms = _events_ms(lambda: go("kernel"), 2)
             scan_plain_ms = None
-            print(f"{tag} {cfg}: 62-level scan {scan_ms:.3f} ms kernel",
+            print(f"{tag} {cfg}: {nl}-level scan {scan_ms:.3f} ms kernel",
                   flush=True)
         # the busiest level alone: one frame, then two frames batched
-        one = _k1_level(lib, scan, li, is_p, lambda: go("kernel"),
-                        f"{tag} {cfg} level")
-        two = _k1_level(lib, scan, li, is_p,
-                        lambda: go("kernel", frames=2),
-                        f"{tag} {cfg} F=2 level")
-        for r in (one, two):
+        rs = [_k1_level(lib, scan, li, is_p, lambda: go("kernel"),
+                        f"{tag} {cfg} level")]
+        if batched:
+            rs.append(_k1_level(lib, scan, li, is_p,
+                                lambda: go("kernel", frames=2),
+                                f"{tag} {cfg} F=2 level"))
+        for r in rs:
             print(f"{tag} {cfg}: level {li} (F = {r['F']}, L = {r['L']}, "
                   f"{r['F'] * n_real} real lanes): {r['ms']:.4f} ms per "
                   f"launch, plain step {r['plain_ms']:.3f} ms, bound "
                   f"{r['bound_ms']:.5f} ms ({r['bound_by']}), max_abs_err "
                   f"{r['err']}", flush=True)
-        if scan_err != 0.0 or one["err"] != 0.0 or two["err"] != 0.0:
+        if scan_err != 0.0 or any(r["err"] != 0.0 for r in rs):
             raise AssertionError(
                 f"{tag} differs from the plain step ({cfg})")
         if mode == "rdoq" and is_p:
             print(f"{tag} P: levels of 8192 at level {li}: "
-                  f"{one['n8192']}", flush=True)
-            if one["n8192"] == 0:
+                  f"{rs[0]['n8192']}", flush=True)
+            if rs[0]["n8192"] == 0:
                 raise AssertionError(f"{tag}: the planted level 8192 was "
                                      "not coded")
-        res[cfg] = dict(one, scan_ms=scan_ms, scan_plain_ms=scan_plain_ms,
-                        F2=two)
+        res[cfg] = dict(rs[0], scan_ms=scan_ms, scan_plain_ms=scan_plain_ms,
+                        F2=rs[1] if batched else None, level=li,
+                        n_levels=nl)
     return res
 
 
@@ -644,15 +688,17 @@ def check_k2(dev, lib, bd=8):
                         bound_by=bound_by2, err=err2, B=W.shape[0]))
 
 
-def encode_slice(dev):
-    """The 1080p IPPP slice through Encoder.encode_frame; returns the
+def encode_slice(dev, name=""):
+    """The 1080p IPPP slice (``name`` "": ``smoke_params``; "ctu16":
+    ``smoke_params_ctu16``) through Encoder.encode_frame; returns the
     stream and per-frame wall seconds."""
     import torch
     from x265_tpu_torch import Encoder, Params
-    from x265_tpu_torch.smoke_config import smoke_frames, smoke_params
+    from x265_tpu_torch import smoke_config as sc
 
-    frames = smoke_frames()
-    enc = Encoder(Params(**smoke_params()), device=dev)
+    frames = sc.smoke_frames()
+    enc = Encoder(Params(**getattr(sc, "smoke_params" + (
+        f"_{name}" if name else ""))()), device=dev)
     aus, secs = [enc.headers()], []
     for planes in frames:
         torch.cuda.synchronize()
@@ -686,11 +732,12 @@ def encode_b_slice(dev):
             calls)
 
 
-def bench_launches(kinds, refs=3):
+def bench_launches(kinds, refs=3, levels=62):
     """K1 and K2 launches of an encode with b-pyramid at 1080p from its
     encode-order slice kinds: an anchor (I or P) and the Bs that follow it
-    form a mini-GOP.  Every dispatch runs the 62-level scan (one K1 launch
-    a level); a P dispatch searches its ``refs`` reference slots (one K2
+    form a mini-GOP.  Every dispatch runs the scan of ``levels`` levels (62
+    at CTB 64, 126 at CTB 32; one K1 launch a level); a P dispatch
+    searches its ``refs`` reference slots (one K2
     launch each: min(4, ref), 3 at the defaults, 4 for slow), a B dispatch
     its two lists (one each).  n Bs take one dispatch for n = 1; for n >= 2
     the middle B is a reference B dispatched alone, and each side of it one
@@ -705,7 +752,7 @@ def bench_launches(kinds, refs=3):
     for anchor, nb in groups:
         mid = nb // 2
         b_disp = nb if nb < 2 else 1 + (mid > 0) + (nb - 1 - mid > 0)
-        k1 += 62 * (1 + b_disp)
+        k1 += levels * (1 + b_disp)
         k2 += (refs if anchor == "P" else 0) + 2 * b_disp
     return k1, k2
 
@@ -905,6 +952,118 @@ def check_nr_slice(dev, smi):
     return n1, n2
 
 
+def _ptxas_summary(log):
+    """One line per kernel instantiation of ptxas's ``-v`` report: its
+    template arguments, registers and spill bytes."""
+    import re
+    out, name, spill = [], None, ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '_Z\d+(\w+?)I(\w*?)EE",
+                      line)
+        if m:
+            targs = re.findall(r"Li(\d+)E", m.group(2) + "E")
+            name = f"{m.group(1)}<{', '.join(targs)}>"
+        elif "spill" in line and name:
+            spill = "/".join(re.findall(r"(\d+) bytes spill", line))
+        elif "registers" in line and name:
+            regs = re.search(r"Used (\d+) registers", line)
+            out.append(f"{name}: {regs.group(1) if regs else '?'} "
+                       f"registers, spill {spill} B")
+            name = None
+    return out
+
+
+def _zero_counts():
+    """Set every launch count of K1 and K2 to 0."""
+    from x265_tpu_torch.encoder import ctu_scan_cuda, me_cuda
+    for m in (ctu_scan_cuda, me_cuda):
+        for k in dir(m):
+            if k.startswith("LAUNCHES"):
+                setattr(m, k, 0)
+
+
+def check_preset_slice(dev, smi, name):
+    """Phase 10 (``name`` "superfast") or 11 ("ultrafast"): the bench
+    slice's ten frames at x265's preset (CTU 32, ``bframes=3`` with a
+    fixed GOP, one reference, subme 1 / 0) through push_frame / flush, a
+    warm and a timed encode with fresh Encoders; MD5, size, encode-order
+    POCs and kinds equal to ``golden_1080p_<name>.json``, K1 and K2
+    launched the counts ``bench_launches`` gives for 126 levels and one
+    reference, every K1 launch at CTB 32 and none on another special path.
+    Returns the K1 and K2 launches and the fps."""
+    from x265_tpu_torch.encoder import ctu_scan_cuda, me_cuda
+
+    with open(os.path.join(ROOT, "x265_tpu_torch", "data",
+                           f"golden_1080p_{name}.json")) as f:
+        golden = json.load(f)
+    encode_bench_slice(dev, name=name)      # warm: first-call allocations
+    _zero_counts()
+    aus, pocs, kinds, calls, enc = encode_bench_slice(dev, name=name)
+    k1 = ctu_scan_cuda
+    stream = b"".join(aus)
+    md5 = hashlib.md5(stream).hexdigest()
+    wall = sum(x[0] for x in calls)
+    levels = enc._get_ctu_scan().t["n_levels"]
+    print(f"slice 1080p {name} (default_params(\"{name}\", qp=32, "
+          f"decoded_picture_hash=1): CTU 32, {levels} levels) on {smi}: "
+          f"bytes per AU {[len(a) for a in aus]}, encode order "
+          f"{list(zip(pocs, kinds))}, {len(pocs)} frames in {wall:.3f} s, "
+          f"{len(pocs) / wall:.3f} fps", flush=True)
+    for i, (sec, out) in enumerate(calls):
+        what = "flush" if i == len(calls) - 1 else f"push_frame {i}"
+        print(f"  {what}: {sec:.3f} s, returned POCs {out}", flush=True)
+    w1, w2 = bench_launches(golden["encode_kinds"], enc.num_ref, levels)
+    n1, n2 = k1.LAUNCHES, me_cuda.LAUNCHES
+    print(f"launches: K1 {n1} (want {w1}; CTB 32 {k1.LAUNCHES_CTB32}), "
+          f"K2 {n2} (want {w2}, {enc.num_ref} reference); md5 {md5} "
+          f"(golden {golden['md5']})", flush=True)
+    if (md5 != golden["md5"] or len(stream) != golden["total_bytes"]
+            or pocs != golden["encode_pocs"]
+            or kinds != golden["encode_kinds"]):
+        raise AssertionError(f"{name} stream differs from x265_tpu's golden")
+    if (levels != 126 or n1 != w1 or n2 != w2 or k1.LAUNCHES_CTB32 != n1
+            or k1.LAUNCHES_CTB16 or k1.LAUNCHES_10BIT or k1.LAUNCHES_RDOQ
+            or k1.LAUNCHES_NR):
+        raise AssertionError(f"the {name} slice did not run through K1/K2 "
+                             "at CTB 32 as expected")
+    return n1, n2, len(pocs) / wall
+
+
+def check_ctu16_slice(dev, smi):
+    """Phase 12: the IPPP slice at ``ctu_size=16`` with the MD5 hash SEI
+    (``smoke_params_ctu16``) through encode_frame, a warm and a timed
+    encode; MD5 and size equal to ``golden_1080p_ctu16.json``, K1 254
+    launches a frame, all at CTB 16, K2 one per reference of a P frame.
+    Returns the K1 and K2 launches and the fps."""
+    from x265_tpu_torch.encoder import ctu_scan_cuda, me_cuda
+
+    with open(os.path.join(ROOT, "x265_tpu_torch", "data",
+                           "golden_1080p_ctu16.json")) as f:
+        golden = json.load(f)
+    encode_slice(dev, "ctu16")              # warm: first-call allocations
+    _zero_counts()
+    aus, secs = encode_slice(dev, "ctu16")
+    k1 = ctu_scan_cuda
+    n1, n2 = k1.LAUNCHES, me_cuda.LAUNCHES
+    stream = b"".join(aus)
+    md5 = hashlib.md5(stream).hexdigest()
+    nfr = len(secs)
+    fps = nfr / sum(secs)
+    print(f"slice 1080p IPPP at CTU 16 (254 levels) on {smi}: bytes per AU "
+          f"{[len(a) for a in aus]}, frame seconds "
+          f"{[round(x, 3) for x in secs]}, {fps:.3f} fps", flush=True)
+    print(f"launches: K1 {n1} (want {254 * nfr}; CTB 16 "
+          f"{k1.LAUNCHES_CTB16}), K2 {n2} (want {3 * (nfr - 1)}); md5 "
+          f"{md5} (golden {golden['md5']})", flush=True)
+    if md5 != golden["md5"] or len(stream) != golden["total_bytes"]:
+        raise AssertionError("CTU-16 stream differs from x265_tpu's golden")
+    if (n1 != 254 * nfr or n2 != 3 * (nfr - 1) or k1.LAUNCHES_CTB16 != n1
+            or k1.LAUNCHES_CTB32 or k1.LAUNCHES_10BIT):
+        raise AssertionError("the CTU-16 slice did not run through K1/K2 at "
+                             "CTB 16 as expected")
+    return n1, n2, fps
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -926,16 +1085,27 @@ def main():
 
     t0 = time.time()
     lib = build.load_library()
-    print(f"kernel build: {time.time() - t0:.1f} s (nvcc sm_90a), "
-          f"K1 shared memory {lib.k1_smem_bytes()} B", flush=True)
-    for line in build.BUILD_LOG.splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            print("ptxas:", line.strip(), flush=True)
+    srcs = [os.path.basename(x) for x in build._sources()]
+    print(f"kernel build: {time.time() - t0:.1f} s (nvcc sm_90a, one "
+          f"process per source, in parallel: {', '.join(srcs)}; K1 "
+          f"instantiations: 3 CTB sizes x 2 bit depths x 4 modes), K1 "
+          f"shared memory {lib.k1_smem_bytes()} B", flush=True)
+    for line in _ptxas_summary(build.BUILD_LOG):
+        print("ptxas:", line, flush=True)
 
     k1 = check_k1(dev, lib)
     k1_10 = check_k1(dev, lib, 10)
     k1m = {(mode, bd): check_k1(dev, lib, bd, mode)
            for mode in ("rdoq", "nr") for bd in (8, 10)}
+    # K1 at CTB 32 and 16: I and P at F = 1 and 2, P at 10 bits, and (CTB
+    # 32) the RDOQ P launch with a planted level of 8192
+    kc = {}
+    for lg in (5, 4):
+        kc[lg] = check_k1(dev, lib, log2_ctb=lg)
+        kc[lg, 10] = check_k1(dev, lib, 10, log2_ctb=lg, cfgs=("P",),
+                              batched=False)
+    kc[5, "rdoq"] = check_k1(dev, lib, mode="rdoq", log2_ctb=5, cfgs=("P",),
+                             batched=False)
     k2 = check_k2(dev, lib)
     k2_10 = check_k2(dev, lib, 10)
 
@@ -998,6 +1168,10 @@ def main():
     n1w, n2w = check_bench_slice(dev, smi, "slow")
     # phase 9: the NR slice (the B slice with noise reduction)
     n1n, n2n = check_nr_slice(dev, smi)
+    # phases 10-12: CTU 32 (the superfast and ultrafast presets) and 16
+    n1f, n2f, _fps = check_preset_slice(dev, smi, "superfast")
+    n1u, n2u, _fps = check_preset_slice(dev, smi, "ultrafast")
+    n1c, n2c, _fps = check_ctu16_slice(dev, smi)
 
     kp, kp10 = k1["P"], k1_10["P"]
     # the RDOQ / NR busiest-level records: {mode}_{I|P}[_F2][_10bit]
@@ -1010,11 +1184,25 @@ def main():
                     extra[f"{key}_{mode}_{cfg}{k}{sfx}"] = v[key]
     err_m = max(max(r[c]["err"], r[c]["F2"]["err"]) for r in k1m.values()
                 for c in ("I", "P"))
+    # the CTB-32 / 16 records: {key}_ctb{32|16}_{I|P}[_F2][_10bit|_rdoq]
+    for key, r in kc.items():
+        lg, sfx = (key, "") if isinstance(key, int) else (
+            key[0], "_10bit" if key[1] == 10 else f"_{key[1]}")
+        for cfg, v in r.items():
+            for k, w in (("", v), ("_F2", v["F2"])):
+                if w is None:
+                    continue
+                for f in ("ms", "plain_ms", "bound_ms", "bound_by"):
+                    extra[f"{f}_ctb{1 << lg}_{cfg}{k}{sfx}"] = w[f]
+                err_m = max(err_m, w["err"])
+            if v["scan_ms"] is not None:
+                extra[f"scan_ms_ctb{1 << lg}_{cfg}{sfx}"] = v["scan_ms"]
     print(json.dumps({"kernels": [
         dict(name="K1 ctu_step", route="cuda",
              source="x265_tpu_torch/csrc/k1_ctu_step.cu",
              replaces="x265_tpu/encoder/ctu_scan_pallas.py:72",
-             launches=n1 + n1b + n1s + n1m + n1w + n1n, max_abs_err=max(
+             launches=n1 + n1b + n1s + n1m + n1w + n1n + n1f + n1u + n1c,
+             max_abs_err=max(
                  k1["I"]["err"], kp["err"], kp["F2"]["err"],
                  k1["I"]["F2"]["err"], k1_10["I"]["err"], kp10["err"],
                  kp10["F2"]["err"], k1_10["I"]["F2"]["err"], err_m),
@@ -1030,12 +1218,15 @@ def main():
              ms_I_10bit=k1_10["I"]["ms"], ms_F2_P_10bit=kp10["F2"]["ms"],
              ms_F2_I_10bit=k1_10["I"]["F2"]["ms"],
              scan_ms_P_10bit=kp10["scan_ms"], launches_slow=n1w,
-             launches_nr=n1n, **extra),
+             launches_nr=n1n, launches_superfast=n1f,
+             launches_ultrafast=n1u, launches_ctu16=n1c,
+             launches_ctb32=n1f + n1u, launches_ctb16=n1c, **extra),
         dict(name="K2 subpel_refine", route="cuda",
              source="x265_tpu_torch/csrc/k2_subpel_refine.cu",
              replaces="x265_tpu/encoder/me_pallas.py:71",
-             launches=n2 + n2b + n2s + n2m + n2w + n2n,
-             launches_slow=n2w, launches_nr=n2n,
+             launches=n2 + n2b + n2s + n2m + n2w + n2n + n2f + n2u + n2c,
+             launches_slow=n2w, launches_nr=n2n, launches_superfast=n2f,
+             launches_ultrafast=n2u, launches_ctu16=n2c,
              max_abs_err=max(k2["err"], k2_10["err"]), ms=k2["ms"],
              plain_ms=k2["plain_ms"], bound_ms=k2["bound_ms"],
              bound_by=k2["bound_by"], library_ms=None,

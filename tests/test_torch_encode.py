@@ -80,7 +80,8 @@ def test_ipp_stream_is_byte_identical():
 
 
 @pytest.mark.parametrize("kw", [dict(hrd=True), dict(internal_bit_depth=12),
-                                dict(lossless=True), dict(ctu_size=32)])
+                                dict(lossless=True),
+                                dict(ctu_size=32, lossless=True)])
 def test_unsupported_configs_raise(kw):
     p = Params(source_width=W, source_height=H, **kw)
     with pytest.raises(NotImplementedError):

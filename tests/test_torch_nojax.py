@@ -4,8 +4,8 @@ the port imports and encodes a 128x64 I P pair, then one B mini-GOP
 (I0 P3 B1 B2, the two Bs batched), then six frames at the Params()
 defaults through the lookahead (cuTree, the b-adapt trellis), then a
 Main10 mini-GOP (10-bit frames, the lookahead on), then a B mini-GOP with
-RDOQ (psy-RDOQ 1.0) and noise reduction on the CPU, and the streams have
-the expected structure."""
+RDOQ (psy-RDOQ 1.0) and noise reduction, then an I P pair at CTU 32 on the
+CPU, and the streams have the expected structure."""
 
 import os
 import subprocess
@@ -88,11 +88,21 @@ assert [(ef.poc, ef.kind) for ef in efr] == [(0, "I"), (3, "P"), (1, "B"),
 scan = encr._get_ctu_scan()
 assert scan.rdoq and scan.noise_reduction
 assert any(v.any() for v in encr._nr_offsets.values())
+# CTU 32: 4 x 2 CTBs, 6 wavefront levels
+encc = Encoder(Params(source_width=128, source_height=64, bframes=0,
+                      ctu_size=32, me_range=16, decoded_picture_hash=1),
+               device="cpu")
+auc = [encc.encode_frame((np.roll(y, 2 * t, axis=1), c[0], c[1]))[0]
+       for t in range(2)]
+assert encc._get_ctu_scan().t["n_levels"] == 6 and encc.headers()
+assert all(au.startswith(b"\x00\x00\x00\x01") and len(au) > 100
+           for au in auc)
 assert not any(m == "jax" or m.startswith(("jax.", "x265_tpu."))
                for m in sys.modules if sys.modules[m] is not None)
 print("NOJAX-OK", len(hdr), [len(au) for au, _ in aus],
       [len(ef.au) for ef in efs], [(ef.poc, ef.kind) for ef in efl],
-      [len(ef.au) for ef in ef10], [len(ef.au) for ef in efr])
+      [len(ef.au) for ef in ef10], [len(ef.au) for ef in efr],
+      [len(au) for au in auc])
 """
 
 

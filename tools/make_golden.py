@@ -21,12 +21,18 @@ size, the size of each access unit and the encode-order POCs go to
 * ``x265_tpu_torch/data/golden_1080p_nr.json``: the NR slice (the B
   slice's configuration with ``noise_reduction_intra=noise_reduction_inter
   =600``, ten frames) through ``push_frame`` / ``flush``, with the encode
-  order and kinds.
+  order and kinds;
+* ``x265_tpu_torch/data/golden_1080p_superfast.json`` and
+  ``golden_1080p_ultrafast.json``: the bench slice's frames at
+  ``default_params("superfast" | "ultrafast")`` (CTU 32, MD5 hash SEI)
+  through ``push_frame`` / ``flush``, with the encode order and kinds;
+* ``x265_tpu_torch/data/golden_1080p_ctu16.json``: the IPPP slice at
+  ``ctu_size=16`` with the MD5 hash SEI through ``Encoder.encode_frame``.
 
     JAX_PLATFORMS=cpu python tools/make_golden.py [ippp] [b] [bench] \
-        [bench10] [slow] [nr]
+        [bench10] [slow] [nr] [superfast] [ultrafast] [ctu16]
 
-With no argument it writes all six.
+With no argument it writes all nine.
 """
 
 import hashlib
@@ -57,17 +63,24 @@ def _write(name, params, aus, pocs, kinds=None):
     print(json.dumps(out))
 
 
-def ippp():
+def ippp(name="golden_1080p_ippp.json", params=None):
     from x265_tpu.common.params import Params
     from x265_tpu.encoder import Encoder
     from x265_tpu_torch.smoke_config import smoke_frames, smoke_params
 
-    enc = Encoder(Params(**smoke_params()))
+    params = params or smoke_params()
+    enc = Encoder(Params(**params))
     aus = [enc.headers()]
     for planes in smoke_frames():
         au, _rec = enc.encode_frame(planes)
         aus.append(au)
-    _write("golden_1080p_ippp.json", smoke_params(), aus, None)
+    _write(name, params, aus, None)
+
+
+def ctu16():
+    from x265_tpu_torch.smoke_config import smoke_params_ctu16
+
+    ippp("golden_1080p_ctu16.json", smoke_params_ctu16())
 
 
 def bslice():
@@ -132,8 +145,23 @@ def slow():
     _bench("golden_1080p_slow.json", params, smoke_frames_slow())
 
 
+def _preset(preset):
+    from x265_tpu.common.params import default_params
+    from x265_tpu_torch import smoke_config as sc
+
+    params = getattr(sc, f"smoke_params_{preset}")()
+    # the reference's own preset table, checked against the port's copy
+    ref = default_params(preset, qp=32, decoded_picture_hash=1,
+                         source_width=sc.WIDTH, source_height=sc.HEIGHT)
+    assert all(getattr(ref, k) == v for k, v in params.items())
+    _bench(f"golden_1080p_{preset}.json", params,
+           getattr(sc, f"smoke_frames_{preset}")())
+
+
 if __name__ == "__main__":
-    which = sys.argv[1:] or ["ippp", "b", "bench", "bench10", "slow", "nr"]
+    which = sys.argv[1:] or ["ippp", "b", "bench", "bench10", "slow", "nr",
+                             "superfast", "ultrafast", "ctu16"]
     for name in which:
         dict(ippp=ippp, b=bslice, bench=bench, bench10=bench10, slow=slow,
-             nr=nr)[name]()
+             nr=nr, superfast=lambda: _preset("superfast"),
+             ultrafast=lambda: _preset("ultrafast"), ctu16=ctu16)[name]()

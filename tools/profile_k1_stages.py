@@ -8,7 +8,7 @@ makes every block barrier of K1 also stamp its source line and
 seeded 1080p scan inputs (psy-rd 2.0), I and P, and launches K1 on it:
   * the one-launch time of the normal build and of the stamped build (CUDA
     events; the difference is what the stamps cost);
-  * per barrier line of ``x265_tpu_torch/csrc/k1_ctu_step.cu``, the cycles
+  * per barrier line of ``x265_tpu_torch/csrc/k1_ctu_step.cuh``, the cycles
     spent in the stage that ends there (summed over the CTU's passes
     through that line, averaged over the level's real lanes), the number
     of passes, and the share of the lane's cycles.
@@ -27,7 +27,7 @@ from collections import defaultdict
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
-SRC = os.path.join(ROOT, "x265_tpu_torch", "csrc", "k1_ctu_step.cu")
+SRC = os.path.join(ROOT, "x265_tpu_torch", "csrc", "k1_ctu_step.cuh")
 STAMPS, STAMP_BLOCKS = 1024, 16     # K1_STAMPS, K1_STAMP_BLOCKS in SRC
 
 

@@ -1,6 +1,7 @@
 """Where the time of x265_tpu_torch's 1080p slices goes, on one GPU.
 
-    python3 tools/profile_torch.py [--slice ippp|b|bench|bench10|slow|nr]
+    python3 tools/profile_torch.py [--slice ippp|b|bench|bench10|slow|nr|
+                                            superfast|ultrafast|ctu16]
                                    [--frames N]
                                    [--out chiprun_out/profile.json]
 
@@ -11,8 +12,10 @@ I0 P5 B3 B1+B2 B4), ``bench`` (bench.py's configuration, the lookahead
 on, 10 frames through push_frame / flush), ``bench10`` (the bench slice
 at Main10, ``internal_bit_depth=10``, on ten 10-bit frames), ``slow`` (the
 bench slice's frames at ``default_params("slow")``: RDOQ with psy-RDOQ,
-ref=4, the lookahead on) or ``nr`` (the B slice with noise reduction
-600 / 600):
+ref=4, the lookahead on), ``nr`` (the B slice with noise reduction
+600 / 600), ``superfast`` / ``ultrafast`` (the bench slice's frames at
+those presets: CTU 32, bframes 3 with a fixed GOP, one reference) or
+``ctu16`` (the IPPP slice at CTU 16 through encode_frame):
   1. warm-up;
   2. torch.profiler over CPU and CUDA: device time by kernel name, the
      device-busy sum and the idle share of the wall time, and the port's
@@ -115,7 +118,9 @@ def _params(slice_):
     return dict(ippp=sc.smoke_params, b=sc.smoke_params_b,
                 bench=sc.smoke_params_bench,
                 bench10=sc.smoke_params_bench10, slow=sc.smoke_params_slow,
-                nr=sc.smoke_params_nr)[slice_]()
+                nr=sc.smoke_params_nr, superfast=sc.smoke_params_superfast,
+                ultrafast=sc.smoke_params_ultrafast,
+                ctu16=sc.smoke_params_ctu16)[slice_]()
 
 
 def _encode(frames, slice_):
@@ -123,7 +128,7 @@ def _encode(frames, slice_):
     from x265_tpu_torch import Encoder, Params
 
     params = _params(slice_)
-    pushed = slice_ != "ippp"
+    pushed = slice_ not in ("ippp", "ctu16")
     enc = Encoder(Params(**params), device="cuda")
     enc.headers()
     torch.cuda.synchronize()
@@ -178,10 +183,13 @@ def _lookahead_programs_ms(frames, slice_):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--slice", choices=("ippp", "b", "bench", "bench10",
-                                        "slow", "nr"), default="ippp")
+                                        "slow", "nr", "superfast",
+                                        "ultrafast", "ctu16"),
+                    default="ippp")
     ap.add_argument("--frames", type=int, default=None,
-                    help="frames to encode (4 for ippp, 6 for b and nr, 10 "
-                         "for bench, bench10 and slow)")
+                    help="frames to encode (4 for ippp and ctu16, 6 for b "
+                         "and nr, 10 for bench, bench10, slow, superfast "
+                         "and ultrafast)")
     ap.add_argument("--out", default=os.path.join(ROOT, "chiprun_out",
                                                   "profile.json"))
     args = ap.parse_args()
@@ -193,7 +201,8 @@ def main():
                                              smoke_frames_bench10)
     if args.frames is None:
         args.frames = dict(ippp=4, b=6, bench=10, bench10=10, slow=10,
-                           nr=6)[args.slice]
+                           nr=6, superfast=10, ultrafast=10,
+                           ctu16=4)[args.slice]
     bench = args.slice.startswith("bench") or args.slice == "slow"
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -212,8 +221,8 @@ def main():
     for ev in prof.key_averages():
         if ev.device_type == DeviceType.CUDA:      # kernels and copies
             by_kernel[ev.key] += ev.self_device_time_total / 1e3   # ms
-            # the kernels are templates on the bit depth: "void
-            # k1_kernel<8>(K1Args)", "void k2_kernel<10>(...)"
+            # the kernels are templates: "void k1_kernel<64, 8, 0>(K1Args)"
+            # (CTB size, bit depth, mode), "void k2_kernel<10>(...)"
             if "k1_kernel" in ev.key or "k2_kernel" in ev.key:
                 k = own[ev.key.split("(")[0]]
                 k["ms"] += ev.self_device_time_total / 1e3

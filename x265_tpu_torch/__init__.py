@@ -5,7 +5,9 @@ with PyTorch for the plain tensor code and two hand-written CUDA kernels
 for the two hot loops that were Pallas kernels in ``x265_tpu``:
 
   * K1, the CTU-wavefront step (``encoder/ctu_scan_cuda.py``,
-    ``csrc/k1_ctu_step.cu``), one launch per wavefront level;
+    ``csrc/k1_ctu_step.cuh``, instantiated per CTB size in
+    ``csrc/k1_ctu_step.cu``, ``k1_ctb32.cu``, ``k1_ctb16.cu``), one launch
+    per wavefront level;
   * K2, the subpel motion refine (``encoder/me_cuda.py``,
     ``csrc/k2_subpel_refine.cu``), one launch per reference.
 

@@ -83,7 +83,7 @@ def _bind(path: str):
     lib = ctypes.CDLL(path)
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.k1_ctu_step.argtypes = [ctypes.POINTER(vp), ci, ci, ci, ci, ci, ci,
-                                ctypes.c_float, vp]
+                                ci, ctypes.c_float, vp]
     lib.k1_ctu_step.restype = ci
     lib.k1_smem_bytes.argtypes = []
     lib.k1_smem_bytes.restype = ci

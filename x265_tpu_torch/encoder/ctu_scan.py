@@ -3,8 +3,9 @@
 
 The picture is reconstructed in WPP order at CTU granularity: level
 ``cx + 2*cy`` holds every CTU whose left and top-right neighbours are
-done, so the scan runs ``ctbs_w + 2*(ctbs_h-1)`` levels (62 at 1080p with
-64x64 CTUs) with the level's CTUs as batched lanes.  Inside a lane the
+done, so the scan runs ``ctbs_w + 2*(ctbs_h-1)`` levels (at 1080p 62 with
+64x64 CTUs, 126 with 32x32, 254 with 16x16) with the level's CTUs as
+batched lanes.  Inside a lane the
 CTU's quadrant / slot structure is unrolled in z-order (32x32 intra
 candidate, four 16x16 slots, the in-scan 32-vs-16 RD decision, the inter
 TU32 trial).  ``lax.scan`` over levels becomes a Python loop; each level is
@@ -13,7 +14,8 @@ one call of the step, which on a CUDA device is the hand-written kernel K1
 
 Ported branches: decide32 on/off, intra and inter (with the ``m32_in``
 TU32 trial), psy-rd, sign hiding, strong intra smoothing, RDOQ with
-psy-RDOQ and DCT-domain noise reduction, at bit depth 8 and 10 (the recon
+psy-RDOQ and DCT-domain noise reduction, at CTB sizes 64, 32 and 16 (at 16
+one 16x16 slot a CTU and no 32x32 candidate), at bit depth 8 and 10 (the recon
 planes come out uint8, or int16 holding the reference's uint16 values:
 ``_util.sample_dtype``).  The RQT split raises ``NotImplementedError``.
 """

@@ -2,31 +2,38 @@
 
 Replaces ``x265_tpu/encoder/ctu_scan_pallas.py`` (``make_pallas_step``:
 kernel body ``kernel`` at :494, ``pallas_call`` at :927).  Source:
-``x265_tpu_torch/csrc/k1_ctu_step.cu``; plain version: ``CtuScan.make_step``
+``x265_tpu_torch/csrc/k1_ctu_step.cuh`` (the entry point and the CTB-64
+instantiations in ``k1_ctu_step.cu``, CTB 32 and 16 in ``k1_ctb32.cu``,
+``k1_ctb16.cu``); plain version: ``CtuScan.make_step``
 (``ctu_scan.py``), which the wrapper runs for tensors on the CPU.
 
-Design.  One 768-thread block per lane CTU of the level (L = 15 at 1080p,
-62 levels per frame); a launch may carry the lanes of F frames (the carry
-has a leading frame dimension, lanes are frame-major), so the batched B
-frames of a mini-GOP share one launch per level.  The lane's inputs are
-staged in shared memory once (bulk asynchronous copies for the sample
-tiles), its reconstruction buffers (luma 97x129 and chroma 2x49x65 int16)
-stay there for the whole CTU, and the CTU's 4 quadrants x 4 slots run in
-z-order inside the block, each candidate as one joint luma + chroma TU
-chain of five barrier-separated stages; the source's header comment has
-the details.  What bounds it on an H100: one level of a frame puts at most
-15 blocks on 132 SMs and each block is one chain of dependent stages, so
-the kernel is bound by the latency of one CTU, not by its bytes or its
-integer MACs (``chip_smoke.py`` prints the bound beside the measured
-time).
+Design.  One 768-thread block per lane CTU of the level (at 1080p, L = 15
+and 62 levels per frame at CTB 64, 30 and 126 at CTB 32, 60 and 254 at
+CTB 16); a launch may carry the lanes of F frames (the carry has a
+leading frame dimension, lanes are frame-major), so the batched B frames
+of a mini-GOP share one launch per level.  The lane's inputs are staged in
+shared memory once (bulk asynchronous copies for the sample tiles), its
+reconstruction buffers (at CTB 64 luma 97x129 and chroma 2x49x65 int16)
+stay there for the whole CTU, and the CTU's quadrants (4 at CTB 64, 1 at
+32) of 4 slots each run in z-order inside the block, each candidate as one
+joint luma + chroma TU chain of five barrier-separated stages; at CTB 16
+the lane is one 16x16 slot.  The source's header comment has the details.
+What bounds it on an H100: one level of a frame puts at most 15 (CTB 64)
+to 60 (CTB 16) blocks on 132 SMs and each block is one chain of dependent
+stages, so the kernel is bound by the latency of one CTU, not by its bytes
+or its integer MACs (``chip_smoke.py`` prints the bound beside the
+measured time).
 
 State.  The kernel writes the new frontier rows, columns and corner
 samples into the carry tensors in place (the lanes of a level touch
 disjoint entries), so ``launch`` returns the carry it was given; the plain
 step returns new tensors with the same contents.
 
-Bit depth.  The kernel is a template on the bit depth, instantiated for 8
-and 10 (the flag bit 32 picks the 10-bit one); any other depth raises.
+Bit depth and CTB size.  The kernel is a template on the CTB size (64,
+32, 16: an argument of the entry point) and on the bit depth,
+instantiated for 8 and 10 (the flag bit 32 picks the 10-bit one); any
+other depth raises.  At CTB 16 there is no 32x32 candidate: the step's
+``lv32``, ``lvc16`` and ``sel32`` are None, as the plain step's.
 
 Exactness.  All pixel math is integer.  The float costs follow the
 reference's rounding: SSD and bit counts converted to float32, sums in
@@ -61,18 +68,23 @@ from .ctu_scan import nr_layout
 
 #: launches of K1 made by ``ctu_step`` (the wrapper counts here, once per
 #: kernel launch, and nowhere else), and of those the launches of its
-#: 10-bit instantiation, with RDOQ and with noise reduction
+#: 10-bit instantiation, with RDOQ, with noise reduction, and at CTB 32
+#: and 16
 LAUNCHES = 0
 LAUNCHES_10BIT = 0
 LAUNCHES_RDOQ = 0
 LAUNCHES_NR = 0
+LAUNCHES_CTB32 = 0
+LAUNCHES_CTB16 = 0
 
 #: the level inputs K1 reads; of the original samples only the quads'
-#: tiling (the slots' o16y / o8c hold the same samples as its sub-blocks)
+#: tiling (the slots' o16y / o8c hold the same samples as its sub-blocks);
+#: at CTB 16, which has no quads, the slot's: ``_ORIG16`` stands in for
+#: the quads' keys, and m32 is not read
 _IN_KEYS = ("cx", "cy", "m16", "m32", "qp_y", "qp_cb", "qp_cr", "o32y",
             "o16cb", "o16cr", "l16_av", "c8_av", "l32_av", "c16_av",
             "quad_ok")
-_BULK_KEYS = ("o32y", "o16cb", "o16cr")
+_ORIG16 = dict(o32y="o16y", o16cb="o8c")
 
 
 def ctu_step(scan, inter: bool, decide32: bool, carry, xs, plain):
@@ -88,6 +100,7 @@ def launch(lib, scan, inter: bool, decide32: bool, carry, xs):
     CUDA tensors; the host build of the same source on CPU tensors, which
     is how the CPU tests reach the kernel's arithmetic)."""
     global LAUNCHES, LAUNCHES_10BIT, LAUNCHES_RDOQ, LAUNCHES_NR
+    global LAUNCHES_CTB32, LAUNCHES_CTB16
     args, ys = kernel_args(scan, inter, decide32, carry, xs)
     rc = lib.k1_ctu_step(*args)
     if rc != 0:
@@ -100,8 +113,16 @@ def launch(lib, scan, inter: bool, decide32: bool, carry, xs):
         LAUNCHES_RDOQ += 1
     if scan.noise_reduction:
         LAUNCHES_NR += 1
+    ctb = 1 << scan.t["geom"].log2_ctb
+    if ctb == 32:
+        LAUNCHES_CTB32 += 1
+    elif ctb == 16:
+        LAUNCHES_CTB16 += 1
     lv16, lv8, lv32, lvc16, sel32, int_y, int_c, nr = ys
-    return carry, (lv16, lv8, lv32, lvc16, sel32.to(torch.bool), int_y,
+    if not scan.t["has32"]:
+        lv32 = lvc16 = sel32 = None
+    return carry, (lv16, lv8, lv32, lvc16,
+                   None if sel32 is None else sel32.to(torch.bool), int_y,
                    int_c, nr if scan.noise_reduction else None)
 
 
@@ -122,9 +143,11 @@ def kernel_args(scan, inter: bool, decide32: bool, carry, xs):
 
     t = scan.t
     g = t["geom"]
-    if g.log2_ctb != 6 or scan.bit_depth not in (8, 10):
-        raise NotImplementedError(
-            "K1 covers 64x64 CTBs at bit depths 8 and 10 only")
+    if scan.bit_depth not in (8, 10):
+        raise NotImplementedError("K1 covers bit depths 8 and 10 only")
+    ctb, has32 = 1 << g.log2_ctb, t["has32"]
+    ctbc = ctb // 2
+    nq, ns = t["n_quads"], t["nslots"]
     psy = scan.psy_rd > 0.0 and decide32
     L = xs["cx"].shape[0]
     F = carry[0].shape[0]           # frames: L / F lanes each, frame-major
@@ -132,46 +155,59 @@ def kernel_args(scan, inter: bool, decide32: bool, carry, xs):
         raise ValueError(f"K1: {L} lanes do not split into {F} frames")
     cw, ch = g.ctbs_w, g.ctbs_h
     i32, b8, f32 = torch.int32, torch.bool, torch.float32
-    shapes = dict(cx=(L,), cy=(L,), m16=(L, 16), m32=(L, 4), qp_y=(L,),
-                  qp_cb=(L,), qp_cr=(L,), o32y=(L, 4, 32, 32),
-                  o16cb=(L, 4, 16, 16), o16cr=(L, 4, 16, 16),
-                  l16_av=(L, 16, 65), c8_av=(L, 16, 33), l32_av=(L, 4, 129),
-                  c16_av=(L, 4, 65), quad_ok=(L, 4))
-    for k in _IN_KEYS:
-        _check(k, xs[k], b8 if k.endswith("_av") or k == "quad_ok" else i32,
-               shapes[k])
     dummy = _dummies(scan, dev, L)
+    # the inputs in K1's order: at CTB 16 the slot's samples for the
+    # quads' (o8c holds both chroma planes) and no 32x32 mode
+    ins = {k: xs[k] for k in _IN_KEYS if has32 or k not in (
+        "m32", "o32y", "o16cb", "o16cr")}
+    if not has32:
+        ins.update({k: xs[v] for k, v in _ORIG16.items()},
+                   m32=dummy["iq"], o16cr=dummy["i1"])
+    shapes = dict(cx=(L,), cy=(L,), m16=(L, ns), m32=(L, nq), qp_y=(L,),
+                  qp_cb=(L,), qp_cr=(L,), o32y=(L, nq, 32, 32),
+                  o16cb=(L, nq, 16, 16), o16cr=(L, nq, 16, 16),
+                  l16_av=(L, ns, 65), c8_av=(L, ns, 33), l32_av=(L, nq, 129),
+                  c16_av=(L, nq, 65), quad_ok=(L, nq))
+    if not has32:
+        shapes.update(o32y=(L, 1, 16, 16), o16cb=(L, 1, 2, 8, 8),
+                      o16cr=(1,))
+    for k in _IN_KEYS:
+        _check(k, ins[k], b8 if k.endswith("_av") or k == "quad_ok" else i32,
+               shapes[k])
     lam = xs["lam"] if decide32 else dummy["f"]
     plam = xs["plam"] if psy else dummy["f"]
-    use32 = dummy["b4"] if decide32 else xs["use32"]
+    use32 = xs["use32"] if has32 and not decide32 else dummy["bq"]
     _check("lam", lam, f32, (L,))
     _check("plam", plam, f32, (L,))
-    _check("use32", use32, b8, (L, 4))
+    _check("use32", use32, b8, (L, nq))
+    bulk = ("o32y", "o16cb", "o16cr") if has32 else ("o32y", "o16cb")
     if inter:
         iv, ipy, ipc = xs["inter"], xs["ipy"], xs["ipc"]
-        m32in = xs["m32_in"] if decide32 else dummy["b4"]
-        _check("inter", iv, b8, (L, 16))
-        _check("ipy", ipy, i32, (L, 16, 16, 16))
-        _check("ipc", ipc, i32, (L, 16, 2, 8, 8))
-        _check("m32_in", m32in, b8, (L, 4))
-        bulk = _BULK_KEYS + ("ipy", "ipc")
+        m32in = xs["m32_in"] if has32 and decide32 else dummy["bq"]
+        _check("inter", iv, b8, (L, ns))
+        _check("ipy", ipy, i32, (L, ns, 16, 16))
+        _check("ipc", ipc, i32, (L, ns, 2, 8, 8))
+        _check("m32_in", m32in, b8, (L, nq))
+        ins.update(ipy=ipy, ipc=ipc)
+        bulk += ("ipy", "ipc")
     else:
-        iv, ipy, ipc, m32in = dummy["b16"], dummy["i1"], dummy["i1"], \
-            dummy["b4"]
-        bulk = _BULK_KEYS
+        iv, ipy, ipc, m32in = dummy["bs"], dummy["i1"], dummy["i1"], \
+            dummy["bq"]
     for k in bulk:   # the kernel stages these with 16-byte bulk copies
-        if xs[k].data_ptr() % 16:
+        if ins[k].data_ptr() % 16:
             raise ValueError(f"K1 input {k} is not 16-byte aligned")
-    for k in ("l16_av", "c8_av", "l32_av", "c16_av"):  # 4-byte copies
-        if xs[k].data_ptr() % 4:
-            raise ValueError(f"K1 input {k} is not 4-byte aligned")
+    avk = ("l16_av", "c8_av", "l32_av", "c16_av")
+    if not any(ins[k][0].numel() % 4 for k in avk):
+        for k in avk:  # whole words a lane: the kernel's 4-byte copies
+            if ins[k].data_ptr() % 4:
+                raise ValueError(f"K1 input {k} is not 4-byte aligned")
     (rowf, colf, cornf, rowfb, colfb, cornfb, rowfr, colfr, cornfr) = carry
-    for nm, x, shp in (("rowf", rowf, (F, cw + 1, 64)),
-                       ("colf", colf, (F, ch + 1, 64)),
-                       ("rowfb", rowfb, (F, cw + 1, 32)),
-                       ("colfb", colfb, (F, ch + 1, 32)),
-                       ("rowfr", rowfr, (F, cw + 1, 32)),
-                       ("colfr", colfr, (F, ch + 1, 32)),
+    for nm, x, shp in (("rowf", rowf, (F, cw + 1, ctb)),
+                       ("colf", colf, (F, ch + 1, ctb)),
+                       ("rowfb", rowfb, (F, cw + 1, ctbc)),
+                       ("colfb", colfb, (F, ch + 1, ctbc)),
+                       ("rowfr", rowfr, (F, cw + 1, ctbc)),
+                       ("colfr", colfr, (F, ch + 1, ctbc)),
                        ("cornf", cornf, (F, cw + 2, 2)),
                        ("cornfb", cornfb, (F, cw + 2, 2)),
                        ("cornfr", cornfr, (F, cw + 2, 2))):
@@ -187,12 +223,15 @@ def kernel_args(scan, inter: bool, decide32: bool, carry, xs):
     def out(*shape):
         return torch.empty(shape, dtype=i32, device=dev)
 
-    lv16, lv8 = out(16, L, 16, 16), out(16, 2 * L, 8, 8)
-    lv32, lvc16 = out(4, L, 32, 32), out(4, 2 * L, 16, 16)
-    sel32 = out(4, L)
-    int_y, int_c = out(L, 64, 64), out(2 * L, 32, 32)
+    lv16, lv8 = out(ns, L, 16, 16), out(ns, 2 * L, 8, 8)
+    if has32:
+        lv32, lvc16 = out(nq, L, 32, 32), out(nq, 2 * L, 16, 16)
+        sel32 = out(nq, L)
+    else:                       # not written at CTB 16
+        lv32 = lvc16 = sel32 = dummy["i1"]
+    int_y, int_c = out(L, ctb, ctb), out(2 * L, ctbc, ctbc)
     # the new frontiers and corners are written into the carry in place
-    ptrs = [xs[k] for k in _IN_KEYS] + [
+    ptrs = [ins[k] for k in _IN_KEYS] + [
         lam, plam, use32, iv, ipy, ipc, m32in,
         rowf, colf, cornf, rowfb, colfb, cornfb, rowfr, colfr, cornfr,
         lv16, lv8, lv32, lvc16, sel32, int_y, int_c,
@@ -210,7 +249,7 @@ def kernel_args(scan, inter: bool, decide32: bool, carry, xs):
               if dev.type == "cuda" else 0)
     ys = (lv16, lv8, lv32, lvc16, sel32, int_y, int_c, nrs)
     psyq = scan.psy_rdoq if scan.rdoq else 0.0
-    return (arr, len(ptrs), L, F, cw, ch, flags, ctypes.c_float(psyq),
+    return (arr, len(ptrs), L, F, cw, ch, ctb, flags, ctypes.c_float(psyq),
             ctypes.c_void_p(stream)), ys
 
 
@@ -237,14 +276,17 @@ def _transform_tables():
 
 
 def _dummies(scan, dev, L):
-    """Zero stand-ins for the inputs a configuration does not use, made
-    once per scan object, device and lane count."""
+    """Zero stand-ins for the inputs a configuration does not use (per
+    lane, per quad or per slot), made once per scan object, device and
+    lane count."""
     cache = scan.__dict__.setdefault("_k1_dummies", {})
     key = (str(dev), L)
     if key not in cache:
+        nq, ns = scan.t["n_quads"], scan.t["nslots"]
         cache[key] = dict(
             f=torch.zeros((L,), dtype=torch.float32, device=dev),
-            b4=torch.zeros((L, 4), dtype=torch.bool, device=dev),
-            b16=torch.zeros((L, 16), dtype=torch.bool, device=dev),
+            bq=torch.zeros((L, nq), dtype=torch.bool, device=dev),
+            bs=torch.zeros((L, ns), dtype=torch.bool, device=dev),
+            iq=torch.zeros((L, nq), dtype=torch.int32, device=dev),
             i1=torch.zeros((1,), dtype=torch.int32, device=dev))
     return cache[key]

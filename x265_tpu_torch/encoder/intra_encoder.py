@@ -14,8 +14,9 @@ lookahead); ``push_frame`` / ``flush`` with B frames, b-pyramid and the
 lookahead (``encoder/lookahead.py``: lowres analysis, cuTree offsets, the
 b-adapt trellis, the lookahead scenecut), so ``Params()`` defaults run;
 Main (8-bit) and Main10 (``internal_bit_depth=10``: uint16 source and
-recon planes, the hash SEIs over 16-bit samples), 64x64 CTBs, on the card
-by default (``device="cuda"``; the tests pass ``device="cpu"``); RDOQ with
+recon planes, the hash SEIs over 16-bit samples), 64x64, 32x32 and 16x16
+CTBs (``ctu_size``; the superfast and ultrafast presets run at 32), on the
+card by default (``device="cuda"``; the tests pass ``device="cpu"``); RDOQ with
 psy-RDOQ (the slow presets) and DCT-domain noise reduction
 (``noise_reduction_intra`` / ``_inter``).  Other bit depths, lossless and
 HRD raise ``NotImplementedError``.
@@ -148,8 +149,6 @@ def check_supported(params: Params) -> None:
         bad.append("bit depth other than 8 and 10")
     if params.lossless:
         bad.append("lossless")
-    if params.ctu_size != 64:
-        bad.append("CTU size != 64")
     if bad:
         raise NotImplementedError("x265_tpu_torch does not support: "
                                   + ", ".join(bad))

@@ -23,7 +23,20 @@ content (8-bit; ``synthetic_frame10`` at Main10):
   ``noise_reduction_intra=noise_reduction_inter=600``, on ten frames: the
   first mini-GOP is dispatched before any frame is fetched, so its offsets
   are still zero, and the second (P9 B7 B6 B8) uses the ones learned from
-  the first.  With six frames the stream would equal the B slice's."""
+  the first.  With six frames the stream would equal the B slice's;
+* superfast / ultrafast: the bench slice's ten frames at
+  ``default_params("superfast" | "ultrafast", qp=32,
+  decoded_picture_hash=1)``: x265's presets for live and real-time
+  encoding, both at ``ctu_size=32`` (1080p: 60 x 34 CTBs, 126 wavefront
+  levels), ``bframes=3`` with a fixed GOP (``b_adapt=0``), one reference,
+  ``subme`` 1 / 0, no AQ or cuTree; ultrafast also without SAO and sign
+  hiding, ``min_cu_size=16`` (read nowhere in either package);
+* ctu16: the IPPP slice's configuration at ``ctu_size=16`` (120 x 68
+  CTBs, 254 levels; no 32x32 candidate) with the MD5 hash SEI, four
+  frames through ``encode_frame``.
+
+The CTU-32 and CTU-16 slices carry the MD5 hash SEI
+(``decoded_picture_hash=1``), the others the checksum."""
 
 from __future__ import annotations
 
@@ -61,14 +74,36 @@ def smoke_params_bench10() -> dict:
 def smoke_params_slow() -> dict:
     """``default_params("slow", ...)``'s fields that differ from
     ``Params()``, with the bench slice's size, QP and hash."""
-    p = dataclasses.asdict(default_params("slow", **smoke_params_bench()))
-    base = dataclasses.asdict(default_params())
-    return {k: v for k, v in p.items() if v != base[k]}
+    return _preset_fields("slow", **smoke_params_bench())
 
 
 def smoke_params_nr() -> dict:
     return dict(smoke_params_b(), noise_reduction_intra=600,
                 noise_reduction_inter=600)
+
+
+def _preset_fields(preset: str, **kw) -> dict:
+    """``default_params(preset, **kw)``'s fields that differ from
+    ``Params()``."""
+    p = dataclasses.asdict(default_params(preset, **kw))
+    base = dataclasses.asdict(default_params())
+    return {k: v for k, v in p.items() if v != base[k]}
+
+
+def smoke_params_superfast() -> dict:
+    return _preset_fields("superfast", source_width=WIDTH,
+                          source_height=HEIGHT, qp=32,
+                          decoded_picture_hash=1)
+
+
+def smoke_params_ultrafast() -> dict:
+    return _preset_fields("ultrafast", source_width=WIDTH,
+                          source_height=HEIGHT, qp=32,
+                          decoded_picture_hash=1)
+
+
+def smoke_params_ctu16() -> dict:
+    return dict(smoke_params(), ctu_size=16, decoded_picture_hash=1)
 
 
 def synthetic_frame(w, h, seed=0):
@@ -112,24 +147,39 @@ def smoke_frames_nr() -> list:
     return smoke_frames(FRAMES_BENCH)
 
 
-def plant_level_8192(x: dict, cx: int, cy: int, cw: int, bd: int) -> None:
+def smoke_frames_superfast() -> list:
+    """The superfast slice's ten display-order frames (the bench
+    slice's)."""
+    return smoke_frames(FRAMES_BENCH)
+
+
+def smoke_frames_ultrafast() -> list:
+    """The ultrafast slice's ten display-order frames (the bench
+    slice's)."""
+    return smoke_frames(FRAMES_BENCH)
+
+
+def plant_level_8192(x: dict, cx: int, cy: int, cw: int, bd: int,
+                     ctb: int = 64) -> None:
     """Make the inter TU32 trial of CTU (cx, cy)'s first quad code a DC
     level of 8192 (the rate table's odd entry) on scan inputs ``x``
-    (numpy arrays or tensors, ``chip_smoke.k1_inputs``' keys): its four
-    16x16 blocks inter with a flat prediction and a flat residual r (the
-    32x32 DC coefficient 128 r at 8 bits, 32 r at 10), r = 160 at 8 bits
-    and 640 at 10, at the CTU's QP 0 (12 with Main10's offset), where
-    levels are (coef * 26214 + 2^15) >> 16: DC 20480 -> 8192."""
+    (numpy arrays or tensors, ``chip_smoke.k1_inputs``' keys) at CTB size
+    ``ctb`` (64 or 32): its four 16x16 blocks inter with a flat prediction
+    and a flat residual r (the 32x32 DC coefficient 128 r at 8 bits, 32 r
+    at 10), r = 160 at 8 bits and 640 at 10, at the CTU's QP 0 (12 with
+    Main10's offset), where levels are (coef * 26214 + 2^15) >> 16: DC
+    20480 -> 8192."""
     pw = x["oy"].shape[-1]
     gw16, gw32 = pw // 16, pw // 32
     base, r = (40, 160) if bd == 8 else (100, 640)
-    x["oy"][64 * cy:64 * cy + 32, 64 * cx:64 * cx + 32] = base + r
+    x["oy"][ctb * cy:ctb * cy + 32, ctb * cx:ctb * cx + 32] = base + r
+    n16, n32 = ctb // 16, ctb // 32
     for dy in (0, 1):
         for dx in (0, 1):
-            b = (4 * cy + dy) * gw16 + 4 * cx + dx
+            b = (n16 * cy + dy) * gw16 + n16 * cx + dx
             x["ipred_y"][b] = base
             x["is_inter"][b] = True
-    x["m32_in"][2 * cy * gw32 + 2 * cx] = True
+    x["m32_in"][n32 * cy * gw32 + n32 * cx] = True
     x["qp"][cy * cw + cx] = 6 * (bd - 8)
 
 
