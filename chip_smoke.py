@@ -85,7 +85,33 @@ Phases (each raises on failure; the script then exits non-zero):
      subme 0, no SAO, no sign hiding) against golden_1080p_ultrafast.json;
  12. the IPPP slice at ctu_size=16 (254 levels, no 32x32 candidate) with
      the MD5 hash SEI through encode_frame, warm and timed, against
-     golden_1080p_ctu16.json: K1 254 launches a frame, all at CTB 16.
+     golden_1080p_ctu16.json: K1 254 launches a frame, all at CTB 16;
+ 13. the CLI at CRF: the bench slice's ten frames written to a 1920x1080
+     Y4M with the port's write_y4m, then x265_tpu_torch.cli.main(
+     [in.y4m, -o, out.265, --crf, 28, --hash, md5, --csv, log.csv,
+     --no-progress]) in-process on the card (the medium preset); the
+     stream's MD5 and size, the encode order and the CSV's text equal to
+     golden_1080p_crf_cli.json (x265_tpu's own CLI on the same Y4M), K1
+     and K2 launched the counts ``bench_launches`` gives;
+ 14. ABR 1000 kbps with VBV 1000 kbps / 1000 kbit and HRD through the
+     procedural API (x265_param_default_preset("medium"),
+     x265_param_parse, x265_encoder_encode with each frame, then with None
+     until it drains): MD5, size and encode order equal to
+     golden_1080p_abr_vbv_hrd.json, a buffering-period SEI in every IRAP
+     AU and a picture-timing SEI in every AU (the prefix SEI NALs' payload
+     types, as the golden's), x265_encoder_get_stats the stream's bits,
+     K1 and K2 the counts ``bench_launches`` gives;
+ 15. 2-pass ABR at 1000 kbps through encode_sequence: pass 1 writes the
+     stats file into a temporary directory, pass 2 reads it; the stats
+     file's text, pass 1's MD5 and pass 2's MD5, size and encode order
+     equal to golden_1080p_twopass.json, pass 2's K1 and K2 launches the
+     counts ``bench_launches`` gives;
+ 16. lossless: two frames at lossless=True with the MD5 hash SEI through
+     encode_sequence (all-intra: the mode decision on the card, no scan,
+     no search); the MD5 and size equal to golden_1080p_lossless.json,
+     every recon equal to its source, and no K1 or K2 launch.
+Phases 13-16 each run one timed encode (the earlier phases have built and
+warmed the kernels) and print its fps.
 Phase 2 also holds K1's RDOQ (psy-RDOQ 1.0) and noise-reduction paths: the
 busiest level (I and P, F = 1 and 2, 8 and 10 bits) equal to the plain
 step, NR sums included, with seeded offsets for NR and, for RDOQ, a P
@@ -1064,6 +1090,307 @@ def check_ctu16_slice(dev, smi):
     return n1, n2, fps
 
 
+def _golden(name):
+    with open(os.path.join(ROOT, "x265_tpu_torch", "data",
+                           f"golden_1080p_{name}.json")) as f:
+        return json.load(f)
+
+
+def _record_finishes():
+    """Record every EncodedFrame that the port's Encoder finishes, in
+    encode order, and the encoder; returns the list, a dict holding the
+    encoder under "enc", and a function that unwraps."""
+    from x265_tpu_torch.encoder import intra_encoder
+
+    real = intra_encoder.Encoder._finish_one
+    log, holder = [], {}
+
+    def finish(self, pend):
+        ef = real(self, pend)
+        if not log or log[-1] is not ef:
+            log.append(ef)
+        holder["enc"] = self
+        return ef
+
+    intra_encoder.Encoder._finish_one = finish
+    return log, holder, lambda: setattr(intra_encoder.Encoder,
+                                        "_finish_one", real)
+
+
+def _check_golden(what, stream, efs, golden):
+    """The stream's MD5 and size and the encode order against a golden;
+    returns the MD5."""
+    md5 = hashlib.md5(stream).hexdigest()
+    pocs, kinds = [ef.poc for ef in efs], [ef.kind for ef in efs]
+    if (md5 != golden["md5"] or len(stream) != golden["total_bytes"]
+            or pocs != golden["encode_pocs"]
+            or kinds != golden["encode_kinds"]):
+        for i, (a, b) in enumerate(zip([len(ef.au) for ef in efs],
+                                       golden["au_bytes"])):
+            if a != b:
+                print(f"  first differing AU: {i} ({a} vs {b} bytes)",
+                      flush=True)
+                break
+        raise AssertionError(f"{what} stream differs from x265_tpu's "
+                             f"golden: md5 {md5} (golden {golden['md5']}),"
+                             f" order {list(zip(pocs, kinds))}")
+    return md5
+
+
+def _check_launches(what, golden, enc):
+    """K1 and K2 launches since the counts were zeroed against the counts
+    ``bench_launches`` derives from the golden's encode order; returns
+    them."""
+    from x265_tpu_torch.encoder import ctu_scan_cuda, me_cuda
+
+    n1, n2 = ctu_scan_cuda.LAUNCHES, me_cuda.LAUNCHES
+    w1, w2 = bench_launches(golden["encode_kinds"], enc.num_ref,
+                            enc._get_ctu_scan().t["n_levels"])
+    print(f"launches: K1 {n1} (want {w1}), K2 {n2} (want {w2}, "
+          f"{enc.num_ref} references)", flush=True)
+    if n1 != w1 or n2 != w2:
+        raise AssertionError(f"the {what} slice did not run through K1/K2 "
+                             "as expected")
+    return n1, n2
+
+
+def _prefix_sei_types(au):
+    """The payload types of each prefix SEI NAL (type 39) of an access
+    unit, in order."""
+    out = []
+    for nal in au.split(b"\x00\x00\x01")[1:]:
+        nal = nal.rstrip(b"\x00")
+        if (nal[0] >> 1) & 0x3F != 39:
+            continue
+        rbsp = nal[2:].replace(b"\x00\x00\x03", b"\x00\x00")
+        types, i = [], 0
+        while i < len(rbsp) and rbsp[i:] != b"\x80":
+            t = size = 0
+            while rbsp[i] == 255:
+                t, i = t + 255, i + 1
+            t, i = t + rbsp[i], i + 1
+            while rbsp[i] == 255:
+                size, i = size + 255, i + 1
+            size, i = size + rbsp[i], i + 1
+            types.append(t)
+            i += size
+        out.append(types)
+    return out
+
+
+def check_crf_cli(smi):
+    """Phase 13: the CLI at --crf 28 on a 1920x1080 Y4M of the bench
+    slice's frames, in-process on the card.  Returns the K1 and K2
+    launches and the fps."""
+    import tempfile
+
+    import torch
+    from x265_tpu_torch import cli, io
+    from x265_tpu_torch import smoke_config as sc
+
+    golden = _golden("crf_cli")
+    with tempfile.TemporaryDirectory() as tmp:
+        y4m, out, csv = (os.path.join(tmp, f)
+                         for f in ("in.y4m", "out.265", "log.csv"))
+        frames = sc.smoke_frames_bench()
+        io.write_y4m(y4m, frames, sc.WIDTH, sc.HEIGHT)
+        log, holder, unwrap = _record_finishes()
+        _zero_counts()
+        try:
+            torch.cuda.synchronize()
+            t0 = time.time()
+            rc = cli.main(sc.smoke_args_crf_cli(y4m, out, csv))
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+        finally:
+            unwrap()
+        if rc != 0:
+            raise AssertionError(f"the CLI returned {rc}")
+        with open(out, "rb") as f:
+            stream = f.read()
+        with open(csv) as f:
+            csv_text = f.read()
+    enc = holder["enc"]
+    print(f"slice 1080p CLI --crf 28 (medium) on {smi}: {len(stream)} bytes, "
+          f"encode order {[(ef.poc, ef.kind, ef.qp) for ef in log]}, "
+          f"{len(frames)} frames in {wall:.3f} s (Y4M read, PSNR and CSV "
+          f"included), {len(frames) / wall:.3f} fps; device "
+          f"{enc.device}", flush=True)
+    n1, n2 = _check_launches("CLI CRF", golden, enc)
+    md5 = _check_golden("CLI CRF", stream, log, golden)
+    if csv_text != golden["csv"]:
+        raise AssertionError("the CLI's CSV differs from x265_tpu's:\n"
+                             + csv_text)
+    print(f"  md5 {md5} (golden {golden['md5']}), CSV equal "
+          f"({csv_text.count(chr(10))} lines)", flush=True)
+    return n1, n2, len(frames) / wall
+
+
+def check_abr_vbv_hrd(smi):
+    """Phase 14: ABR + VBV + HRD through the procedural API on the card.
+    Returns the K1 and K2 launches and the fps."""
+    import torch
+    from x265_tpu_torch import api
+    from x265_tpu_torch import smoke_config as sc
+
+    golden = _golden("abr_vbv_hrd")
+    frames = sc.smoke_frames_bench()
+    p = api.x265_param_default_preset("medium")
+    for name, value in sc.smoke_parse_abr_vbv_hrd():
+        api.x265_param_parse(p, name, value)
+    p.source_width, p.source_height = sc.WIDTH, sc.HEIGHT
+    log, _holder, unwrap = _record_finishes()
+    _zero_counts()
+    try:
+        torch.cuda.synchronize()
+        t0 = time.time()
+        enc = api.x265_encoder_open(p)
+        aus = [api.x265_encoder_headers(enc)]
+        for planes in frames + [None] * 64:
+            au, _rec = api.x265_encoder_encode(enc, planes)
+            if planes is None and not au:
+                break
+            aus.append(au)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    finally:
+        unwrap()
+    aus = [a for a in aus if a]
+    stream = b"".join(aus)
+    st = api.x265_encoder_get_stats(enc)
+    seis = [_prefix_sei_types(a) for a in aus[1:]]
+    print(f"slice 1080p API ABR 1000 kbps, VBV 1000 kbps / 1000 kbit, HRD "
+          f"(medium) on {smi}: bytes per AU {[len(a) for a in aus]}, encode "
+          f"order {[(ef.poc, ef.kind, ef.qp) for ef in log]}, {len(log)} "
+          f"frames in {wall:.3f} s, {len(log) / wall:.3f} fps; prefix SEI "
+          f"payload types {seis}; stats {st}", flush=True)
+    n1, n2 = _check_launches("ABR + VBV + HRD", golden, enc)
+    md5 = _check_golden("ABR + VBV + HRD", stream, log, golden)
+    if not enc.hrd or not enc.sps.hrd_present:
+        raise AssertionError("HRD is off")
+    for ef, types in zip(log, seis):
+        flat = [t for nal in types for t in nal]
+        if flat.count(1) != 1 or flat.count(0) != (ef.kind == "I"):
+            raise AssertionError(f"POC {ef.poc} ({ef.kind}): prefix SEI "
+                                 f"payload types {types}")
+    if seis != golden["sei_types"]:
+        raise AssertionError("the prefix SEIs differ from the golden's")
+    if (st.encoded_picture_count != len(frames)
+            or st.accumulated_bits != 8 * sum(len(a) for a in aus[1:])):
+        raise AssertionError(f"x265_encoder_get_stats: {st}")
+    print(f"  md5 {md5} (golden {golden['md5']}; without VBV "
+          f"{golden['md5_without_vbv']})", flush=True)
+    return n1, n2, len(log) / wall
+
+
+def check_twopass(smi):
+    """Phase 15: 2-pass ABR through encode_sequence on the card.  Returns
+    pass 2's K1 and K2 launches and fps."""
+    import tempfile
+
+    import torch
+    from x265_tpu_torch import Params
+    from x265_tpu_torch import smoke_config as sc
+    from x265_tpu_torch.encoder import encode_sequence
+
+    golden = _golden("twopass")
+    frames = sc.smoke_frames_bench()
+    with tempfile.TemporaryDirectory() as tmp:
+        stats = os.path.join(tmp, "2pass.log")
+        torch.cuda.synchronize()
+        t0 = time.time()
+        s1, _ = encode_sequence(frames,
+                                Params(**sc.smoke_params_twopass(stats, 1)))
+        torch.cuda.synchronize()
+        wall1 = time.time() - t0
+        with open(stats) as f:
+            text = f.read()
+        log, holder, unwrap = _record_finishes()
+        _zero_counts()
+        try:
+            torch.cuda.synchronize()
+            t0 = time.time()
+            s2, _ = encode_sequence(
+                frames, Params(**sc.smoke_params_twopass(stats, 2)))
+            torch.cuda.synchronize()
+            wall2 = time.time() - t0
+        finally:
+            unwrap()
+    enc = holder["enc"]
+    print(f"slice 1080p 2-pass ABR 1000 kbps (medium) on {smi}: pass 1 "
+          f"{len(s1)} bytes in {wall1:.3f} s, {len(frames) / wall1:.3f} fps;"
+          f" pass 2 {len(s2)} bytes, encode order "
+          f"{[(ef.poc, ef.kind, ef.qp) for ef in log]}, in {wall2:.3f} s, "
+          f"{len(frames) / wall2:.3f} fps", flush=True)
+    n1, n2 = _check_launches("2-pass", golden, enc)
+    md5 = _check_golden("2-pass (pass 2)", s2, log, golden)
+    md5_1 = hashlib.md5(s1).hexdigest()
+    if md5_1 != golden["md5_pass1"]:
+        raise AssertionError(f"pass 1's stream differs from x265_tpu's: "
+                             f"{md5_1} (golden {golden['md5_pass1']})")
+    if text != golden["stats"]:
+        raise AssertionError("the stats file differs from x265_tpu's:\n"
+                             + text)
+    print(f"  md5 {md5} (golden {golden['md5']}), pass 1 {md5_1}, stats "
+          f"file equal ({text.count(chr(10))} lines)", flush=True)
+    return n1, n2, len(frames) / wall2
+
+
+def check_lossless(smi):
+    """Phase 16: two lossless frames through encode_sequence on the card:
+    no K1 or K2 launch, recons equal to the sources.  Returns the fps."""
+    import numpy as np
+    import torch
+    from x265_tpu_torch import Params
+    from x265_tpu_torch import smoke_config as sc
+    from x265_tpu_torch.encoder import (ctu_scan_cuda, encode_sequence,
+                                        intra_encoder, me_cuda)
+
+    golden = _golden("lossless")
+    frames = sc.smoke_frames_lossless()
+    log, holder, unwrap = _record_finishes()
+    # the host time of the mode decision's gather tables (built once per
+    # Encoder), beside the encoder's own entropy-coding time
+    tables = [0.0]
+    real_tables = intra_encoder.Encoder._mode_gather_tables
+
+    def timed_tables(self, *a, **k):
+        t = time.perf_counter()
+        out = real_tables(self, *a, **k)
+        tables[0] += time.perf_counter() - t
+        return out
+
+    intra_encoder.Encoder._mode_gather_tables = timed_tables
+    _zero_counts()
+    try:
+        torch.cuda.synchronize()
+        t0 = time.time()
+        stream, recons = encode_sequence(
+            frames, Params(**sc.smoke_params_lossless()))
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    finally:
+        unwrap()
+        intra_encoder.Encoder._mode_gather_tables = real_tables
+    n1, n2 = ctu_scan_cuda.LAUNCHES, me_cuda.LAUNCHES
+    enc = holder["enc"]
+    print(f"slice 1080p lossless (2 frames, all-intra) on {smi}: bytes per "
+          f"AU {[len(ef.au) for ef in log]}, {len(frames)} frames in "
+          f"{wall:.3f} s, {len(frames) / wall:.3f} fps (gather tables "
+          f"{tables[0]:.3f} s, native CABAC {enc._perf['entropy']:.3f} s); "
+          f"device {enc.device}, scan built {enc._ctu_scan is not None}; "
+          f"launches K1 {n1}, K2 {n2} (want 0, 0)", flush=True)
+    md5 = _check_golden("lossless", stream, log, golden)
+    if n1 or n2 or enc._ctu_scan is not None:
+        raise AssertionError("the lossless slice ran the scan or the search")
+    for fr, rec in zip(frames, recons):
+        if not all(np.array_equal(a, b) for a, b in zip(fr, rec)):
+            raise AssertionError("a lossless recon differs from its source")
+    print(f"  md5 {md5} (golden {golden['md5']}), recons equal to the "
+          "sources", flush=True)
+    return len(frames) / wall
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1172,6 +1499,12 @@ def main():
     n1f, n2f, _fps = check_preset_slice(dev, smi, "superfast")
     n1u, n2u, _fps = check_preset_slice(dev, smi, "ultrafast")
     n1c, n2c, _fps = check_ctu16_slice(dev, smi)
+    # phases 13-16: the CLI at CRF, ABR + VBV + HRD through the API, 2-pass
+    # through encode_sequence, lossless
+    n1x, n2x, _fps = check_crf_cli(smi)
+    n1v, n2v, _fps = check_abr_vbv_hrd(smi)
+    n1t, n2t, _fps = check_twopass(smi)
+    check_lossless(smi)
 
     kp, kp10 = k1["P"], k1_10["P"]
     # the RDOQ / NR busiest-level records: {mode}_{I|P}[_F2][_10bit]
@@ -1201,7 +1534,8 @@ def main():
         dict(name="K1 ctu_step", route="cuda",
              source="x265_tpu_torch/csrc/k1_ctu_step.cu",
              replaces="x265_tpu/encoder/ctu_scan_pallas.py:72",
-             launches=n1 + n1b + n1s + n1m + n1w + n1n + n1f + n1u + n1c,
+             launches=(n1 + n1b + n1s + n1m + n1w + n1n + n1f + n1u + n1c
+                       + n1x + n1v + n1t),
              max_abs_err=max(
                  k1["I"]["err"], kp["err"], kp["F2"]["err"],
                  k1["I"]["F2"]["err"], k1_10["I"]["err"], kp10["err"],
@@ -1220,13 +1554,18 @@ def main():
              scan_ms_P_10bit=kp10["scan_ms"], launches_slow=n1w,
              launches_nr=n1n, launches_superfast=n1f,
              launches_ultrafast=n1u, launches_ctu16=n1c,
-             launches_ctb32=n1f + n1u, launches_ctb16=n1c, **extra),
+             launches_ctb32=n1f + n1u, launches_ctb16=n1c,
+             launches_crf_cli=n1x, launches_abr_vbv_hrd=n1v,
+             launches_twopass=n1t, launches_lossless=0, **extra),
         dict(name="K2 subpel_refine", route="cuda",
              source="x265_tpu_torch/csrc/k2_subpel_refine.cu",
              replaces="x265_tpu/encoder/me_pallas.py:71",
-             launches=n2 + n2b + n2s + n2m + n2w + n2n + n2f + n2u + n2c,
+             launches=(n2 + n2b + n2s + n2m + n2w + n2n + n2f + n2u + n2c
+                       + n2x + n2v + n2t),
              launches_slow=n2w, launches_nr=n2n, launches_superfast=n2f,
              launches_ultrafast=n2u, launches_ctu16=n2c,
+             launches_crf_cli=n2x, launches_abr_vbv_hrd=n2v,
+             launches_twopass=n2t, launches_lossless=0,
              max_abs_err=max(k2["err"], k2_10["err"]), ms=k2["ms"],
              plain_ms=k2["plain_ms"], bound_ms=k2["bound_ms"],
              bound_by=k2["bound_by"], library_ms=None,

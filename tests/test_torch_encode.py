@@ -79,9 +79,8 @@ def test_ipp_stream_is_byte_identical():
     assert all(p.hash_ok for p in pics)
 
 
-@pytest.mark.parametrize("kw", [dict(hrd=True), dict(internal_bit_depth=12),
-                                dict(lossless=True),
-                                dict(ctu_size=32, lossless=True)])
+@pytest.mark.parametrize("kw", [dict(internal_bit_depth=12),
+                                dict(lossless=True, internal_bit_depth=12)])
 def test_unsupported_configs_raise(kw):
     p = Params(source_width=W, source_height=H, **kw)
     with pytest.raises(NotImplementedError):

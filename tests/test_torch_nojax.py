@@ -4,7 +4,8 @@ the port imports and encodes a 128x64 I P pair, then one B mini-GOP
 (I0 P3 B1 B2, the two Bs batched), then six frames at the Params()
 defaults through the lookahead (cuTree, the b-adapt trellis), then a
 Main10 mini-GOP (10-bit frames, the lookahead on), then a B mini-GOP with
-RDOQ (psy-RDOQ 1.0) and noise reduction, then an I P pair at CTU 32 on the
+RDOQ (psy-RDOQ 1.0) and noise reduction, then an I P pair at CTU 32, then
+the CLI at CRF with VBV and HRD and a lossless encode_sequence, all on the
 CPU, and the streams have the expected structure."""
 
 import os
@@ -97,12 +98,41 @@ auc = [encc.encode_frame((np.roll(y, 2 * t, axis=1), c[0], c[1]))[0]
 assert encc._get_ctu_scan().t["n_levels"] == 6 and encc.headers()
 assert all(au.startswith(b"\x00\x00\x00\x01") and len(au) > 100
            for au in auc)
+# the CLI at CRF with ABR's VBV and HRD (I P P: buffering period on the
+# IDR, picture timing on every AU), then a lossless encode_sequence
+import os
+import tempfile
+from x265_tpu_torch import cli, io
+from x265_tpu_torch.encoder import encode_sequence
+with tempfile.TemporaryDirectory() as tmp:
+    inp, out = os.path.join(tmp, "in.y4m"), os.path.join(tmp, "out.265")
+    io.write_y4m(inp, [(np.roll(y, 2 * t, axis=1), c[0], c[1])
+                       for t in range(3)], 128, 64)
+    assert cli.main([inp, "-o", out, "--crf", "28", "--vbv-maxrate", "100",
+                     "--vbv-bufsize", "100", "--hrd", "--bframes", "0",
+                     "--merange", "16", "--hash", "md5", "--no-progress",
+                     "--csv", os.path.join(tmp, "log.csv"),
+                     "--device", "cpu"]) == 0
+    hrd_stream = open(out, "rb").read()
+    csv_lines = open(os.path.join(tmp, "log.csv")).read().splitlines()
+assert len(csv_lines) == 4 and csv_lines[1].startswith("0,I,")
+sei_heads = [n[2:4] for n in hrd_stream.split(b"\x00\x00\x01")[1:]
+             if (n[0] >> 1) & 0x3F == 39 and n[2] in (0, 1)]
+assert sei_heads[0][0] == 0 and len(sei_heads) == 3, sei_heads
+lframes = [tuple(rng.randint(0, 256, s).astype(np.uint8)
+                 for s in ((64, 128), (32, 64), (32, 64)))
+           for _ in range(2)]
+ll_stream, ll_rec = encode_sequence(
+    lframes, Params(source_width=128, source_height=64, lossless=True,
+                    decoded_picture_hash=1, log_level=0), device="cpu")
+assert all(np.array_equal(a, b) for fa, fb in zip(lframes, ll_rec)
+           for a, b in zip(fa, fb))
 assert not any(m == "jax" or m.startswith(("jax.", "x265_tpu."))
                for m in sys.modules if sys.modules[m] is not None)
 print("NOJAX-OK", len(hdr), [len(au) for au, _ in aus],
       [len(ef.au) for ef in efs], [(ef.poc, ef.kind) for ef in efl],
       [len(ef.au) for ef in ef10], [len(ef.au) for ef in efr],
-      [len(au) for au in auc])
+      [len(au) for au in auc], len(hrd_stream), len(ll_stream))
 """
 
 

@@ -27,12 +27,28 @@ size, the size of each access unit and the encode-order POCs go to
   ``default_params("superfast" | "ultrafast")`` (CTU 32, MD5 hash SEI)
   through ``push_frame`` / ``flush``, with the encode order and kinds;
 * ``x265_tpu_torch/data/golden_1080p_ctu16.json``: the IPPP slice at
-  ``ctu_size=16`` with the MD5 hash SEI through ``Encoder.encode_frame``.
+  ``ctu_size=16`` with the MD5 hash SEI through ``Encoder.encode_frame``;
+* ``x265_tpu_torch/data/golden_1080p_crf_cli.json``: the reference's own
+  CLI (``x265_tpu.cli.main``) at ``--crf 28`` on a Y4M of the bench
+  slice's frames, with the CSV log's text;
+* ``x265_tpu_torch/data/golden_1080p_abr_vbv_hrd.json``: the procedural
+  API at ABR 1000 kbps with VBV 1000 kbps / 1000 kbit and HRD, with the
+  payload types of each AU's prefix SEIs; it asserts that the VBV binds
+  (the stream differs from the same ABR without VBV);
+* ``x265_tpu_torch/data/golden_1080p_twopass.json``: 2-pass ABR at 1000
+  kbps through ``encode_sequence``, with pass 1's stats file text;
+* ``x265_tpu_torch/data/golden_1080p_lossless.json``: two lossless frames
+  through ``encode_sequence`` (the reference codes them with its Python
+  CABAC, ~1 min a frame).
+
+The last four also record each access unit's size and the encode-order
+POCs and kinds (from the reference's ``Encoder._finish_one``).
 
     JAX_PLATFORMS=cpu python tools/make_golden.py [ippp] [b] [bench] \
-        [bench10] [slow] [nr] [superfast] [ultrafast] [ctu16]
+        [bench10] [slow] [nr] [superfast] [ultrafast] [ctu16] [crf_cli] \
+        [abr_vbv_hrd] [twopass] [lossless]
 
-With no argument it writes all nine.
+With no argument it writes all thirteen.
 """
 
 import hashlib
@@ -158,10 +174,162 @@ def _preset(preset):
            getattr(sc, f"smoke_frames_{preset}")())
 
 
+def _recording():
+    """Record every EncodedFrame that the reference's Encoder finishes
+    (in encode order); returns the list and a function that unwraps."""
+    from x265_tpu.encoder import intra_encoder
+
+    real = intra_encoder.Encoder._finish_one
+    log = []
+
+    def finish(self, pend):
+        ef = real(self, pend)
+        if not log or log[-1] is not ef:
+            log.append(ef)
+        return ef
+
+    intra_encoder.Encoder._finish_one = finish
+    return log, lambda: setattr(intra_encoder.Encoder, "_finish_one", real)
+
+
+def _write_stream(name, params, stream, efs, **extra):
+    out = dict(params=params, frames=len(efs),
+               md5=hashlib.md5(stream).hexdigest(), total_bytes=len(stream),
+               au_bytes=[len(ef.au) for ef in efs],
+               encode_pocs=[ef.poc for ef in efs],
+               encode_kinds=[ef.kind for ef in efs], **extra,
+               made_by="x265_tpu on the CPU (tools/make_golden.py)")
+    assert len(stream) - sum(out["au_bytes"]) > 0      # the headers
+    with open(os.path.join(DATA, name), "w") as f:
+        json.dump(out, f, indent=1)
+        f.write("\n")
+    print(json.dumps({k: v for k, v in out.items() if k != "stats"}))
+
+
+def crf_cli():
+    import tempfile
+
+    from x265_tpu import cli
+    from x265_tpu.io import write_y4m
+    from x265_tpu_torch import smoke_config as sc
+
+    with tempfile.TemporaryDirectory() as tmp:
+        y4m, out, csv = (os.path.join(tmp, f)
+                         for f in ("in.y4m", "out.265", "log.csv"))
+        write_y4m(y4m, sc.smoke_frames_bench(), sc.WIDTH, sc.HEIGHT)
+        log, undo = _recording()
+        try:
+            assert cli.main(sc.smoke_args_crf_cli(y4m, out, csv)) == 0
+        finally:
+            undo()
+        with open(out, "rb") as f:
+            stream = f.read()
+        with open(csv) as f:
+            csv_text = f.read()
+    _write_stream("golden_1080p_crf_cli.json",
+                  sc.smoke_args_crf_cli("in.y4m", "out.265", "log.csv"),
+                  stream, log, csv=csv_text)
+
+
+def _sei_payload_types(au):
+    """The payload types of each prefix SEI NAL (type 39) of an AU."""
+    from x265_tpu.common.sei import parse_sei_rbsp
+
+    out = []
+    for nal in au.split(b"\x00\x00\x01")[1:]:
+        nal = nal.rstrip(b"\x00")
+        if (nal[0] >> 1) & 0x3F == 39:
+            rbsp = nal[2:].replace(b"\x00\x00\x03", b"\x00\x00")
+            out.append([t for t, _p in parse_sei_rbsp(rbsp)])
+    return out
+
+
+def _api_encode(parse):
+    from x265_tpu import api
+    from x265_tpu_torch import smoke_config as sc
+
+    p = api.x265_param_default_preset("medium")
+    for name, value in parse:
+        api.x265_param_parse(p, name, value)
+    p.source_width, p.source_height = sc.WIDTH, sc.HEIGHT
+    enc = api.x265_encoder_open(p)
+    aus = [api.x265_encoder_headers(enc)]
+    for planes in sc.smoke_frames_bench() + [None] * 64:
+        au, _rec = api.x265_encoder_encode(enc, planes)
+        if planes is None and not au:
+            break
+        aus.append(au)
+    return [a for a in aus if a]
+
+
+def abr_vbv_hrd():
+    from x265_tpu_torch import smoke_config as sc
+
+    parse = sc.smoke_parse_abr_vbv_hrd()
+    log, undo = _recording()
+    try:
+        aus = _api_encode(parse)
+    finally:
+        undo()
+    stream = b"".join(aus)
+    # the VBV must bind: the same ABR without it gives another stream
+    plain = b"".join(_api_encode([kv for kv in parse
+                                  if kv[0] in ("bitrate", "hash")]))
+    assert plain != stream, "the VBV does not bind at these rates"
+    _write_stream("golden_1080p_abr_vbv_hrd.json", parse, stream, log,
+                  sei_types=[_sei_payload_types(a) for a in aus[1:]],
+                  md5_without_vbv=hashlib.md5(plain).hexdigest())
+
+
+def twopass():
+    import tempfile
+
+    from x265_tpu.common.params import Params
+    from x265_tpu.encoder import encode_sequence
+    from x265_tpu_torch import smoke_config as sc
+
+    frames = sc.smoke_frames_bench()
+    with tempfile.TemporaryDirectory() as tmp:
+        stats = os.path.join(tmp, "2pass.log")
+        s1, _ = encode_sequence(frames,
+                                Params(**sc.smoke_params_twopass(stats, 1)))
+        with open(stats) as f:
+            text = f.read()
+        log, undo = _recording()
+        try:
+            s2, _ = encode_sequence(
+                frames, Params(**sc.smoke_params_twopass(stats, 2)))
+        finally:
+            undo()
+    params = sc.smoke_params_twopass("2pass.log", 2)
+    _write_stream("golden_1080p_twopass.json", params, s2, log, stats=text,
+                  md5_pass1=hashlib.md5(s1).hexdigest())
+
+
+def lossless():
+    from x265_tpu.common.params import Params
+    from x265_tpu.encoder import encode_sequence
+    from x265_tpu_torch import smoke_config as sc
+
+    log, undo = _recording()
+    try:
+        stream, recons = encode_sequence(
+            sc.smoke_frames_lossless(), Params(**sc.smoke_params_lossless()))
+    finally:
+        undo()
+    for fr, rec in zip(sc.smoke_frames_lossless(), recons):
+        assert all((a == b).all() for a, b in zip(fr, rec))
+    _write_stream("golden_1080p_lossless.json", sc.smoke_params_lossless(),
+                  stream, log)
+
+
 if __name__ == "__main__":
     which = sys.argv[1:] or ["ippp", "b", "bench", "bench10", "slow", "nr",
-                             "superfast", "ultrafast", "ctu16"]
+                             "superfast", "ultrafast", "ctu16", "crf_cli",
+                             "abr_vbv_hrd", "twopass", "lossless"]
     for name in which:
         dict(ippp=ippp, b=bslice, bench=bench, bench10=bench10, slow=slow,
              nr=nr, superfast=lambda: _preset("superfast"),
-             ultrafast=lambda: _preset("ultrafast"), ctu16=ctu16)[name]()
+             ultrafast=lambda: _preset("ultrafast"), ctu16=ctu16,
+             crf_cli=crf_cli, abr_vbv_hrd=abr_vbv_hrd, twopass=twopass,
+             lossless=lossless)[name]()

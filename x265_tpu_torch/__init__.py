@@ -12,17 +12,21 @@ for the two hot loops that were Pallas kernels in ``x265_tpu``:
     ``csrc/k2_subpel_refine.cu``), one launch per reference.
 
 Layout mirrors ``x265_tpu`` (``ops/``, ``encoder/``, ``common/``,
-``cabac/``, ``native/``) with the same module and function names.  The
-port stands on its own: it imports nothing of ``x265_tpu``.  The host
-modules it needs (params, geometry, headers, SEI, level, the picture
-syntax arrays and CABAC context init, the native C serializer, the
-deblock/SAO tables, the ``Encoder`` host logic, AQ, rate control, weightp,
-the CTU tables) are copies, line for line where the stream depends on
-them; only the tests import both packages.
+``cabac/``, ``native/``, ``io/``, ``api.py``, ``cli.py``) with the same
+module and function names.  The port stands on its own: it imports
+nothing of ``x265_tpu``.  The host modules it needs (params with
+``param_parse``, geometry, headers, SEI with the HRD's messages, level,
+the picture syntax arrays and CABAC context init, the native C serializer
+with the lossless bypass flag and the input dithering, the deblock/SAO
+tables, the ``Encoder`` host logic with HRD and lossless, AQ, rate
+control, weightp, the CTU tables, Y4M / YUV I/O, SSIM, the x265-style
+procedural API and the CLI) are copies, line for line where the stream
+depends on them; only the tests import both packages.
 
-Device policy: ``Encoder`` runs on the card (``device="cuda"``) unless the
-caller asks for the CPU (``device="cpu"``, as the tests do); nothing falls
-back silently.  TF32 is switched off for matmul and cuDNN at import: every
+Device policy: ``Encoder``, ``encode_sequence``, ``api.x265_encoder_open``
+and the CLI (``python -m x265_tpu_torch.cli``, ``--device``) run on the
+card (``device="cuda"``) unless the caller asks for the CPU
+(``device="cpu"``, as the tests do); nothing falls back silently.  TF32 is switched off for matmul and cuDNN at import: every
 float product in the port is meant to be exact (integer operands) or IEEE
 float32.
 """

@@ -2,7 +2,8 @@
 ``x265_tpu/common/params.py`` (same fields, same defaults: x265's preset
 'medium'), copied line for line with its enums and the warnings for
 options the engine does not honour, and its preset and tune tables with
-``default_params``.  The reference's CLI parsing helpers are not carried.
+``default_params``, and ``param_parse`` (x265_param_parse: one option by
+its CLI name) with its alias and VUI name tables.
 """
 
 from __future__ import annotations
@@ -15,6 +16,8 @@ from dataclasses import dataclass, field
 CSP_I400, CSP_I420, CSP_I422, CSP_I444 = 0, 1, 2, 3
 
 ME_DIA, ME_HEX, ME_UMH, ME_STAR, ME_FULL = 0, 1, 2, 3, 4
+ME_NAMES = ["dia", "hex", "umh", "star", "full"]
+
 RC_CQP, RC_CRF, RC_ABR = 0, 1, 2
 
 B_ADAPT_NONE, B_ADAPT_FAST, B_ADAPT_TRELLIS = 0, 1, 2
@@ -294,6 +297,106 @@ def default_params(preset: str = "medium", tune: str | None = None,
     return p
 
 
+_PARSE_ALIASES = {
+    # CLI spelling -> field name (subset; grows with x265_param_parse parity)
+    "input-res": None,  # handled specially ("WxH")
+    "ctu": "ctu_size",
+    "min-cu-size": "min_cu_size",
+    "max-tu-size": "max_tu_size",
+    "rd": "rd_level",
+    "me": "me",
+    "subme": "subme",
+    "merange": "me_range",
+    "ref": "ref",
+    "bframes": "bframes",
+    "b-adapt": "b_adapt",
+    "keyint": "keyint_max",
+    "min-keyint": "keyint_min",
+    "rc-lookahead": "rc_lookahead",
+    "qp": "qp",
+    "crf": "crf",
+    "bitrate": "bitrate",
+    "aq-mode": "aq_mode",
+    "aq-strength": "aq_strength",
+    "qg-size": "qg_size",
+    "cutree": "cu_tree",
+    "sao": "sao",
+    "signhide": "sign_hide",
+    "rdoq-level": "rdoq_level",
+    "psy-rd": "psy_rd",
+    "psy-rdoq": "psy_rdoq",
+    "weightp": "weightp",
+    "weightb": "weightb",
+    "wpp": "wavefront",
+    "hash": "decoded_picture_hash",
+    "lossless": "lossless",
+    "tskip": "tskip",
+    "early-skip": "early_skip",
+    "fast-intra": "fast_intra",
+    "strong-intra-smoothing": "strong_intra_smoothing",
+    "constrained-intra": "constrained_intra",
+    "open-gop": "open_gop",
+    "b-pyramid": "b_pyramid",
+    "interlace": "interlace_mode",
+    "repeat-headers": "repeat_headers",
+    "aud": "aud",
+    "hrd": "hrd",
+    "ssim": "ssim",
+    "psnr": "psnr",
+    "deblock": "deblock",
+    "vbv-bufsize": "vbv_buffer_size",
+    "vbv-maxrate": "vbv_max_bitrate",
+    "vbv-init": "vbv_buffer_init",
+    "ipratio": "ip_factor",
+    "pbratio": "pb_factor",
+    "qcomp": "qcomp",
+    "qpstep": "qp_step",
+    "scenecut": "scenecut_threshold",
+    "pass": "stats_pass",
+    "stats": "stats_file",
+    "qblur": "qblur",
+    "cplxblur": "cplxblur",
+    "max-merge": "max_merge",
+    "nr-intra": "noise_reduction_intra",
+    "nr-inter": "noise_reduction_inter",
+    "temporal-mvp": "temporal_mvp",
+    "tu-intra-depth": "tu_intra_depth",
+    "tu-inter-depth": "tu_inter_depth",
+    "limit-refs": "limit_refs",
+    "limit-modes": "limit_modes",
+    "rect": "rect",
+    "amp": "amp",
+    "b-intra": "b_intra",
+    "cu-lossless": "cu_lossless",
+    "profile": "profile",
+    "level-idc": "level_idc",
+    "high-tier": "high_tier",
+    "range": "video_full_range",
+    "videoformat": "video_format",
+    "colorprim": "colorprim",
+    "transfer": "transfer",
+    "colormatrix": "colormatrix",
+    "chromaloc": "chromaloc",
+    "master-display": "master_display",
+    "max-cll": "max_cll",
+    "zones": "zones",
+    "qpfile": "qpfile",
+    "sar": None,  # handled specially ("W:H" or an index name)
+    "fps": None,  # handled specially
+}
+
+# VUI name tables (x265cli.h / Annex E code points)
+_COLORPRIM = ["reserved", "bt709", "undef", "reserved", "bt470m",
+              "bt470bg", "smpte170m", "smpte240m", "film", "bt2020"]
+_TRANSFER = ["reserved", "bt709", "undef", "reserved", "bt470m",
+             "bt470bg", "smpte170m", "smpte240m", "linear", "log100",
+             "log316", "iec61966-2-4", "bt1361e", "iec61966-2-1",
+             "bt2020-10", "bt2020-12", "smpte-st-2084", "smpte-st-428",
+             "arib-std-b67"]
+_COLORMATRIX = ["GBR", "bt709", "undef", "reserved", "fcc", "bt470bg",
+                "smpte170m", "smpte240m", "YCgCo", "bt2020nc", "bt2020c"]
+_VIDEOFORMAT = ["component", "pal", "ntsc", "secam", "mac", "undef"]
+
 
 # ---------------------------------------------------------------------------
 # Honesty layer: options x265 honors that this engine does not (yet).
@@ -353,3 +456,79 @@ def unsupported_param_warnings(p: Params) -> list[str]:
                        f"={val!r} not honored: {why}; using {effective!r}")
     return out
 
+
+def param_parse(p: Params, name: str, value: str | None = None) -> None:
+    """x265_param_parse equivalent: set one option by CLI name.
+
+    Supports the ``no-`` prefix for booleans and name=value strings.
+    """
+    if value is None and "=" in name:
+        name, value = name.split("=", 1)
+    negated = False
+    if name.startswith("no-"):
+        negated = True
+        name = name[3:]
+    if name == "input-res":
+        w, h = value.lower().split("x")
+        p.source_width, p.source_height = int(w), int(h)
+        return
+    if name == "fps":
+        if "/" in value:
+            n, d = value.split("/")
+            p.fps_num, p.fps_denom = int(n), int(d)
+        else:
+            f = float(value)
+            if f == int(f):
+                p.fps_num, p.fps_denom = int(f), 1
+            else:
+                p.fps_num, p.fps_denom = int(round(f * 1000)), 1000
+        return
+    if name == "preset":
+        newp = default_params(value)
+        for f in dataclasses.fields(Params):
+            setattr(p, f.name, getattr(newp, f.name))
+        return
+    if name == "me" and value in ME_NAMES:
+        p.me = ME_NAMES.index(value)
+        return
+    if name in ("qp", "crf", "bitrate"):
+        p.rc_mode = {"qp": RC_CQP, "crf": RC_CRF, "bitrate": RC_ABR}[name]
+        setattr(p, _PARSE_ALIASES[name], type(getattr(p, _PARSE_ALIASES[name]))(value))
+        return
+    if name == "sar":
+        sep = ":" if ":" in value else "x"
+        a, b = value.split(sep)
+        p.sar_width, p.sar_height = int(a), int(b)
+        return
+    if name in ("colorprim", "transfer", "colormatrix", "videoformat") \
+            and value is not None and not value.lstrip("-").isdigit():
+        table = {"colorprim": _COLORPRIM, "transfer": _TRANSFER,
+                 "colormatrix": _COLORMATRIX,
+                 "videoformat": _VIDEOFORMAT}[name]
+        field_n = {"videoformat": "video_format"}.get(name, name)
+        setattr(p, field_n, table.index(value))
+        return
+    if name == "range" and value in ("full", "limited"):
+        p.video_full_range = value == "full"
+        return
+    if name == "hash" and value is not None and not value.isdigit():
+        p.decoded_picture_hash = {"md5": HASH_MD5, "crc": HASH_CRC,
+                                  "checksum": HASH_CHECKSUM}[value.lower()]
+        return
+    field_name = _PARSE_ALIASES.get(name, name.replace("-", "_"))
+    if field_name is None or not hasattr(p, field_name):
+        raise ValueError(f"unknown option --{name}")
+    cur = getattr(p, field_name)
+    if isinstance(cur, bool):
+        if negated:
+            setattr(p, field_name, False)
+        elif value is None or value in ("1", "true", "yes"):
+            setattr(p, field_name, True)
+        else:
+            setattr(p, field_name, False)
+    elif isinstance(cur, int):
+        setattr(p, field_name, int(value))
+    elif isinstance(cur, float):
+        setattr(p, field_name, float(value))
+    else:
+        setattr(p, field_name, value)

@@ -1,5 +1,6 @@
 """SEI message writing (ITU-T H.265 Annex D): the decoded picture hash,
-user data, mastering display and content light level — the writer side of
+user data, mastering display, content light level, and the HRD's
+buffering period and picture timing — the writer side of
 ``x265_tpu/common/sei.py``, copied line for line.
 """
 
@@ -72,6 +73,36 @@ def picture_hash_payload(planes, bit_depth: int = 8,
     for p in planes:
         out += fn(p, bit_depth)
     return out
+
+
+def buffering_period_payload(sps, initial_delay: int,
+                             initial_offset: int) -> bytes:
+    """buffering_period SEI (§D.2.2; x265 sei.h:257 SEIBufferingPeriod):
+    NAL HRD only, no RAP CPB params, au_cpb_removal_delay_delta == 1."""
+    from .bitstream import BitWriter
+    bw = BitWriter()
+    bw.write_ue(0)                      # bp_seq_parameter_set_id
+    bw.write_flag(0)                    # irap_cpb_params_present
+    bw.write_flag(0)                    # concatenation_flag
+    bw.write(0, sps.hrd_cpb_removal_len)   # au_cpb_removal_delay_delta-1
+    mx = (1 << sps.hrd_initial_cpb_len) - 1
+    bw.write(min(initial_delay, mx), sps.hrd_initial_cpb_len)
+    bw.write(min(initial_offset, mx), sps.hrd_initial_cpb_len)
+    bw.byte_align()
+    return bw.getvalue()
+
+
+def pic_timing_payload(sps, au_cpb_removal_delay: int,
+                       pic_dpb_output_delay: int) -> bytes:
+    """pic_timing SEI (§D.2.3; x265 sei.h:291 SEIPictureTiming) with
+    frame_field_info off: just the CPB/DPB delays."""
+    from .bitstream import BitWriter
+    bw = BitWriter()
+    bw.write(au_cpb_removal_delay - 1, sps.hrd_cpb_removal_len)
+    bw.write(min(pic_dpb_output_delay,
+                 (1 << sps.hrd_dpb_output_len) - 1), sps.hrd_dpb_output_len)
+    bw.byte_align()
+    return bw.getvalue()
 
 
 def write_sei_rbsp(messages: list[tuple[int, bytes]]) -> bytes:

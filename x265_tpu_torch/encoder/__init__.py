@@ -1,0 +1,1 @@
+from .intra_encoder import Encoder, encode_sequence

@@ -13,18 +13,22 @@ Scope: ``encode_frame`` with ``bframes == 0`` (zero latency, no
 lookahead); ``push_frame`` / ``flush`` with B frames, b-pyramid and the
 lookahead (``encoder/lookahead.py``: lowres analysis, cuTree offsets, the
 b-adapt trellis, the lookahead scenecut), so ``Params()`` defaults run;
-Main (8-bit) and Main10 (``internal_bit_depth=10``: uint16 source and
-recon planes, the hash SEIs over 16-bit samples), 64x64, 32x32 and 16x16
-CTBs (``ctu_size``; the superfast and ultrafast presets run at 32), on the
-card by default (``device="cuda"``; the tests pass ``device="cpu"``); RDOQ with
-psy-RDOQ (the slow presets) and DCT-domain noise reduction
-(``noise_reduction_intra`` / ``_inter``).  Other bit depths, lossless and
-HRD raise ``NotImplementedError``.
+``encode_sequence``; Main (8-bit) and Main10 (``internal_bit_depth=10``:
+uint16 source and recon planes, the hash SEIs over 16-bit samples), 64x64,
+32x32 and 16x16 CTBs (``ctu_size``; the superfast and ultrafast presets run
+at 32), on the card by default (``device="cuda"``; the tests pass
+``device="cpu"``); RDOQ with psy-RDOQ (the slow presets) and DCT-domain
+noise reduction (``noise_reduction_intra`` / ``_inter``); rate control
+(CQP, CRF, ABR, VBV, 2-pass, zones, qpfile: ``ratecontrol.py``) with the
+HRD's ``hrd_parameters`` and buffering-period / picture-timing SEIs; and
+lossless (transquant bypass, all-intra: the open-loop mode decision and the
+residuals in plain torch, no scan).  Other bit depths raise
+``NotImplementedError``.
 """
-
 from __future__ import annotations
 
 import sys as _sys
+import time as _time
 from dataclasses import dataclass
 
 import numpy as np
@@ -43,13 +47,18 @@ from ..common.headers import (PPS, SPS, VPS, SLICE_B, SLICE_I, SLICE_P,
                               write_vps)
 from ..common.level import determine_level, enforce_level
 from ..common.params import HASH_CHECKSUM, Params, unsupported_param_warnings
-from ..common.sei import (SEI_CONTENT_LIGHT_LEVEL, SEI_DECODED_PICTURE_HASH,
-                          SEI_MASTERING_DISPLAY, SEI_USER_DATA_UNREGISTERED,
+from ..common.sei import (SEI_BUFFERING_PERIOD, SEI_CONTENT_LIGHT_LEVEL,
+                          SEI_DECODED_PICTURE_HASH, SEI_MASTERING_DISPLAY,
+                          SEI_PIC_TIMING, SEI_USER_DATA_UNREGISTERED,
+                          buffering_period_payload,
                           content_light_level_payload,
-                          mastering_display_payload, picture_hash_payload,
-                          write_sei_rbsp)
+                          mastering_display_payload, pic_timing_payload,
+                          picture_hash_payload, write_sei_rbsp)
 from ..native import derive_inter_syntax_native, encode_slice_data_native
+from ..ops.cost import satd
 from ..ops.deblock import _chroma_qp_arr
+from ..ops.intra import predict_all_modes, substitute_references
+from .wavefront import _predict_lanes, _substitute
 
 # name and version written into the info SEI: the reference's, so that the
 # headers (and the whole stream) are byte-identical to x265_tpu's
@@ -63,9 +72,39 @@ class EncodedFrame:
     display_idx: int
     au: bytes
     recon: tuple          # conformance-cropped recon planes (numpy)
-    coded: tuple          # coded-size recon planes (device tensors)
+    coded: tuple          # coded-size recon planes (device tensors;
+                          # numpy for a lossless picture)
     kind: str
     qp: int
+    stats: dict = None    # x265_frame_stats analogue (CU distribution)
+
+
+def _frame_cu_stats(ps) -> dict:
+    """Per-frame CU distribution (x265_frame_stats.cuStats analogue)."""
+    pm = ps.pred_mode[::4, ::4]
+    n = pm.size
+    inter = pm != 1
+    mf = ps.merge_flag[::4, ::4] != 0
+    sk = ps.skip[::4, ::4] != 0
+    d = ps.depth[::4, ::4].astype(np.int32)
+
+    def pct_depth(k):
+        # guard negative depths (small CTUs): comparing a uint8 view
+        # against an out-of-range scalar crashes this numpy build
+        if k < 0:
+            return 0.0
+        return round(100.0 * float((d == k).sum()) / n, 2)
+
+    return {
+        "pct_intra": round(100.0 * float((~inter).sum()) / n, 2),
+        "pct_inter": round(100.0 * float(inter.sum()) / n, 2),
+        "pct_merge": round(100.0 * float((inter & mf).sum()) / n, 2),
+        "pct_skip": round(100.0 * float((inter & sk).sum()) / n, 2),
+        # per-CU-size area shares (16-unit granularity)
+        "pct_cu64": pct_depth(ps.geom.log2_ctb - 6),
+        "pct_cu32": pct_depth(ps.geom.log2_ctb - 5),
+        "pct_cu16": pct_depth(ps.geom.log2_ctb - 4),
+    }
 
 
 @dataclass
@@ -82,6 +121,7 @@ class _Pending:
     ext: object = None          # ME-extended recon planes (DPB entry)
     l0_poc: object = None
     l1_poc: object = None
+    rec: tuple = None           # recon planes of a lossless picture
     cu_size: int = 16
     allow_scenecut: bool = False
     batch_idx: object = None    # index into a batched-B dispatch
@@ -144,14 +184,9 @@ def pad_plane(p: np.ndarray, h: int, w: int) -> np.ndarray:
 
 def check_supported(params: Params) -> None:
     """Raise NotImplementedError for configurations the port lacks."""
-    bad = []
     if params.internal_bit_depth not in (8, 10):
-        bad.append("bit depth other than 8 and 10")
-    if params.lossless:
-        bad.append("lossless")
-    if bad:
         raise NotImplementedError("x265_tpu_torch does not support: "
-                                  + ", ".join(bad))
+                                  "bit depth other than 8 and 10")
 
 
 class Encoder:
@@ -167,6 +202,13 @@ class Encoder:
         if params.log_level >= 1:
             for msg in unsupported_param_warnings(params):
                 print(msg, file=_sys.stderr)
+        if params.lossless:
+            # transquant bypass: lossy-only tools off; in-loop filters
+            # would break exactness
+            params.sign_hide = False
+            params.sao = False
+            params.deblock = False
+            params.aq_mode = 0
         align = 16
         cw = (w + align - 1) & ~(align - 1)
         ch = (h + align - 1) & ~(align - 1)
@@ -224,7 +266,7 @@ class Encoder:
                            deblocking_filter_control_present=1,
                            deblocking_filter_disabled=1)
         self.pps.weighted_pred = int(params.weightp)
-        self.pps.transquant_bypass_enabled = 0
+        self.pps.transquant_bypass_enabled = int(params.lossless)
         self.vps = VPS(ptl=ptl)
         self.aq = bool(params.aq_mode and params.aq_strength > 0)
         self.pps.cu_qp_delta_enabled = int(self.aq)
@@ -239,6 +281,8 @@ class Encoder:
         self._b_pipeline = None
         self._b_ref_pipeline = None
         self._b_batch_pipelines = {}    # F -> batched-B pipeline
+        # lossless is all-intra
+        self.force_all_intra = bool(params.lossless)
         mr = max(1, min(64, params.me_range))
         self.me_fine = min(8, mr)
         self.me_coarse = max(0, (mr - self.me_fine) // 4)
@@ -260,11 +304,26 @@ class Encoder:
                         np.zeros((nn,), np.int64), 0]
                     self._nr_offsets[cat + sfx] = np.zeros((nn,),
                                                            np.int32)
+        # stage wall-clock accounting, rendered by summary()
+        self._clock = _time.time
+        self._t0 = self._clock()
+        self._perf = {"frames": 0, "bytes": 0, "qp_sum": 0,
+                      "fetch_wait": 0.0, "entropy": 0.0,
+                      "by_type": {"I": 0, "P": 0, "B": 0}}
         from .ratecontrol import RateControl
         self.rc = RateControl(params)
+        # HRD signalling (x265 --hrd) requires VBV: hrd_parameters in the
+        # VUI plus buffering-period (IRAP) and pic-timing (every AU) SEIs
         self.hrd = bool(params.hrd)
+        if self.hrd and not self.rc.vbv:
+            if params.log_level >= 1:
+                print("x265_tpu [warning]: --hrd requires --vbv-bufsize/"
+                      "--vbv-maxrate; disabling HRD", file=_sys.stderr)
+            self.hrd = False
         if self.hrd:
-            raise NotImplementedError("x265_tpu_torch: HRD is not ported")
+            self._init_hrd()
+        self._last_bp_order = 0         # encode order of the last BP SEI
+        self._cvs_finish_base = 0       # finish counter at the last IDR
         self._zones: list = []
         if params.zones:
             for z in params.zones.split("/"):
@@ -324,6 +383,44 @@ class Encoder:
             self.vps.num_reorder_pics = reorder
             self.vps.max_dec_pic_buffering = cap
 
+    def _init_hrd(self) -> None:
+        """x265 RateControl::initHRD: the VBV rate and size in the HRD's
+        value/scale notation, and the sizes of the SEI delay fields."""
+        p = self.params
+        sps = self.sps
+
+        def ctz(x):
+            return (x & -x).bit_length() - 1 if x > 0 else 0
+
+        def blen(x):
+            return max(1, int(x).bit_length())
+
+        br = p.vbv_max_bitrate * 1000
+        cpb = p.vbv_buffer_size * 1000
+        sps.hrd_bit_rate_scale = min(15, max(0, ctz(br) - 6))
+        sps.hrd_bit_rate_value = br >> (sps.hrd_bit_rate_scale + 6)
+        sps.hrd_cpb_size_scale = min(15, max(0, ctz(cpb) - 4))
+        sps.hrd_cpb_size_value = cpb >> (sps.hrd_cpb_size_scale + 4)
+        br_u = sps.hrd_bit_rate_value << (sps.hrd_bit_rate_scale + 6)
+        cpb_u = sps.hrd_cpb_size_value << (sps.hrd_cpb_size_scale + 4)
+        self._hrd_bitrate_unscale = br_u
+        self._hrd_cpb_unscale = cpb_u
+        tick = sps.fps_num / max(1, sps.fps_denom)
+        max_cpb_delay = int(min(max(1, p.keyint_max) * 0.5 * tick, 2**31))
+        max_dpb_delay = int(max(1, sps.max_dec_pic_buffering * 0.5 * tick))
+        max_delay = int(90000.0 * cpb_u / max(1, br_u) + 0.5)
+        # inherited from the reference and kept so the streams stay equal:
+        # the removal and output delay lengths are sized from the inverted
+        # bit lengths
+        sps.hrd_initial_cpb_len = 2 + min(22, max(4, 32 - blen(max_delay)))
+        sps.hrd_cpb_removal_len = min(31, max(4, 32 - blen(max_cpb_delay)))
+        sps.hrd_dpb_output_len = min(31, max(4, 32 - blen(max_dpb_delay)))
+        sps.hrd_cbr = (p.rc_mode == 2
+                       and p.vbv_max_bitrate <= p.bitrate)
+        sps.hrd_present = True
+        sps.vui_present = 1
+        sps.vui_timing_present = 1
+
     def _min_keyint(self) -> int:
         p = self.params
         keyint = max(1, p.keyint_max)
@@ -373,25 +470,82 @@ class Encoder:
         self._prev_half = half
         return est
 
-    def _mode_gather_tables(self, n, gh, gw, H, W):
+    def _mode_gather_tables(self, n, gh, gw, H, W, chroma=False):
         """Cached [B, 4n+1] gather indices + availability of the open-loop
-        mode-decision reference vectors."""
-        key = (n, gh, gw, H, W)
+        mode-decision reference vectors (a chroma plane's availability is
+        evaluated in luma coordinates: the geometry's z-scan is
+        luma-domain)."""
+        key = (chroma, n, gh, gw, H, W)
         t = self._mode_tables.get(key)
         if t is not None:
             return t
         g = self.geom
+        s = int(chroma)
         ridx = np.zeros((gh * gw, 4 * n + 1), np.int64)
         avails = np.zeros((gh * gw, 4 * n + 1), bool)
         for by in range(gh):
             for bx in range(gw):
                 x0, y0 = bx * n, by * n
                 xs, ys = intra_neighbor_coords(x0, y0, n)
-                avails[by * gw + bx] = g.avail_rows(x0, y0, xs, ys)
+                avails[by * gw + bx] = g.avail_rows(x0 << s, y0 << s,
+                                                    xs << s, ys << s)
                 ridx[by * gw + bx] = (np.clip(ys, 0, H - 1) * W
                                       + np.clip(xs, 0, W - 1))
         self._mode_tables[key] = (ridx, avails)
         return ridx, avails
+
+    def _decide_modes(self, orig):
+        """Open-loop best intra mode per fixed-size CU (the 35-mode SATD
+        argmin over original neighbours), batched on the device.  Returns
+        (cu_size, modes [gh, gw] host array, the mode-choice tensor on the
+        device)."""
+        g = self.geom
+        cu_size = min(16, 1 << g.log2_ctb)
+        n = cu_size
+        y = self._dev(orig[0]).to(torch.int32)
+        gh = (g.ctbs_h << g.log2_ctb) // n
+        gw = (g.ctbs_w << g.log2_ctb) // n
+        H, W = y.shape
+        ridx, avails = self._mode_gather_tables(n, gh, gw, H, W)
+        refs = substitute_references(y.reshape(-1)[self._dev(ridx)],
+                                     self._dev(avails), self.bit_depth)
+        preds = predict_all_modes(refs, n, True, self.bit_depth)
+        blocks = y.reshape(gh, n, gw, n).permute(0, 2, 1, 3).reshape(
+            gh * gw, n, n)
+        costs = satd(blocks[:, None], preds)        # [B, 35]
+        modes = torch.argmin(costs, dim=1).to(torch.int32)
+        return cu_size, modes.cpu().numpy().reshape(gh, gw), modes
+
+    def _encode_lossless(self, ps, orig):
+        """All-intra transquant-bypass picture.  recon == source, so intra
+        prediction reads the original neighbours: every block's mode
+        decision, prediction and residual runs as one batch.  The
+        residual samples are coded verbatim through residual_coding.
+        Returns the recon planes (the padded source)."""
+        bd = self.bit_depth
+        cu_size, modes, modes_dev = self._decide_modes(orig)
+        s4 = cu_size // 4
+        ps.luma_mode[:] = np.kron(modes.astype(np.uint8),
+                                  np.ones((s4, s4), np.uint8))
+        ps.chroma_mode[:] = ps.luma_mode
+        ps.tq_bypass[:] = 1
+        jobs = ((orig[0], cu_size, True, ps.coeff_y),
+                (orig[1], cu_size // 2, False, ps.coeff_cb),
+                (orig[2], cu_size // 2, False, ps.coeff_cr))
+        for pl, n, is_luma, coeff in jobs:
+            H, W = pl.shape
+            gh, gw = H // n, W // n
+            ridx, avails = self._mode_gather_tables(n, gh, gw, H, W,
+                                                    chroma=not is_luma)
+            x = self._dev(pl).to(torch.int32)
+            refs = _substitute(x.reshape(-1)[self._dev(ridx)],
+                               self._dev(avails), bd)
+            pred = _predict_lanes(refs, modes_dev, n, is_luma, bd)
+            blocks = x.reshape(gh, n, gw, n).permute(0, 2, 1, 3).reshape(
+                -1, n, n)
+            resi = (blocks - pred).reshape(gh, gw, n, n).permute(0, 2, 1, 3)
+            coeff[:] = resi.reshape(H, W).cpu().numpy()
+        return orig
 
     # -- top level -----------------------------------------------------------
 
@@ -464,6 +618,7 @@ class Encoder:
                        >= min_keyint)
         gop_start = ((self._display_idx - self._cvs_base) % keyint == 0
                      or self.prev_anchor_poc is None
+                     or self.force_all_intra
                      or la_scenecut)
         # inherited from the reference and kept so the streams stay equal:
         # when an IDR ends a pending mini-GOP, _emit_minigop below replaces
@@ -672,7 +827,7 @@ class Encoder:
         orig = (pad_plane(np.asarray(planes[0]), ph, pw),
                 pad_plane(np.asarray(planes[1]), ph // 2, pw // 2),
                 pad_plane(np.asarray(planes[2]), ph // 2, pw // 2))
-        if kind != "I" and l0_poc is None:
+        if kind != "I" and (self.force_all_intra or l0_poc is None):
             kind = "I"
             poc = 0
         is_p = kind == "P"
@@ -730,6 +885,9 @@ class Encoder:
             pend.wp = analyse_luma_weight(np.asarray(planes[0]), ref_src,
                                           self.bit_depth)
         ps.wp_entry = pend.wp
+        if p.lossless:
+            pend.rec = self._encode_lossless(ps, orig)
+            return pend
         if is_b:
             ps.b_is_ref = ref_b         # TRAIL_R
             if defer_b:
@@ -762,7 +920,9 @@ class Encoder:
         is_b = kind == "B"
         poc = pend.poc
         keyint = max(1, p.keyint_max)
-        if is_b:
+        if pend.out_dev is None:
+            o = None
+        elif is_b:
             o = self._finish_b(pend)
         elif is_p:
             o = self._finish_p(pend)
@@ -778,15 +938,30 @@ class Encoder:
                 return self._finish_one(redo)
         else:
             o = self._finish_i(pend)
-        checksums = o["checksums"]
-        tails = pend.out_dev[1]
-        coded_rec = tails["rec_coded"]
-        rec_crop = tails["rec_conf"]
-        k = pend.batch_idx
-        if k is not None:
-            coded_rec = tuple(pl[k] for pl in coded_rec)
-            rec_crop = tuple(pl[k] for pl in rec_crop)
-        rec_crop = tuple(to_host_samples(pl) for pl in rec_crop)
+        if o is None:
+            # lossless: the recon is the source; no loop filter runs
+            checksums = None
+            cw, ch_ = self.sps.pic_width, self.sps.pic_height
+            rec = pend.rec
+            coded_rec = (rec[0][:ch_, :cw], rec[1][:ch_ // 2, :cw // 2],
+                         rec[2][:ch_ // 2, :cw // 2])
+            cl, cr, ct, cb = self.sps.conf_win
+            wl = cw - 2 * (cl + cr)
+            hl = ch_ - 2 * (ct + cb)
+            rec_crop = (
+                coded_rec[0][2 * ct:2 * ct + hl, 2 * cl:2 * cl + wl],
+                coded_rec[1][ct:ct + hl // 2, cl:cl + wl // 2],
+                coded_rec[2][ct:ct + hl // 2, cl:cl + wl // 2])
+        else:
+            checksums = o["checksums"]
+            tails = pend.out_dev[1]
+            coded_rec = tails["rec_coded"]
+            rec_crop = tails["rec_conf"]
+            k = pend.batch_idx
+            if k is not None:
+                coded_rec = tuple(pl[k] for pl in coded_rec)
+                rec_crop = tuple(pl[k] for pl in rec_crop)
+            rec_crop = tuple(to_host_samples(pl) for pl in rec_crop)
 
         st = SLICE_B if is_b else SLICE_P if is_p else SLICE_I
         au = self._entropy_encode(ps, st, poc)
@@ -794,15 +969,47 @@ class Encoder:
             self.dpb[poc] = coded_rec
 
         if p.decoded_picture_hash:
-            if p.decoded_picture_hash == HASH_CHECKSUM:
+            if (p.decoded_picture_hash == HASH_CHECKSUM
+                    and checksums is not None):
                 payload = bytes([2]) + b"".join(
                     int(c).to_bytes(4, "big") for c in checksums)
             else:
                 payload = picture_hash_payload(
-                    [to_host_samples(pl) for pl in coded_rec], self.bit_depth,
+                    [pl if o is None else to_host_samples(pl)
+                     for pl in coded_rec], self.bit_depth,
                     hash_type=p.decoded_picture_hash - 1)
             sei = write_sei_rbsp([(SEI_DECODED_PICTURE_HASH, payload)])
             au += wrap_nal(NAL_SUFFIX_SEI, sei, long_start_code=False)
+
+        if self.hrd:
+            # prefix SEI NAL: buffering-period on IRAP AUs + pic-timing
+            # on every AU
+            sps = self.sps
+            order = self.frames_encoded
+            msgs = []
+            if kind == "I":
+                # hrdFullness: the 90 kHz delay from the CPB fill that the
+                # rate control tracks
+                fill = int(self.rc.buffer_fill)
+                dly = (90000 * fill + self._hrd_bitrate_unscale) \
+                    // self._hrd_bitrate_unscale
+                off = (90000 * self._hrd_cpb_unscale
+                       + self._hrd_bitrate_unscale) \
+                    // self._hrd_bitrate_unscale - dly
+                msgs.append((SEI_BUFFERING_PERIOD,
+                             buffering_period_payload(sps, dly, off)))
+                self._last_bp_order = order
+                self._cvs_finish_base = order
+            rem = min(max(1, order - self._last_bp_order),
+                      1 << sps.hrd_cpb_removal_len)
+            out_delay = max(0, sps.num_reorder_pics + poc
+                            - (order - self._cvs_finish_base))
+            msgs.append((SEI_PIC_TIMING,
+                         pic_timing_payload(sps, rem, out_delay)))
+            # inherited from the reference and kept so the streams stay
+            # equal: a 3-byte start code, though the NAL opens the AU
+            au = wrap_nal(NAL_PREFIX_SEI, write_sei_rbsp(msgs),
+                          long_start_code=False) + au
 
         if p.repeat_headers and kind == "I" and self.frames_encoded > 0:
             au = self.headers() + au
@@ -816,9 +1023,14 @@ class Encoder:
         self.frames_encoded += 1
         self.last_slice_type_str = "B" if is_b else "P" if is_p else "I"
         self.last_ps = ps
+        self._perf["frames"] += 1
+        self._perf["bytes"] += len(au)
+        self._perf["qp_sum"] += self.qp
+        self._perf["by_type"][self.last_slice_type_str] += 1
         return EncodedFrame(poc=poc, display_idx=pend.display_idx, au=au,
                             recon=rec_crop, coded=coded_rec,
-                            kind=self.last_slice_type_str, qp=self.qp)
+                            kind=self.last_slice_type_str, qp=self.qp,
+                            stats=_frame_cu_stats(ps))
 
     # -- device pipelines ----------------------------------------------------
 
@@ -874,6 +1086,7 @@ class Encoder:
         """Fetch the frame's small outputs (one packed copy, shared by the
         frames of a batched B dispatch); returns the host dict and the
         (luma, cb, cr) coefficient planes."""
+        t0 = self._clock()
         small = pend.out_dev[0]
         k = pend.batch_idx
         if isinstance(small, _BatchFetch):
@@ -881,6 +1094,7 @@ class Encoder:
             o = f if k is None else {key: v[k] for key, v in f.items()}
         else:
             o = fetch_packed(small)
+        self._perf["fetch_wait"] += self._clock() - t0
         if self._nr_enabled:
             self._nr_update(o)
         return o, (o["cy"], o["ccb"], o["ccr"])
@@ -1208,6 +1422,7 @@ class Encoder:
 
     def _entropy_encode(self, ps: PicSyntax, slice_type: int = SLICE_I,
                         poc: int = 0) -> bytes:
+        t0 = self._clock()
         if self.params.temporal_mvp:
             if slice_type == SLICE_I:
                 self._col_store.clear()
@@ -1268,6 +1483,42 @@ class Encoder:
             bit_depth=self.bit_depth,
             num_ref_l0=max(1, len(ps.ref_pocs_l0)),
             num_ref_l1=max(1, len(ps.ref_pocs_l1))
-            if slice_type == SLICE_B else 1)
+            if slice_type == SLICE_B else 1,
+            transquant_bypass=bool(self.pps.transquant_bypass_enabled))
         rbsp = bw.getvalue() + data
+        self._perf["entropy"] += self._clock() - t0
         return wrap_nal(nal_type, rbsp)
+
+    def summary(self) -> str:
+        """Encode summary (x265 printSummary): frame counts by type,
+        average QP, bitrate and wall-clock fps, and the host's wait for
+        the packed fetch of each dispatch's outputs against its entropy
+        coding."""
+        p = self._perf
+        el = max(1e-9, self._clock() - self._t0)
+        n = max(1, p["frames"])
+        fps = self.params.fps_num / max(1, self.params.fps_denom)
+        kbps = p["bytes"] * 8.0 * fps / n / 1000.0
+        bt = p["by_type"]
+        return (f"encoded {p['frames']} frames "
+                f"(I {bt['I']} P {bt['P']} B {bt['B']}) in {el:.2f}s "
+                f"({p['frames'] / el:.2f} fps), {kbps:.2f} kb/s, "
+                f"Avg QP: {p['qp_sum'] / n:.2f} | stage wait: "
+                f"fetch {p['fetch_wait']:.2f}s entropy "
+                f"{p['entropy']:.2f}s")
+
+
+def encode_sequence(frames, params: Params,
+                    device="cuda") -> tuple[bytes, list]:
+    """Encode a list of (Y, Cb, Cr) frames on ``device``; returns (annexb
+    stream in decode order, recons in display order)."""
+    enc = Encoder(params, device=device)
+    out = enc.headers()
+    efs = []
+    for fr in frames:
+        efs += enc.push_frame(fr)
+    efs += enc.flush()
+    for ef in efs:
+        out += ef.au
+    recons = [ef.recon for ef in sorted(efs, key=lambda e: e.display_idx)]
+    return out, recons

@@ -1,5 +1,6 @@
 """Native (C) host runtime of the port, loaded with ctypes: the CABAC
-slice-data serializer and the merge/AMVP/skip derivation — a copy of
+slice-data serializer (with ``cu_transquant_bypass_flag`` for lossless),
+the merge/AMVP/skip derivation and the input dithering — a copy of
 ``x265_tpu/native`` (``slice_enc.c`` and its bindings).
 
 The C source ships in the package and is compiled at first use with the
@@ -58,7 +59,7 @@ def get_lib():
         fn.restype = ctypes.c_long
         fn.argtypes = [u8p] * 14 + [i16p] * 2 + [i32p] * 3 + [i64p] \
             + [i8p] * 4 + [ctypes.c_int] * 19 \
-            + [i32p, ctypes.c_int, ctypes.c_int] \
+            + [i32p, ctypes.c_int, ctypes.c_int, u8p, ctypes.c_int] \
             + [u8p, ctypes.c_int, u8p, ctypes.c_long]
         dr = lib.derive_inter_syntax
         dr.restype = ctypes.c_long
@@ -70,6 +71,10 @@ def get_lib():
         dt.restype = ctypes.c_long
         dt.argtypes = list(dr.argtypes) \
             + [u8p, u8p, i16p, i16p, i32p, i32p, ctypes.c_int]
+        u16p = np.ctypeslib.ndpointer(np.uint16, flags="C_CONTIGUOUS")
+        lib.dither_plane.argtypes = [u16p, u16p, ctypes.c_int, ctypes.c_int,
+                                     i16p, ctypes.c_int]
+        lib.dither_plane.restype = None
         _LIB = lib
         return _LIB
 
@@ -81,12 +86,15 @@ def encode_slice_data_native(ps, qp: int, *, log2_min_cb=3, log2_min_tb=2,
                              log2_max_tb=5, slice_type=SLICE_TYPE_I,
                              sao_luma=False, sao_chroma=False,
                              bit_depth=8, num_ref_l0=1, num_ref_l1=1,
-                             mvd_l1_zero=False) -> bytes:
+                             mvd_l1_zero=False,
+                             transquant_bypass=False) -> bytes:
     """Encode a full slice's CTU data natively (I, P or B).  Returns the
     CABAC byte payload (terminated + aligned).
 
     ``ps`` is a cabac.ctu.PicSyntax; output is byte-identical to the
-    reference's Python CtuCoder/CabacEncoder path.
+    reference's Python CtuCoder/CabacEncoder path.  With
+    ``transquant_bypass`` (the PPS's transquant_bypass_enabled) every CU
+    starts with its ``cu_transquant_bypass_flag`` from ``ps.tq_bypass``.
     """
     lib = get_lib()
     from ..cabac.tables import NUM_CTX, init_context_states
@@ -122,6 +130,7 @@ def encode_slice_data_native(ps, qp: int, *, log2_min_cb=3, log2_min_tb=2,
         num_ref_l0, num_ref_l1, int(mvd_l1_zero),
         np.ascontiguousarray(ps.qp_ctb, np.int32), ps.slice_qp,
         int(ps.cu_qp_delta_enabled),
+        np.ascontiguousarray(ps.tq_bypass, np.uint8), int(transquant_bypass),
         ctx, NUM_CTX, out, cap)
     if n < 0:
         raise RuntimeError(f"native slice encode failed: {n}")
@@ -172,3 +181,22 @@ def derive_inter_syntax_native(ps) -> None:
     else:
         lib.derive_inter_syntax(*base_args)
 
+
+def dither_image(planes, input_depth: int, output_depth: int):
+    """x265_dither_image analogue (x265-extras.cpp:284): error-diffusion
+    down-conversion of high-bit-depth input planes to ``output_depth``.
+    planes: list of uint16 numpy arrays at ``input_depth``; returns the
+    dithered planes (uint8 when output_depth == 8, else uint16)."""
+    lib = get_lib()
+    out = []
+    shift_up = 16 - input_depth
+    for p in planes:
+        h, w = p.shape
+        src = np.ascontiguousarray(
+            p.astype(np.uint16) << shift_up)
+        dst = np.zeros_like(src)
+        errs = np.zeros((w + 1,), np.int16)
+        lib.dither_plane(dst, src, w, h, errs, output_depth)
+        dt = np.uint8 if output_depth == 8 else np.uint16
+        out.append(dst.astype(dt))
+    return out

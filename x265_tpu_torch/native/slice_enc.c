@@ -1,6 +1,7 @@
-/* Native CABAC slice-data encoder and merge/AMVP/skip derivation of
- * x265_tpu_torch, copied from x265_tpu/native/slice_enc.c (the input
- * dithering, which the port does not use, is left out).
+/* Native CABAC slice-data encoder, merge/AMVP/skip derivation and input
+ * dithering of x265_tpu_torch, copied from x265_tpu/native/slice_enc.c.
+ * The slice encoder also writes cu_transquant_bypass_flag (lossless), which
+ * the reference writes with its Python CABAC only.
  *
  * Role: the sequential entropy-coding pass (the one irreducibly serial
  * component of HEVC) runs as native code on the host while the pixel work
@@ -153,6 +154,9 @@ typedef struct {
     /* cu_qp_delta (QG == CTB): per-CTB actual QPs + qPY_PREV chain */
     const int32_t *qp_ctb;
     int cu_qp_delta_on, qp_pred, qp_delta_pending, cur_ctu;
+    /* lossless: cu_transquant_bypass_flag leads every CU */
+    const uint8_t *tq_bypass;
+    int transquant_bypass;
 } Enc;
 
 /* ---- bit output ---- */
@@ -617,6 +621,8 @@ static void enc_ref_idx(Enc *e, int idx, int num) {
 static void enc_cu(Enc *e, int x0, int y0, int log2_size) {
     int y4 = y0 >> 2, x4 = x0 >> 2;
     int size = 1 << log2_size;
+    if (e->transquant_bypass)   /* §7.3.8.5: leads the coding_unit */
+        encode_bin(e, CTX_CU_TRANSQUANT_BYPASS, e->tq_bypass[y4 * e->w4 + x4]);
     if (e->slice_type != 2) {       /* P/B slice */
         int skip = e->skip[y4 * e->w4 + x4];
         encode_bin(e, skip_ctx(e, x0, y0), skip);
@@ -823,6 +829,7 @@ long encode_slice_data(
     int slice_type, int max_merge,
     int num_ref_l0, int num_ref_l1, int mvd_l1_zero,
     const int32_t *qp_ctb, int slice_qp, int cu_qp_delta_on,
+    const uint8_t *tq_bypass, int transquant_bypass,
     const uint8_t *ctx_init, int num_ctx,
     uint8_t *out, long out_cap)
 {
@@ -858,6 +865,7 @@ long encode_slice_data(
     e.bit_depth = bit_depth;
     e.qp_ctb = qp_ctb; e.cu_qp_delta_on = cu_qp_delta_on;
     e.qp_pred = slice_qp; e.qp_delta_pending = 0; e.cur_ctu = 0;
+    e.tq_bypass = tq_bypass; e.transquant_bypass = transquant_bypass;
 
     ctb_size = 1 << log2_ctb;
     ctbs_w = (width + ctb_size - 1) >> log2_ctb;
@@ -1382,4 +1390,32 @@ long derive_inter_syntax_tmvp(
         d_walk(&c, (ctu % ctbs_w) << log2_ctb,
                (ctu / ctbs_w) << log2_ctb, log2_ctb, 0);
     return 0;
+}
+
+/* ---- input dithering (x265-extras.cpp:284 ditherPlane; x264-derived
+ * error-diffusion when input bit depth exceeds the internal depth).
+ * src: uint16 samples already left-shifted to 16-bit range; dst: the
+ * target-depth samples. ---- */
+void dither_plane(uint16_t *dst, const uint16_t *src, int width,
+                  int height, int16_t *errors, int bit_depth) {
+    const int l_shift = 16 - bit_depth;
+    const int r_shift = 16 - bit_depth + 2;
+    const int half = 1 << (16 - bit_depth + 1);
+    const int pixel_max = (1 << bit_depth) - 1;
+    int x, y;
+    for (x = 0; x <= width; x++) errors[x] = 0;
+    for (y = 0; y < height; y++) {
+        int16_t err = 0;
+        const uint16_t *s = src + (size_t)y * width;
+        uint16_t *o = dst + (size_t)y * width;
+        for (x = 0; x < width; x++) {
+            int v;
+            err = (int16_t)(err * 2 + errors[x] + errors[x + 1]);
+            v = ((s[x] << 2) + err + half) >> r_shift;
+            if (v < 0) v = 0;
+            if (v > pixel_max) v = pixel_max;
+            o[x] = (uint16_t)v;
+            errors[x] = err = (int16_t)(s[x] - (o[x] << l_shift));
+        }
+    }
 }

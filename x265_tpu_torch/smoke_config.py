@@ -36,7 +36,23 @@ content (8-bit; ``synthetic_frame10`` at Main10):
   frames through ``encode_frame``.
 
 The CTU-32 and CTU-16 slices carry the MD5 hash SEI
-(``decoded_picture_hash=1``), the others the checksum."""
+(``decoded_picture_hash=1``), the others the checksum.
+
+The slices of the user-facing surface, on the bench slice's ten frames
+(two for lossless), with the MD5 hash SEI, at the medium preset
+(``Params()`` defaults: b-adapt 2, cuTree, AQ 2, 3 references):
+
+* crf_cli: the CLI (``cli.main``) on a 1920x1080 Y4M of the frames at
+  ``--crf 28`` with a CSV log (``smoke_args_crf_cli``);
+* abr_vbv_hrd: the procedural API at ``bitrate=1000``,
+  ``vbv-maxrate=1000``, ``vbv-bufsize=1000`` and ``hrd``
+  (``smoke_parse_abr_vbv_hrd``): the VBV binds (the stream differs from
+  the same ABR without it), every IRAP AU carries a buffering-period SEI
+  and every AU a picture-timing SEI;
+* twopass: 2-pass ABR at 1000 kbps through ``encode_sequence``: pass 1
+  writes the stats file, pass 2 reads it (``smoke_params_twopass``);
+* lossless: ``lossless=True`` through ``encode_sequence``, all-intra, two
+  frames (``smoke_params_lossless``): no scan and no search."""
 
 from __future__ import annotations
 
@@ -104,6 +120,36 @@ def smoke_params_ultrafast() -> dict:
 
 def smoke_params_ctu16() -> dict:
     return dict(smoke_params(), ctu_size=16, decoded_picture_hash=1)
+
+
+def smoke_args_crf_cli(y4m: str, out: str, csv: str) -> list:
+    """The CLI's arguments of the crf_cli slice (the input, the stream and
+    the CSV log paths; the preset is medium)."""
+    return [y4m, "-o", out, "--crf", "28", "--hash", "md5", "--csv", csv,
+            "--no-progress"]
+
+
+def smoke_parse_abr_vbv_hrd() -> list:
+    """The abr_vbv_hrd slice's ``x265_param_parse`` calls after
+    ``x265_param_default_preset("medium")`` (and the source size)."""
+    return [("bitrate", "1000"), ("vbv-maxrate", "1000"),
+            ("vbv-bufsize", "1000"), ("hrd", None), ("hash", "md5")]
+
+
+def smoke_params_twopass(stats_file: str, stats_pass: int) -> dict:
+    return dict(source_width=WIDTH, source_height=HEIGHT, rc_mode=2,
+                bitrate=1000, decoded_picture_hash=1, stats_file=stats_file,
+                stats_pass=stats_pass)
+
+
+def smoke_params_lossless() -> dict:
+    return dict(source_width=WIDTH, source_height=HEIGHT, lossless=True,
+                decoded_picture_hash=1)
+
+
+def smoke_frames_lossless() -> list:
+    """The lossless slice's two frames (the bench slice's first two)."""
+    return smoke_frames(2)
 
 
 def synthetic_frame(w, h, seed=0):
