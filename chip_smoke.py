@@ -109,9 +109,30 @@ Phases (each raises on failure; the script then exits non-zero):
  16. lossless: two frames at lossless=True with the MD5 hash SEI through
      encode_sequence (all-intra: the mode decision on the card, no scan,
      no search); the MD5 and size equal to golden_1080p_lossless.json,
-     every recon equal to its source, and no K1 or K2 launch.
+     every recon equal to its source, and no K1 or K2 launch;
+ 17. GOP-parallel: 24 frames of the pan as 8 closed IPPP GOPs of 3
+     through x265_tpu_torch.parallel.encode_gop_parallel (the IPPP slice's
+     configuration at keyint_max=3, scenecut_threshold=0, cu_tree=False),
+     a warm and a timed encode: one batched I round and two batched P
+     rounds of 8 frames; the stream's MD5 and size and the frames' POCs
+     and kinds equal to golden_1080p_gop_parallel.json (the reference's
+     own encode_gop_parallel on 8 virtual CPU devices); K1 must launch 62
+     x 3 times, every launch over 8 frames' lanes, and K2 3 x 2 times,
+     every launch over 8 x 8160 blocks; it prints the fps beside phase 4's
+     and the wall of each round;
+ 18. the wavefront intra recon (x265_tpu_torch.encoder.wavefront) at
+     1920x1088: luma 16x16 and Cb 8x8 blocks of a seeded frame with
+     seeded modes (smoke_config.smoke_wavefront_inputs), encode then
+     decode of its levels; the plane's and the levels' MD5s equal to
+     golden_1080p_wavefront.json (the reference's WavefrontIntraRecon),
+     the decoded plane equal to the encoded one, and the walls.
 Phases 13-16 each run one timed encode (the earlier phases have built and
 warmed the kernels) and print its fps.
+Phases 2 and 3 also hold the kernels at a GOP-parallel round's shapes: K1
+at the busiest level of a batched scan of eight frames (F = 8, 120 lanes
+in one launch), I and P, and K2 on the blocks of eight frames (B = 65280,
+a lambda per frame), each equal to the plain version with its one-launch
+time, the plain version's time and the bound.
 Phase 2 also holds K1's RDOQ (psy-RDOQ 1.0) and noise-reduction paths: the
 busiest level (I and P, F = 1 and 2, 8 and 10 bits) equal to the plain
 step, NR sums included, with seeded offsets for NR and, for RDOQ, a P
@@ -404,8 +425,9 @@ def k1_inputs(dev, bd=8, mode=None, log2_ctb=6):
     ``go(cfg, route, frames=1)`` that runs the whole scan (62 levels at CTB
     64, 126 at 32, 254 at 16; decide32 where the CTB has 32x32 quads, as
     the pipelines run it), ``cfg`` "I" or "P", ``route`` "kernel" or
-    "plain", of one frame or of two frames batched (the second from its own
-    seed)."""
+    "plain", of one frame or of ``frames`` frames batched (2 as a B
+    mini-GOP batches them, 8 as a GOP-parallel round does; frame k from
+    seed k + 1)."""
     import numpy as np
     import torch
     from x265_tpu_torch.common.geometry import PictureGeometry
@@ -462,8 +484,17 @@ def k1_inputs(dev, bd=8, mode=None, log2_ctb=6):
             5 * g.ctbs_w + li - 10
         plant_level_8192(one, c % g.ctbs_w, c // g.ctbs_w, g.ctbs_w, bd,
                          1 << log2_ctb)
-    two = {k: torch.stack([v, w]) for (k, v), w in zip(
-        one.items(), frame(2).values())}
+    many = {}
+
+    def batch(frames):
+        """``frames`` frames, the first ``one`` and frame k from seed k + 1
+        (built once per count)."""
+        if frames not in many:
+            more = [frame(k + 1) for k in range(1, frames)]
+            many[frames] = {key: torch.stack([v] + [m[key] for m in more])
+                            for key, v in one.items()}
+        return many[frames]
+
     inter_keys = ("is_inter", "ipred_y", "ipred_cb", "ipred_cr", "m32_in")
     nr_offsets = None
     if mode == "nr":
@@ -476,7 +507,7 @@ def k1_inputs(dev, bd=8, mode=None, log2_ctb=6):
                 nr_offsets[cat + sfx] = v.astype(np.int32)
 
     def go(cfg, route, frames=1):
-        x = one if frames == 1 else two
+        x = one if frames == 1 else batch(frames)
         fn = scan.scan_fn(inter=cfg == "P", decide32=scan.t["has32"],
                           allow_kernel=route == "kernel")
         return fn(x["oy"], x["ocb"], x["ocr"], x["modes"], x["mode32"],
@@ -520,11 +551,12 @@ def _ctb_tag(log2_ctb):
 
 
 def check_k1(dev, lib, bd=8, mode=None, log2_ctb=6, cfgs=("I", "P"),
-             batched=True):
+             batched=True, f8=False):
     """K1 vs the plain step at CTB size ``1 << log2_ctb``: at 8 bits full
     scans of random 1080p inputs, then (at ``bd``) the busiest level alone
-    (equality, one-launch time, bound), for one frame and (``batched``)
-    for two frames batched, for each of ``cfgs``.  ``mode`` "rdoq" / "nr"
+    (equality, one-launch time, bound), for one frame, (``batched``) for
+    two frames batched and (``f8``) for eight frames batched, a
+    GOP-parallel round's shape, for each of ``cfgs``.  ``mode`` "rdoq" / "nr"
     (``k1_inputs``): the busiest level alone, with the outputs and the NR
     sums equal, and with RDOQ a level of 8192 coded in the P frame's
     planted CTU."""
@@ -572,6 +604,10 @@ def check_k1(dev, lib, bd=8, mode=None, log2_ctb=6, cfgs=("I", "P"),
             rs.append(_k1_level(lib, scan, li, is_p,
                                 lambda: go("kernel", frames=2),
                                 f"{tag} {cfg} F=2 level"))
+        if f8:
+            rs.append(_k1_level(lib, scan, li, is_p,
+                                lambda: go("kernel", frames=8),
+                                f"{tag} {cfg} F=8 level"))
         for r in rs:
             print(f"{tag} {cfg}: level {li} (F = {r['F']}, L = {r['L']}, "
                   f"{r['F'] * n_real} real lanes): {r['ms']:.4f} ms per "
@@ -588,8 +624,8 @@ def check_k1(dev, lib, bd=8, mode=None, log2_ctb=6, cfgs=("I", "P"),
                 raise AssertionError(f"{tag}: the planted level 8192 was "
                                      "not coded")
         res[cfg] = dict(rs[0], scan_ms=scan_ms, scan_plain_ms=scan_plain_ms,
-                        F2=rs[1] if batched else None, level=li,
-                        n_levels=nl)
+                        F2=rs[1] if batched else None,
+                        F8=rs[-1] if f8 else None, level=li, n_levels=nl)
     return res
 
 
@@ -650,11 +686,13 @@ def k2_case(kind, B, mrq, seed, dev, bd=8):
         lam.to(dev),)
 
 
-def check_k2(dev, lib, bd=8):
+def check_k2(dev, lib, bd=8, gops=0):
     """K2 vs the plain refine at the 1080p shapes (B = 8160, subme 2,
     merange 57) at bit depth ``bd``: exactness on the random, flat (ties),
     extreme and range-edge sets, then on the random set the one-launch
-    time, the plain version's time and the bound."""
+    time, the plain version's time and the bound; then the blocks of two
+    frames with two lambdas and (``gops``) of that many frames with a
+    lambda each, as a GOP-parallel round's P frames give them."""
     import torch
     from x265_tpu_torch.encoder import me_cuda
 
@@ -685,33 +723,49 @@ def check_k2(dev, lib, bd=8):
     print(f"{tag}: B={B} subme 2 merange {mrq}: {ms:.4f} ms kernel, "
           f"{plain_ms:.3f} ms plain, bound {bound_ms:.5f} ms ({bound_by}), "
           f"max_abs_err {err}", flush=True)
-    # two frames' blocks in one launch, each frame with its own lambda
+    # several frames' blocks in one launch, each frame with its own lambda
+    res = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+               bound_by=bound_by, err=err)
+    for frames, seed, qps in ((2, 6, (32, 35)),
+                              (gops, 7, tuple(range(29, 29 + gops)))):
+        if not frames:
+            continue
+        r = _k2_frames(lib, dev, bd, tag, B * frames, mrq, seed, qps)
+        res[f"F{frames}"] = r
+        res["err"] = max(res["err"], r["err"])
+    return res
+
+
+def _k2_frames(lib, dev, bd, tag, B, mrq, seed, qps):
+    """K2 on the blocks of ``len(qps)`` frames in one launch, frame k's
+    blocks with the lambda of QP ``qps[k]``: equal to the plain refine,
+    with its time and bound."""
+    import torch
+    from x265_tpu_torch.encoder import me_cuda
     from x265_tpu_torch.encoder.device_pipeline import me_lambda
-    W, ob, mvi, pmv, _lam = k2_case("random", 2 * B, mrq, 6, dev, bd)
-    half = W.shape[0] // 2
-    lam2 = torch.cat([me_lambda(q).to(dev).expand(half) for q in (32, 35)])
-    k = me_cuda.launch(lib, W, ob, mvi, pmv, lam2, 2, mrq, bd)
-    p = me_cuda.refine_plain(W, ob, mvi, pmv, lam2, 2, mrq, bd)
+
+    W, ob, mvi, pmv, _lam = k2_case("random", B, mrq, seed, dev, bd)
+    part = B // len(qps)
+    lam = torch.cat([me_lambda(q).to(dev).expand(part) for q in qps])
+    k = me_cuda.launch(lib, W, ob, mvi, pmv, lam, 2, mrq, bd)
+    p = me_cuda.refine_plain(W, ob, mvi, pmv, lam, 2, mrq, bd)
     torch.cuda.synchronize()
-    err2 = _max_abs_err(k, p)
-    if err2 != 0.0:
-        _report_diff(f"{tag} two lambdas", k, p)
-        raise AssertionError(f"{tag} differs from the plain refine (two "
-                             "lambdas)")
-    ms2 = _events_ms(lambda: me_cuda.launch(lib, W, ob, mvi, pmv, lam2, 2,
-                                            mrq, bd), 20)
-    plain_ms2 = _events_ms(lambda: me_cuda.refine_plain(
-        W, ob, mvi, pmv, lam2, 2, mrq, bd), 3)
-    bound_ms2, bound_by2 = k2_bound(W, ob, mvi, pmv, k, lam2, mrq, bd)
-    print(f"{tag}: B={W.shape[0]} (two frames, two lambdas) subme 2 merange "
-          f"{mrq}: "
-          f"{ms2:.4f} ms kernel, {plain_ms2:.3f} ms plain, bound "
-          f"{bound_ms2:.5f} ms ({bound_by2}), max_abs_err {err2}",
+    err = _max_abs_err(k, p)
+    if err != 0.0:
+        _report_diff(f"{tag} {len(qps)} lambdas", k, p)
+        raise AssertionError(f"{tag} differs from the plain refine "
+                             f"({len(qps)} lambdas)")
+    ms = _events_ms(lambda: me_cuda.launch(lib, W, ob, mvi, pmv, lam, 2,
+                                           mrq, bd), 20)
+    plain_ms = _events_ms(lambda: me_cuda.refine_plain(
+        W, ob, mvi, pmv, lam, 2, mrq, bd), 3)
+    bound_ms, bound_by = k2_bound(W, ob, mvi, pmv, k, lam, mrq, bd)
+    print(f"{tag}: B={B} ({len(qps)} frames, {len(qps)} lambdas) subme 2 "
+          f"merange {mrq}: {ms:.4f} ms kernel, {plain_ms:.3f} ms plain, "
+          f"bound {bound_ms:.5f} ms ({bound_by}), max_abs_err {err}",
           flush=True)
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, err=max(err, err2),
-                F2=dict(ms=ms2, plain_ms=plain_ms2, bound_ms=bound_ms2,
-                        bound_by=bound_by2, err=err2, B=W.shape[0]))
+                bound_by=bound_by, err=err, B=B)
 
 
 def encode_slice(dev, name=""):
@@ -1239,7 +1293,7 @@ def check_abr_vbv_hrd(smi):
     for name, value in sc.smoke_parse_abr_vbv_hrd():
         api.x265_param_parse(p, name, value)
     p.source_width, p.source_height = sc.WIDTH, sc.HEIGHT
-    log, _holder, unwrap = _record_finishes()
+    log, holder, unwrap = _record_finishes()
     _zero_counts()
     try:
         torch.cuda.synchronize()
@@ -1391,6 +1445,128 @@ def check_lossless(smi):
     return len(frames) / wall
 
 
+def check_gop_parallel(dev, smi, ippp_fps):
+    """Phase 17: the gop_parallel slice (24 frames, 8 closed IPPP GOPs of
+    3) through ``encode_gop_parallel`` on the card, a warm and a timed
+    encode; the stream, its size and the frames' POCs and kinds (round
+    order) equal to ``golden_1080p_gop_parallel.json`` (the reference's
+    own GOP-parallel encode), K1 one launch a level of a round (62 at
+    1080p), all at F = 8, and K2 one a reference slot of a P round (3),
+    all over 8 x 8160 blocks.  Returns the K1 and K2 launches and the
+    fps."""
+    import torch
+    from x265_tpu_torch import Params
+    from x265_tpu_torch import smoke_config as sc
+    from x265_tpu_torch.encoder import ctu_scan_cuda, intra_encoder, me_cuda
+    from x265_tpu_torch.parallel import encode_gop_parallel
+
+    golden = _golden("gop_parallel")
+    frames = sc.smoke_frames_gop_parallel()
+    params = Params(**sc.smoke_params_gop_parallel())
+    G, n = sc.GOPS, sc.GOP_SIZE
+    encode_gop_parallel(frames, params, G, device=dev)      # warm
+    # a round starts at its first GOP's dispatch
+    starts = []
+    real = intra_encoder.Encoder._dispatch_one
+
+    def dispatch(self, *a, **k):
+        if k.get("defer_all"):
+            starts.append(time.perf_counter())
+        return real(self, *a, **k)
+
+    log, holder, unwrap = _record_finishes()
+    intra_encoder.Encoder._dispatch_one = dispatch
+    _zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stream = encode_gop_parallel(frames, params, G, device=dev)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+    finally:
+        unwrap()
+        intra_encoder.Encoder._dispatch_one = real
+    wall = t1 - t0
+    rounds = [b - a for a, b in zip(starts[::G], starts[G::G] + [t1])]
+    k1, k2 = ctu_scan_cuda, me_cuda
+    n1, n2 = k1.LAUNCHES, k2.LAUNCHES
+    fps = len(frames) / wall
+    enc = holder["enc"]
+    g = enc.geom
+    levels = enc._get_ctu_scan().t["n_levels"]            # 62 at 1080p
+    nb = (g.ctbs_h * g.ctbs_w) << 2 * (g.log2_ctb - 4)     # 8160 at 1080p
+    w1, w2 = levels * n, enc.num_ref * (n - 1)
+    print(f"slice 1080p GOP-parallel ({G} closed IPPP GOPs of {n}: "
+          f"keyint_max={n}, scenecut_threshold=0, cu_tree=False, AQ 2, "
+          f"weightp, 3 references) on {smi}: {len(stream)} bytes, "
+          f"{len(frames)} frames in {wall:.3f} s, {fps:.3f} fps (IPPP "
+          f"through encode_frame {ippp_fps:.3f} fps); round walls "
+          f"{[round(x, 3) for x in rounds]} s; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+          flush=True)
+    print(f"launches: K1 {n1} (want {w1}; {k1.LAUNCHES_FRAMES} "
+          f"frame-launches, want {w1 * G}), K2 {n2} (want {w2}; "
+          f"{k2.LAUNCHES_BLOCKS} blocks, want {w2 * G * nb})", flush=True)
+    md5 = _check_golden("GOP-parallel", stream, log, golden)
+    # every launch at F = G (no launch carries more frames than a round)
+    if (n1 != w1 or k1.LAUNCHES_FRAMES != w1 * G or n2 != w2
+            or k2.LAUNCHES_BLOCKS != w2 * G * nb or len(rounds) != n):
+        raise AssertionError("the GOP-parallel slice did not run through "
+                             "K1/K2 as expected")
+    print(f"  md5 {md5} (golden {golden['md5']})", flush=True)
+    return n1, n2, fps
+
+
+def check_wavefront(dev, smi):
+    """Phase 18: the wavefront intra recon at 1920x1088 on the card, luma
+    16x16 and Cb 8x8 blocks (``smoke_config.smoke_wavefront_inputs``):
+    ``encode``'s plane and levels equal to golden_1080p_wavefront.json's
+    digests (the reference's WavefrontIntraRecon), ``decode`` of the
+    levels equal to the encoded plane; the wall of a warm encode and
+    decode."""
+    import torch
+    from x265_tpu_torch import smoke_config as sc
+    from x265_tpu_torch.encoder.wavefront import WavefrontIntraRecon
+
+    golden = _golden("wavefront")
+    x = sc.smoke_wavefront_inputs()
+    for name, n, luma in (("y", 16, True), ("cb", 8, False)):
+        blocks, modes, qp = x[name]
+        wf = WavefrontIntraRecon(x["width"], x["height"], 6, n, is_luma=luma,
+                                 chroma_shift=0 if luma else 1, device=dev)
+        _plane, levels = wf.encode(blocks, modes, qp)           # warm
+        wf.decode(levels, modes, qp)
+        blocks_d = torch.as_tensor(blocks).to(dev)
+        modes_d = torch.as_tensor(modes).to(dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plane, levels = wf.encode(blocks_d, modes_d, qp)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        dec = wf.decode(levels, modes_d, qp)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        g = golden[name]
+        pm = hashlib.md5(plane.cpu().numpy().tobytes()).hexdigest()
+        lm = hashlib.md5(levels.cpu().numpy().astype("<i2").tobytes()
+                         ).hexdigest()
+        print(f"wavefront recon {name} ({n}x{n} blocks, {wf.sched['n_levels']}"
+              f" levels of at most {wf.sched['lmax']} lanes, QP {qp}) on "
+              f"{smi}: encode {1e3 * (t1 - t0):.1f} ms, decode "
+              f"{1e3 * (t2 - t1):.1f} ms; plane {pm} (golden "
+              f"{g['plane_md5']}), levels {lm} (golden {g['levels_md5']}), "
+              f"{int((levels != 0).sum())} nonzero", flush=True)
+        if (pm != g["plane_md5"] or lm != g["levels_md5"]
+                or plane.dtype != torch.uint8
+                or wf.sched["n_levels"] != g["levels"]):
+            raise AssertionError(f"the wavefront recon ({name}) differs from "
+                                 "x265_tpu's golden")
+        if not torch.equal(dec, plane):
+            raise AssertionError(f"the wavefront decode ({name}) differs "
+                                 "from its encode")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1420,7 +1596,7 @@ def main():
     for line in _ptxas_summary(build.BUILD_LOG):
         print("ptxas:", line, flush=True)
 
-    k1 = check_k1(dev, lib)
+    k1 = check_k1(dev, lib, f8=True)
     k1_10 = check_k1(dev, lib, 10)
     k1m = {(mode, bd): check_k1(dev, lib, bd, mode)
            for mode in ("rdoq", "nr") for bd in (8, 10)}
@@ -1433,7 +1609,7 @@ def main():
                               batched=False)
     kc[5, "rdoq"] = check_k1(dev, lib, mode="rdoq", log2_ctb=5, cfgs=("P",),
                              batched=False)
-    k2 = check_k2(dev, lib)
+    k2 = check_k2(dev, lib, gops=8)
     k2_10 = check_k2(dev, lib, 10)
 
     with open(os.path.join(ROOT, "x265_tpu_torch", "data",
@@ -1505,6 +1681,10 @@ def main():
     n1v, n2v, _fps = check_abr_vbv_hrd(smi)
     n1t, n2t, _fps = check_twopass(smi)
     check_lossless(smi)
+    # phase 17: GOP-parallel, 8 closed GOPs a round; phase 18: the
+    # wavefront intra recon
+    n1g, n2g, _fps = check_gop_parallel(dev, smi, fps)
+    check_wavefront(dev, smi)
 
     kp, kp10 = k1["P"], k1_10["P"]
     # the RDOQ / NR busiest-level records: {mode}_{I|P}[_F2][_10bit]
@@ -1535,11 +1715,12 @@ def main():
              source="x265_tpu_torch/csrc/k1_ctu_step.cu",
              replaces="x265_tpu/encoder/ctu_scan_pallas.py:72",
              launches=(n1 + n1b + n1s + n1m + n1w + n1n + n1f + n1u + n1c
-                       + n1x + n1v + n1t),
+                       + n1x + n1v + n1t + n1g),
              max_abs_err=max(
                  k1["I"]["err"], kp["err"], kp["F2"]["err"],
-                 k1["I"]["F2"]["err"], k1_10["I"]["err"], kp10["err"],
-                 kp10["F2"]["err"], k1_10["I"]["F2"]["err"], err_m),
+                 k1["I"]["F2"]["err"], kp["F8"]["err"], k1["I"]["F8"]["err"],
+                 k1_10["I"]["err"], kp10["err"], kp10["F2"]["err"],
+                 k1_10["I"]["F2"]["err"], err_m),
              ms=kp["ms"], plain_ms=kp["plain_ms"], bound_ms=kp["bound_ms"],
              bound_by=kp["bound_by"], library_ms=None,
              launches_ippp=n1, launches_b=n1b, launches_bench=n1s,
@@ -1556,12 +1737,22 @@ def main():
              launches_ultrafast=n1u, launches_ctu16=n1c,
              launches_ctb32=n1f + n1u, launches_ctb16=n1c,
              launches_crf_cli=n1x, launches_abr_vbv_hrd=n1v,
-             launches_twopass=n1t, launches_lossless=0, **extra),
+             launches_twopass=n1t, launches_lossless=0,
+             launches_gop_parallel=n1g, ms_F8_P=kp["F8"]["ms"],
+             plain_ms_F8_P=kp["F8"]["plain_ms"],
+             bound_ms_F8_P=kp["F8"]["bound_ms"],
+             bound_by_F8_P=kp["F8"]["bound_by"], ms_F8_I=k1["I"]["F8"]["ms"],
+             plain_ms_F8_I=k1["I"]["F8"]["plain_ms"],
+             bound_ms_F8_I=k1["I"]["F8"]["bound_ms"], **extra),
         dict(name="K2 subpel_refine", route="cuda",
              source="x265_tpu_torch/csrc/k2_subpel_refine.cu",
              replaces="x265_tpu/encoder/me_pallas.py:71",
              launches=(n2 + n2b + n2s + n2m + n2w + n2n + n2f + n2u + n2c
-                       + n2x + n2v + n2t),
+                       + n2x + n2v + n2t + n2g),
+             launches_gop_parallel=n2g, ms_F8=k2["F8"]["ms"],
+             plain_ms_F8=k2["F8"]["plain_ms"],
+             bound_ms_F8=k2["F8"]["bound_ms"],
+             bound_by_F8=k2["F8"]["bound_by"],
              launches_slow=n2w, launches_nr=n2n, launches_superfast=n2f,
              launches_ultrafast=n2u, launches_ctu16=n2c,
              launches_crf_cli=n2x, launches_abr_vbv_hrd=n2v,

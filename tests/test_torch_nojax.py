@@ -5,8 +5,10 @@ the port imports and encodes a 128x64 I P pair, then one B mini-GOP
 defaults through the lookahead (cuTree, the b-adapt trellis), then a
 Main10 mini-GOP (10-bit frames, the lookahead on), then a B mini-GOP with
 RDOQ (psy-RDOQ 1.0) and noise reduction, then an I P pair at CTU 32, then
-the CLI at CRF with VBV and HRD and a lossless encode_sequence, all on the
-CPU, and the streams have the expected structure."""
+the CLI at CRF with VBV and HRD and a lossless encode_sequence, then two
+closed GOPs through encode_gop_parallel and the wavefront intra recon of a
+luma plane, all on the CPU, and the streams have the expected
+structure."""
 
 import os
 import subprocess
@@ -127,12 +129,28 @@ ll_stream, ll_rec = encode_sequence(
                     decoded_picture_hash=1, log_level=0), device="cpu")
 assert all(np.array_equal(a, b) for fa, fb in zip(lframes, ll_rec)
            for a, b in zip(fa, fb))
+# GOP-parallel: two closed IPPP GOPs of two frames, a batched dispatch a
+# round; then the wavefront intra recon of one luma plane
+from x265_tpu_torch.encoder.wavefront import WavefrontIntraRecon
+from x265_tpu_torch.parallel import encode_gop_parallel
+gop_stream = encode_gop_parallel(
+    [(np.roll(y, 2 * t, axis=1), c[0], c[1]) for t in range(4)],
+    Params(source_width=128, source_height=64, bframes=0, keyint_max=2,
+           scenecut_threshold=0, cu_tree=False, me_range=16,
+           decoded_picture_hash=3), 2, device="cpu")
+assert gop_stream.count(b"\x00\x00\x01\x26\x01") == 2     # an IDR a GOP
+wf = WavefrontIntraRecon(128, 64, 6, 16, is_luma=True, device="cpu")
+wf_plane, wf_levels = wf.encode(
+    y.astype(np.int32).reshape(4, 16, 8, 16).transpose(0, 2, 1, 3).reshape(
+        -1, 16, 16), np.arange(32, dtype=np.int32) % 35, 30)
+assert torch.equal(wf.decode(wf_levels, np.arange(32) % 35, 30), wf_plane)
 assert not any(m == "jax" or m.startswith(("jax.", "x265_tpu."))
                for m in sys.modules if sys.modules[m] is not None)
 print("NOJAX-OK", len(hdr), [len(au) for au, _ in aus],
       [len(ef.au) for ef in efs], [(ef.poc, ef.kind) for ef in efl],
       [len(ef.au) for ef in ef10], [len(ef.au) for ef in efr],
-      [len(au) for au in auc], len(hrd_stream), len(ll_stream))
+      [len(au) for au in auc], len(hrd_stream), len(ll_stream),
+      len(gop_stream))
 """
 
 

@@ -130,6 +130,33 @@ def test_costs(n, bd):
 
 
 @BDS
+@pytest.mark.parametrize("n", [8, 16, 32])
+@pytest.mark.parametrize("name", ["sse", "sa8d"])
+def test_sse_sa8d(name, n, bd):
+    """The reference's SSE and SA8D, which no encoder path calls."""
+    rng = np.random.RandomState(n + bd)
+    a = rng.randint(0, 1 << bd, (5, n, n)).astype(np.int32)
+    b = rng.randint(0, 1 << bd, (5, n, n)).astype(np.int32)
+    _eq(getattr(r_cost, name)(jnp.asarray(a), jnp.asarray(b)),
+        getattr(p_cost, name)(_t(a), _t(b)))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_bdrate(seed):
+    """BD-rate and BD-PSNR of two seeded four-point RD curves, equal to
+    the reference's."""
+    from x265_tpu.tools import bdrate as r_bd
+    from x265_tpu_torch.tools import bdrate as p_bd
+    rng = np.random.RandomState(seed)
+    rates = np.sort(rng.uniform(200, 4000, (2, 4)), 1)
+    psnr = np.sort(rng.uniform(30, 44, (2, 4)), 1)
+    anchor, test = (list(zip(rates[k], psnr[k])) for k in range(2))
+    for fn in ("bd_rate", "bd_psnr"):
+        assert getattr(p_bd, fn)(anchor, test) == getattr(r_bd, fn)(anchor,
+                                                                    test)
+
+
+@BDS
 @pytest.mark.parametrize("kind", ["luma", "luma_ps", "chroma", "chroma_ps",
                                   "bi_avg", "uni_round"])
 def test_interp(kind, bd):

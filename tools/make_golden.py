@@ -39,16 +39,27 @@ size, the size of each access unit and the encode-order POCs go to
   kbps through ``encode_sequence``, with pass 1's stats file text;
 * ``x265_tpu_torch/data/golden_1080p_lossless.json``: two lossless frames
   through ``encode_sequence`` (the reference codes them with its Python
-  CABAC, ~1 min a frame).
+  CABAC, ~1 min a frame);
+* ``x265_tpu_torch/data/golden_1080p_gop_parallel.json``: the gop_parallel
+  slice (24 frames, 8 closed IPPP GOPs of 3) through the reference's own
+  ``x265_tpu.parallel.gop.encode_gop_parallel`` on a mesh of 8 virtual CPU
+  devices (``--xla_force_host_platform_device_count=8``, set here before
+  JAX starts when this golden is asked for);
+* ``x265_tpu_torch/data/golden_1080p_wavefront.json``: the MD5s of the
+  reference ``WavefrontIntraRecon``'s recon plane and levels on
+  ``smoke_wavefront_inputs`` (luma 16x16 and Cb 8x8 blocks at
+  1920x1088).
 
 The last four also record each access unit's size and the encode-order
 POCs and kinds (from the reference's ``Encoder._finish_one``).
 
     JAX_PLATFORMS=cpu python tools/make_golden.py [ippp] [b] [bench] \
         [bench10] [slow] [nr] [superfast] [ultrafast] [ctu16] [crf_cli] \
-        [abr_vbv_hrd] [twopass] [lossless]
+        [abr_vbv_hrd] [twopass] [lossless] \
 
-With no argument it writes all thirteen.
+        [gop_parallel] [wavefront]
+
+With no argument it writes all fifteen.
 """
 
 import hashlib
@@ -323,13 +334,71 @@ def lossless():
                   stream, log)
 
 
+def gop_parallel():
+    import jax
+
+    from x265_tpu.common.params import Params
+    from x265_tpu.parallel.gop import encode_gop_parallel
+    from x265_tpu_torch import smoke_config as sc
+
+    assert len(jax.devices()) == sc.GOPS, jax.devices()
+    params = sc.smoke_params_gop_parallel()
+    log, undo = _recording()
+    try:
+        stream = encode_gop_parallel(sc.smoke_frames_gop_parallel(),
+                                     Params(**params))
+    finally:
+        undo()
+    _write_stream("golden_1080p_gop_parallel.json",
+                  dict(params, n_gops=sc.GOPS), stream, log)
+
+
+def wavefront():
+    import numpy as np
+
+    from x265_tpu.encoder.wavefront import WavefrontIntraRecon
+    from x265_tpu_torch import smoke_config as sc
+
+    x = sc.smoke_wavefront_inputs()
+    out = dict(width=x["width"], height=x["height"],
+               made_by="x265_tpu on the CPU (tools/make_golden.py)")
+    for name, n, luma in (("y", 16, True), ("cb", 8, False)):
+        blocks, modes, qp = x[name]
+        wf = WavefrontIntraRecon(x["width"], x["height"], 6, n, is_luma=luma,
+                                 chroma_shift=0 if luma else 1)
+        plane, levels = (np.asarray(a) for a in wf.encode(blocks, modes, qp))
+        dec = np.asarray(wf.decode(levels, modes, qp))
+        assert np.array_equal(dec, plane)
+        out[name] = dict(n=n, qp=qp, levels=int(wf.sched["n_levels"]),
+                         plane_md5=hashlib.md5(plane.tobytes()).hexdigest(),
+                         levels_md5=hashlib.md5(
+                             levels.astype("<i2").tobytes()).hexdigest(),
+                         plane_dtype=str(plane.dtype),
+                         nonzero_levels=int((levels != 0).sum()))
+    with open(os.path.join(DATA, "golden_1080p_wavefront.json"), "w") as f:
+        json.dump(out, f, indent=1)
+        f.write("\n")
+    print(json.dumps(out))
+
+
 if __name__ == "__main__":
     which = sys.argv[1:] or ["ippp", "b", "bench", "bench10", "slow", "nr",
                              "superfast", "ultrafast", "ctu16", "crf_cli",
-                             "abr_vbv_hrd", "twopass", "lossless"]
+                             "abr_vbv_hrd", "twopass", "lossless",
+                             "gop_parallel", "wavefront"]
+    if "gop_parallel" in which:
+        # the reference shards the GOPs over a mesh: one virtual CPU
+        # device per GOP, set before JAX starts
+        from x265_tpu_torch.smoke_config import GOPS
+        flags = os.environ.get("XLA_FLAGS", "")
+        if "xla_force_host_platform_device_count" not in flags:
+            os.environ["XLA_FLAGS"] = (
+                flags + f" --xla_force_host_platform_device_count={GOPS}"
+            ).strip()
     for name in which:
         dict(ippp=ippp, b=bslice, bench=bench, bench10=bench10, slow=slow,
              nr=nr, superfast=lambda: _preset("superfast"),
              ultrafast=lambda: _preset("ultrafast"), ctu16=ctu16,
              crf_cli=crf_cli, abr_vbv_hrd=abr_vbv_hrd, twopass=twopass,
-             lossless=lossless)[name]()
+             lossless=lossless, gop_parallel=gop_parallel,
+             wavefront=wavefront)[name]()

@@ -1,7 +1,8 @@
 """Where the time of x265_tpu_torch's 1080p slices goes, on one GPU.
 
     python3 tools/profile_torch.py [--slice ippp|b|bench|bench10|slow|nr|
-                                            superfast|ultrafast|ctu16]
+                                            superfast|ultrafast|ctu16|
+                                            gop_parallel|wavefront]
                                    [--frames N]
                                    [--out chiprun_out/profile.json]
 
@@ -15,7 +16,12 @@ bench slice's frames at ``default_params("slow")``: RDOQ with psy-RDOQ,
 ref=4, the lookahead on), ``nr`` (the B slice with noise reduction
 600 / 600), ``superfast`` / ``ultrafast`` (the bench slice's frames at
 those presets: CTU 32, bframes 3 with a fixed GOP, one reference) or
-``ctu16`` (the IPPP slice at CTU 16 through encode_frame):
+``ctu16`` (the IPPP slice at CTU 16 through encode_frame),
+``gop_parallel`` (24 frames as 8 closed IPPP GOPs of 3 through
+encode_gop_parallel: one batched I round, two batched P rounds) or
+``wavefront`` (not an encode: the wavefront intra recon's luma 16x16
+encode of ``smoke_wavefront_inputs`` at 1920x1088, 528 levels, its stages
+the recon step's parts):
   1. warm-up;
   2. torch.profiler over CPU and CUDA: device time by kernel name, the
      device-busy sum and the idle share of the wall time, and the port's
@@ -113,6 +119,19 @@ def _instrument(stats, bench=False):
                                aq.aq_offsets)
 
 
+def _instrument_wavefront(stats):
+    """Wrap the wavefront recon step's parts (module globals of
+    ``encoder.wavefront``, looked up at each level)."""
+    from x265_tpu_torch.encoder import wavefront as wf
+    for name, label in (("_substitute", "gather + substitution"),
+                        ("_predict_lanes", "intra prediction"),
+                        ("forward_transform", "forward transform"),
+                        ("quant", "quant"),
+                        ("dequant", "dequant"),
+                        ("inverse_transform", "inverse transform")):
+        setattr(wf, name, _timed(stats, label, getattr(wf, name)))
+
+
 def _params(slice_):
     from x265_tpu_torch import smoke_config as sc
     return dict(ippp=sc.smoke_params, b=sc.smoke_params_b,
@@ -120,14 +139,36 @@ def _params(slice_):
                 bench10=sc.smoke_params_bench10, slow=sc.smoke_params_slow,
                 nr=sc.smoke_params_nr, superfast=sc.smoke_params_superfast,
                 ultrafast=sc.smoke_params_ultrafast,
-                ctu16=sc.smoke_params_ctu16)[slice_]()
+                ctu16=sc.smoke_params_ctu16,
+                gop_parallel=sc.smoke_params_gop_parallel)[slice_]()
 
 
 def _encode(frames, slice_):
     import torch
     from x265_tpu_torch import Encoder, Params
+    from x265_tpu_torch import smoke_config as sc
 
+    if slice_ == "wavefront":
+        from x265_tpu_torch.encoder.wavefront import WavefrontIntraRecon
+        x = sc.smoke_wavefront_inputs()
+        blocks, modes, qp = x["y"]
+        wf = WavefrontIntraRecon(x["width"], x["height"], 6, 16,
+                                 is_luma=True, device="cuda")
+        blocks = torch.as_tensor(blocks).cuda()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        wf.encode(blocks, modes, qp)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
     params = _params(slice_)
+    if slice_ == "gop_parallel":
+        from x265_tpu_torch.parallel import encode_gop_parallel
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        encode_gop_parallel(frames, Params(**params), sc.GOPS,
+                            device="cuda")
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
     pushed = slice_ not in ("ippp", "ctu16")
     enc = Encoder(Params(**params), device="cuda")
     enc.headers()
@@ -184,12 +225,14 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--slice", choices=("ippp", "b", "bench", "bench10",
                                         "slow", "nr", "superfast",
-                                        "ultrafast", "ctu16"),
+                                        "ultrafast", "ctu16", "gop_parallel",
+                                        "wavefront"),
                     default="ippp")
     ap.add_argument("--frames", type=int, default=None,
                     help="frames to encode (4 for ippp and ctu16, 6 for b "
                          "and nr, 10 for bench, bench10, slow, superfast "
-                         "and ultrafast)")
+                         "and ultrafast, 24 for gop_parallel, a multiple "
+                         "of 8; 1 for wavefront)")
     ap.add_argument("--out", default=os.path.join(ROOT, "chiprun_out",
                                                   "profile.json"))
     args = ap.parse_args()
@@ -201,8 +244,8 @@ def main():
                                              smoke_frames_bench10)
     if args.frames is None:
         args.frames = dict(ippp=4, b=6, bench=10, bench10=10, slow=10,
-                           nr=6, superfast=10, ultrafast=10,
-                           ctu16=4)[args.slice]
+                           nr=6, superfast=10, ultrafast=10, ctu16=4,
+                           gop_parallel=24, wavefront=1)[args.slice]
     bench = args.slice.startswith("bench") or args.slice == "slow"
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -231,7 +274,10 @@ def main():
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:25]
 
     stats = defaultdict(float)
-    _instrument(stats, bench=bench)
+    if args.slice == "wavefront":
+        _instrument_wavefront(stats)
+    else:
+        _instrument(stats, bench=bench)
     staged = _encode(frames, args.slice)
     stages = {k: v * 1e3 for k, v in sorted(stats.items(),
                                             key=lambda kv: -kv[1])}

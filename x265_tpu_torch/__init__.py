@@ -12,8 +12,10 @@ for the two hot loops that were Pallas kernels in ``x265_tpu``:
     ``csrc/k2_subpel_refine.cu``), one launch per reference.
 
 Layout mirrors ``x265_tpu`` (``ops/``, ``encoder/``, ``common/``,
-``cabac/``, ``native/``, ``io/``, ``api.py``, ``cli.py``) with the same
-module and function names.  The port stands on its own: it imports
+``cabac/``, ``native/``, ``io/``, ``parallel/``, ``tools/``, ``api.py``,
+``cli.py``) with the same module and function names; ``parallel``'s
+GOP-parallel encoder batches G GOPs' frames on one card where the
+reference shards them over a mesh.  The port stands on its own: it imports
 nothing of ``x265_tpu``.  The host modules it needs (params with
 ``param_parse``, geometry, headers, SEI with the HRD's messages, level,
 the picture syntax arrays and CABAC context init, the native C serializer
@@ -23,7 +25,8 @@ control, weightp, the CTU tables, Y4M / YUV I/O, SSIM, the x265-style
 procedural API and the CLI) are copies, line for line where the stream
 depends on them; only the tests import both packages.
 
-Device policy: ``Encoder``, ``encode_sequence``, ``api.x265_encoder_open``
+Device policy: ``Encoder``, ``encode_sequence``, ``api.x265_encoder_open``,
+``parallel.encode_gop_parallel``, ``encoder.wavefront.WavefrontIntraRecon``
 and the CLI (``python -m x265_tpu_torch.cli``, ``--device``) run on the
 card (``device="cuda"``) unless the caller asks for the CPU
 (``device="cpu"``, as the tests do); nothing falls back silently.  TF32 is switched off for matmul and cuDNN at import: every

@@ -69,8 +69,9 @@ from .ctu_scan import nr_layout
 #: launches of K1 made by ``ctu_step`` (the wrapper counts here, once per
 #: kernel launch, and nowhere else), and of those the launches of its
 #: 10-bit instantiation, with RDOQ, with noise reduction, and at CTB 32
-#: and 16
+#: and 16; ``LAUNCHES_FRAMES`` sums the frames of each launch's lanes
 LAUNCHES = 0
+LAUNCHES_FRAMES = 0
 LAUNCHES_10BIT = 0
 LAUNCHES_RDOQ = 0
 LAUNCHES_NR = 0
@@ -100,13 +101,14 @@ def launch(lib, scan, inter: bool, decide32: bool, carry, xs):
     CUDA tensors; the host build of the same source on CPU tensors, which
     is how the CPU tests reach the kernel's arithmetic)."""
     global LAUNCHES, LAUNCHES_10BIT, LAUNCHES_RDOQ, LAUNCHES_NR
-    global LAUNCHES_CTB32, LAUNCHES_CTB16
+    global LAUNCHES_CTB32, LAUNCHES_CTB16, LAUNCHES_FRAMES
     args, ys = kernel_args(scan, inter, decide32, carry, xs)
     rc = lib.k1_ctu_step(*args)
     if rc != 0:
         raise RuntimeError(
             f"K1 launch failed: {lib.k_error_string(rc).decode()}")
     LAUNCHES += 1
+    LAUNCHES_FRAMES += carry[0].shape[0]
     if scan.bit_depth == 10:
         LAUNCHES_10BIT += 1
     if scan.rdoq:

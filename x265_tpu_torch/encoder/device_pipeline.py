@@ -14,8 +14,10 @@ Per-block windows are plain gathers from the extended reference planes
 (the TPU's static-slice patch tensors and binary window select are not
 needed on a GPU); the TPU's two-program split is one sequence of torch
 calls here.  Where the reference vmaps over the frames of a batched B
-dispatch, the port carries a leading frame dimension: the searches, K2
-and K1 run once for all frames, the analysis and the filters per frame.
+dispatch, or shards the frames of a GOP-parallel round over a mesh
+(``x265_tpu.parallel.gop``), the port carries a leading frame dimension:
+the searches, K2 and K1 run once for all frames, the analysis and the
+filters per frame.
 """
 
 from __future__ import annotations
@@ -63,11 +65,17 @@ def _clamp_pad(pl, top, bottom, left, right):
 
 
 def _windows(plane, y0, x0, size):
-    """[B, size, size] windows of ``plane`` with per-block top-left."""
+    """[B, size, size] windows of ``plane`` with per-block top-left:
+    ``plane`` one plane [H, W] that every block reads, or F planes [F, H,
+    W], one per frame of the B // F frame-major blocks of each frame."""
     ar = torch.arange(size, device=plane.device)
-    rows = (y0[:, None] + ar)[:, :, None]
-    cols = (x0[:, None] + ar)[:, None, :]
-    return plane[rows.long(), cols.long()]
+    rows = (y0[:, None] + ar)[:, :, None].long()
+    cols = (x0[:, None] + ar)[:, None, :].long()
+    if plane.dim() == 2:
+        return plane[rows, cols]
+    B = y0.shape[0]
+    fi = torch.arange(B, device=plane.device) // (B // plane.shape[0])
+    return plane[fi[:, None, None], rows, cols]
 
 
 def _block_windows(S, y0, x0, size):
@@ -397,6 +405,32 @@ def _extend_builder(enc):
     return extend
 
 
+def _frames(x) -> list:
+    """Per-frame host values as a list (one value, or one per frame)."""
+    if torch.is_tensor(x):
+        return x.reshape(-1).tolist()
+    return np.ravel(np.asarray(x)).tolist()
+
+
+def _frame_scan_out(out, f):
+    """Frame ``f``'s outputs of a batched scan, NR sums included."""
+    nr = out[11]
+    return tuple(None if x is None else x[f] for x in out[:11]) + (
+        None if nr is None else {c: tuple(v[f] for v in t)
+                                 for c, t in nr.items()},)
+
+
+def _stack_frames(res):
+    """Per-frame (small, tails, ext) results stacked on a leading frame
+    dimension (``ext`` None stays None)."""
+    small = {k: torch.stack([r[0][k] for r in res]) for k in res[0][0]}
+    tails = {k: tuple(torch.stack(p) for p in zip(*(r[1][k] for r in res)))
+             for k in res[0][1]}
+    ext = (None if res[0][2] is None
+           else tuple(torch.stack(p) for p in zip(*(r[2] for r in res))))
+    return small, tails, ext
+
+
 def nr_outputs(nr) -> dict:
     """The scan's noise-reduction statistics as small outputs:
     ``nr_<cat>`` = [s_i (n * n), c_i, s_p (n * n), c_p] int32."""
@@ -406,11 +440,17 @@ def nr_outputs(nr) -> dict:
             for cat, (si, ci, sp, cp) in nr.items()}
 
 
-def build_i_pipeline(enc):
+def build_i_pipeline(enc, batch: int | None = None):
     """I-frame program: 16/32 intra analysis, the CTU scan with the
     in-scan 32-vs-16 RD decision, loop filters, DPB extension.
     run(oy, ocb, ocr, qpy, qpb, qpr, lam, qp_base, dqp_cb, dqp_cr,
-    sao_lam, qp_base_ctb[, nr_offsets]) -> (small, tails, ext)."""
+    sao_lam, qp_base_ctb[, nr_offsets]) -> (small, tails, ext).
+
+    ``batch=G``: the first frames of G closed GOPs on a leading frame
+    dimension of every per-frame input and output (the reference shards
+    them over a mesh axis): each scan level is one K1 launch over their G
+    x L lanes, the analysis, filters and extension run per frame, and
+    ``qp_base``, ``dqp_*`` and ``sao_lam`` are one value per frame."""
     g = enc.geom
     n = 16
     ph = g.ctbs_h << g.log2_ctb
@@ -426,23 +466,34 @@ def build_i_pipeline(enc):
                  if decide else None)
     finish = _filter_stage_builder(enc)
     extend = _extend_builder(enc)
+    F = batch or 1
 
     def run(oy, ocb, ocr, qpy, qpb, qpr, lam, qp_base, dqp_cb, dqp_cr,
             sao_lam, qp_base_ctb, nr_offsets=None):
-        modes, _cost = analyse(oy)
+        args = [oy, ocb, ocr, qpy, qpb, qpr, lam, qp_base_ctb]
+        if not batch:
+            args = [x[None] for x in args]
+        oy, ocb, ocr, qpy, qpb, qpr, lam, qp_base_ctb = args
+        qp_base, dqp_cb, dqp_cr, sao_lam = (
+            _frames(x) for x in (qp_base, dqp_cb, dqp_cr, sao_lam))
+        modes = torch.stack([analyse(oy[f])[0] for f in range(F)])
         if decide:
-            mode32, _c32 = analyse32(oy)
+            mode32 = torch.stack([analyse32(oy[f])[0] for f in range(F)])
         else:
-            mode32 = torch.zeros((B32,), dtype=torch.int32, device=dev)
+            mode32 = torch.zeros((F, B32), dtype=torch.int32, device=dev)
         out = run_scan(oy, ocb, ocr, modes, mode32,
-                       torch.zeros((B32,), dtype=torch.bool, device=dev),
+                       torch.zeros((F, B32), dtype=torch.bool, device=dev),
                        qpy, qpb, qpr, lam=lam, nr_offsets=nr_offsets)
-        small, tails, fplanes = finish((oy, ocb, ocr), out, qp_base,
-                                       dqp_cb, dqp_cr, sao_lam,
-                                       qp_base_ctb=qp_base_ctb)
-        small = dict(small, modes=modes, mode32=mode32, use32=out[9],
-                     **nr_outputs(out[11]))
-        return small, tails, extend(fplanes)
+        res = []
+        for f in range(F):
+            out_f = _frame_scan_out(out, f)
+            small, tails, fplanes = finish(
+                (oy[f], ocb[f], ocr[f]), out_f, qp_base[f], dqp_cb[f],
+                dqp_cr[f], sao_lam[f], qp_base_ctb=qp_base_ctb[f])
+            small = dict(small, modes=modes[f], mode32=mode32[f],
+                         use32=out_f[9], **nr_outputs(out_f[11]))
+            res.append((small, tails, extend(fplanes)))
+        return _stack_frames(res) if batch else res[0]
 
     return run
 
@@ -488,8 +539,9 @@ def _inter_tools_builder(enc):
                 (2, 4), dtype=torch.int32) + 8) >> 4
 
         oq = box4(orig)                                     # [F, qh, qw]
-        rq = box4(ref_ext[M - RS:M - RS + ph + 2 * RS,
-                          M - RS:M - RS + pw + 2 * RS])[0]
+        # [1 or F, ...]: the shared reference, or each frame's own
+        rq = box4(ref_ext[..., M - RS:M - RS + ph + 2 * RS,
+                          M - RS:M - RS + pw + 2 * RS])
         F = oq.shape[0]
         qh, qw = ph // 4, pw // 4
         span = 2 * RC + 1
@@ -498,9 +550,9 @@ def _inter_tools_builder(enc):
         cs = torch.empty((span, span, F, gh, gw), dtype=torch.int32,
                          device=dev)
         for dy in range(span):
-            rows = rq[dy:dy + qh, :]
-            cand = rows.unfold(1, qw, 1).permute(1, 0, 2)[:span]
-            d = (oq[:, None] - cand[None]).abs()
+            rows = rq[:, dy:dy + qh, :]
+            cand = rows.unfold(2, qw, 1).permute(0, 2, 1, 3)[:, :span]
+            d = (oq[:, None] - cand).abs()
             cs[dy] = d.reshape(F, span, gh, 4, gw, 4).sum(
                 (3, 5), dtype=torch.int32).transpose(0, 1)
         cs = cs + bias[:, :, None, None, None]
@@ -514,9 +566,11 @@ def _inter_tools_builder(enc):
     def me(orig, ref_ext, ob, lam):
         """Per-block motion for one reference: returns (mv [B, 2] (x, y)
         qpel, cost [B] float32, pred [B, 16, 16]).  ``orig`` is one frame
-        [ph, pw] or F frames [F, ph, pw] searched against the same
-        reference, ``ob`` their blocks [F * nb, 16, 16], ``lam`` a float32
-        scalar or one per frame [F]: one K2 launch serves all F frames."""
+        [ph, pw] or F frames [F, ph, pw], ``ref_ext`` one extended
+        reference plane [H, W] that they all search or one per frame [F,
+        H, W], ``ob`` their blocks [F * nb, 16, 16], ``lam`` a float32
+        scalar or one per frame [F]: one K2 launch serves all F frames.
+        The MC helpers below take references the same two ways."""
         orig = orig.reshape(-1, ph, pw)
         F = orig.shape[0]
         B = F * nb
@@ -628,6 +682,51 @@ def _inter_tools_builder(enc):
                 CM=CM)
 
 
+def _quad_helpers(g, F, dev):
+    """The uniformization's quad helpers over F frames' 16x16 blocks
+    (frame-major, raster within a frame) in aligned quads of bs x bs
+    blocks: (inbounds(bs) [F * nb] quads inside the picture, qsum(a, bs)
+    per-quad sums broadcast to the blocks, top_left(a, bs) each quad's
+    top-left value broadcast, all_of(m, bs) per-quad all)."""
+    gh = (g.ctbs_h << g.log2_ctb) // 16
+    gw = (g.ctbs_w << g.log2_ctb) // 16
+
+    def inbounds(bs):
+        by = (np.arange(gh) // bs) * bs * 16
+        bx = (np.arange(gw) // bs) * bs * 16
+        return torch.as_tensor((by[:, None] + bs * 16 <= g.height)
+                               & (bx[None, :] + bs * 16 <= g.width),
+                               device=dev).reshape(-1).repeat(F)
+
+    def qsum(a, bs):
+        # in row-major order of the quad's blocks: the reference's reduce
+        # order
+        q = a.reshape(F, gh // bs, bs, gw // bs, bs)
+        s = None
+        for i in range(bs):
+            for j in range(bs):
+                s = q[:, :, i, :, j] if s is None else s + q[:, :, i, :, j]
+        return s.repeat_interleave(bs, 1).repeat_interleave(bs, 2).reshape(-1)
+
+    def top_left(a, bs):
+        q = a.reshape((F, gh, gw) + tuple(a.shape[1:]))[:, ::bs, ::bs]
+        return q.repeat_interleave(bs, 1).repeat_interleave(bs, 2).reshape(
+            a.shape)
+
+    def all_of(m, bs):
+        return m.reshape(F, gh // bs, bs, gw // bs, bs).all(4).all(
+            2).repeat_interleave(bs, 1).repeat_interleave(bs, 2).reshape(-1)
+
+    return inbounds, qsum, top_left, all_of
+
+
+def _rep4(a, gh, gw):
+    """Per-16x16-block values [gh * gw, ...] -> the 4x4 grid [4 gh, 4 gw,
+    -1]."""
+    return a.reshape(gh, gw, -1).repeat_interleave(4, 0).repeat_interleave(
+        4, 1)
+
+
 def ref_idx_bits(nr: int, n_act: int) -> np.ndarray:
     """Per-slot ref_idx bit cost [nr]: TR bits + a merge-risk bias of 6
     for non-zero refs; padding slots cost 1e9 (never win)."""
@@ -639,16 +738,29 @@ def ref_idx_bits(nr: int, n_act: int) -> np.ndarray:
     return out
 
 
-def build_p_pipeline(enc, nr: int = 1):
+def build_p_pipeline(enc, nr: int = 1, batch: int | None = None):
     """P-frame program: intra analysis, per-reference ME (K2 inside),
     ref_idx argmin, CU-merge uniformization, chroma MC, the CTU scan (K1)
-    with the inter TU32 trial, loop filters and DPB extension."""
+    with the inter TU32 trial, loop filters and DPB extension.
+
+    ``batch=G``: one P frame of each of G closed GOPs on a leading frame
+    dimension of every per-frame input and output (the reference shards
+    them over a mesh axis).  Each frame has its own references (each slot
+    [G, H, W]), weights, QPs and lambdas; each slot's search is one K2
+    launch over the G x nb blocks and each scan level one K1 launch over
+    the G x L lanes.  ``batch=None``: one frame, no frame dimension.
+
+    run(oy, ocb, ocr, refs_y, refs_cb, refs_cr, qpy, qpb, qpr, lam,
+    qp_base, dqp_cb, dqp_cr, sao_lam, qp_base_ctb, ref_pocs, wy, wo, n_act)
+    -> (small, tails, ext); ``qp_base``, ``dqp_*``, ``sao_lam``, ``wy`` and
+    ``wo`` are one value per frame, ``ref_pocs`` and ``n_act`` shared."""
     g = enc.geom
     dev = enc.device
     n = 16
     ph = g.ctbs_h << g.log2_ctb
     pw = g.ctbs_w << g.log2_ctb
     gh, gw = ph // n, pw // n
+    nb = gh * gw
     scan = enc._get_ctu_scan()
     decide = bool(scan.t["has32"])
     run_scan = scan.scan_fn(inter=True, decide32=decide)
@@ -661,42 +773,48 @@ def build_p_pipeline(enc, nr: int = 1):
     bd = enc.bit_depth
     maxv = (1 << bd) - 1
     log2wd = 6 + 14 - bd
+    F = batch or 1
+    quad_inbounds, qsum, top_left, all_of = _quad_helpers(g, F, dev)
 
-    def to_blocks(pl, bn):
-        return pl.reshape(gh, bn, gw, bn).permute(0, 2, 1, 3).reshape(
-            -1, bn, bn)
-
-    def quad_inbounds(bs):
-        by = (np.arange(gh) // bs) * bs * 16
-        bx = (np.arange(gw) // bs) * bs * 16
-        return torch.as_tensor((by[:, None] + bs * 16 <= g.height)
-                               & (bx[None, :] + bs * 16 <= g.width),
-                               device=dev).reshape(-1)
+    def per_frame(x):
+        """One int32 value per frame -> [F, 1, 1] and per block [F*nb, 1,
+        1]."""
+        t = torch.tensor(_frames(x), dtype=torch.int32, device=dev)
+        return t[:, None, None], t.repeat_interleave(nb)[:, None, None]
 
     def prep(oy, refs_y, refs_cb, refs_cr, qp_base, rbits, wy, wo):
-        modes, icost = analyse16(oy)
-        ob = to_blocks(oy.to(torch.int32), n)
-        if decide:
-            mode32 = modes.reshape(gh, gw)[0::2, 0::2].reshape(-1)
-        else:
-            mode32 = torch.zeros((B32,), dtype=torch.int32, device=dev)
-        lam = me_lambda(qp_base).to(dev)
+        """``oy`` [F, ph, pw], each reference slot [F, H, W]; returns
+        (modes, mode32, mv, rsel, inter, pred_y, pred_cb, pred_cr) with a
+        leading frame dimension and the frames' costs (cost_p, cost_i)
+        [F]."""
+        an = [analyse16(oy[f]) for f in range(F)]
+        modes = torch.stack([a[0] for a in an])
+        icost = torch.cat([a[1] for a in an])
         oy32 = oy.to(torch.int32)
-        obd = wo * (1 << (bd - 8))
+        ob = oy32.reshape(F, gh, n, gw, n).permute(0, 1, 3, 2, 4).reshape(
+            -1, n, n)
+        if decide:
+            mode32 = modes.reshape(F, gh, gw)[:, 0::2, 0::2].reshape(F, -1)
+        else:
+            mode32 = torch.zeros((F, B32), dtype=torch.int32, device=dev)
+        lam_f = torch.stack([me_lambda(q) for q in _frames(qp_base)]).to(dev)
+        lam = lam_f.repeat_interleave(nb)              # [F * nb]
+        (wy_f, wy_b), (wo_f, wo_b) = per_frame(wy), per_frame(wo)
+        scale = 1 << (bd - 8)
 
         def weighted(ps_pred):
-            return (((ps_pred * wy + (1 << (log2wd - 1))) >> log2wd)
-                    + obd).clamp(0, maxv)
+            return (((ps_pred * wy_b + (1 << (log2wd - 1))) >> log2wd)
+                    + wo_b * scale).clamp(0, maxv)
 
         mvs, preds, totals = [], [], []
         for r in range(nr):
             ry = refs_y[r]
             if weightp and r == 0:
-                me_ref = (((ry.to(torch.int32) * wy + 32) >> 6) + obd).clamp(
-                    0, maxv).to(ry.dtype)
+                me_ref = (((ry.to(torch.int32) * wy_f + 32) >> 6)
+                          + wo_f * scale).clamp(0, maxv).to(ry.dtype)
             else:
                 me_ref = ry
-            mv_r, pcost_r, pred_r = tools["me"](oy32, me_ref, ob, lam)
+            mv_r, pcost_r, pred_r = tools["me"](oy32, me_ref, ob, lam_f)
             if weightp and r == 0:
                 pred_r = weighted(tools["eval_mv_ps"](ry, mv_r))
             totals.append(fma32(lam, f32(float(rbits[r]), dev), pcost_r))
@@ -729,33 +847,15 @@ def build_p_pipeline(enc, nr: int = 1):
                     (rsel_c == r)[:, None, None], p_r, out)
             return out
 
-        def qsum(a, bs):
-            # per-quad sum in row-major order of the quad's blocks (the
-            # reference's reduce order), broadcast back to the blocks
-            q = a.reshape(gh // bs, bs, gw // bs, bs)
-            s = None
-            for i in range(bs):
-                for j in range(bs):
-                    s = q[:, i, :, j] if s is None else s + q[:, i, :, j]
-            return s.repeat_interleave(bs, 0).repeat_interleave(
-                bs, 1).reshape(-1)
-
         def uniform_pass(mv, rsel, pred_y, pcost, inter, bs, inb):
-            gq = mv.reshape(gh, gw, 2)
-            tl_mv = gq[::bs, ::bs].repeat_interleave(bs, 0).repeat_interleave(
-                bs, 1).reshape(-1, 2)
-            tl_r = rsel.reshape(gh, gw)[::bs, ::bs].repeat_interleave(
-                bs, 0).repeat_interleave(bs, 1).reshape(-1)
+            tl_mv, tl_r = top_left(mv, bs), top_left(rsel, bs)
             cand_pred = eval_sel(tl_mv, tl_r)
             cand_cost = satd(ob, cand_pred).to(torch.float32)
-            all_inter = inter.reshape(gh // bs, bs, gw // bs, bs).all(
-                3).all(1).repeat_interleave(bs, 0).repeat_interleave(
-                    bs, 1).reshape(-1)
             nb2 = float(bs * bs)
             cand_cost_q = qsum(cand_cost, bs)
             accept = (cand_cost_q + lam * 4.0
                       < qsum(pcost, bs) + (lam * 6.0) * nb2)
-            accept = accept & all_inter & inb
+            accept = accept & all_of(inter, bs) & inb
             mv = torch.where(accept[:, None], tl_mv, mv)
             rsel = torch.where(accept, tl_r, rsel)
             pred_y = torch.where(accept[:, None, None], cand_pred, pred_y)
@@ -780,53 +880,68 @@ def build_p_pipeline(enc, nr: int = 1):
         pred_cb = sel_chroma(refs_cb)
         pred_cr = sel_chroma(refs_cr)
         # frame-level costs for the scenecut decision
-        cost_p = torch.minimum(pcost, icost.to(torch.float32)).double().sum()
-        cost_i = icost.to(torch.float64).sum()
-        return (modes, mode32, mv, rsel, inter, pred_y, pred_cb, pred_cr,
-                cost_p, cost_i)
+        cmin = torch.minimum(pcost, icost.to(torch.float32)).double()
+        cost_p = torch.stack([cmin[f * nb:(f + 1) * nb].sum()
+                              for f in range(F)])
+        cost_i = torch.stack([icost[f * nb:(f + 1) * nb].to(
+            torch.float64).sum() for f in range(F)])
+        out = tuple(x.reshape((F, nb) + tuple(x.shape[1:])) for x in (
+            mv, rsel, inter, pred_y, pred_cb, pred_cr))
+        return (modes, mode32) + out + (cost_p, cost_i)
 
     def main(oy, ocb, ocr, modes, mode32, mv, rsel, inter, pred_y, pred_cb,
              pred_cr, qpy, qpb, qpr, lam, qp_base, dqp_cb, dqp_cr, sao_lam,
              qp_base_ctb, ref_pocs, nr_offsets=None):
-        merged = finish.merged_masks(inter, (mv, rsel))
+        """Every per-frame input with its leading frame dimension;
+        ``ref_pocs`` [nr] shared."""
+        qp_base, dqp_cb, dqp_cr, sao_lam = (
+            _frames(x) for x in (qp_base, dqp_cb, dqp_cr, sao_lam))
+        merged = [finish.merged_masks(inter[f], (mv[f], rsel[f]))
+                  for f in range(F)]
         m32_in = None
-        if merged is not None:
-            m32q, m64q = merged
-            f = m32q.shape[0] // m64q.shape[0]
-            m32_in = m32q | _rep(m64q, f)
+        if merged[0] is not None:
+            m32_in = torch.stack([
+                m32q | _rep(m64q, m32q.shape[0] // m64q.shape[0])
+                for m32q, m64q in merged])
         out = run_scan(oy, ocb, ocr, modes, mode32,
-                       torch.zeros((B32,), dtype=torch.bool, device=dev),
+                       torch.zeros((F, B32), dtype=torch.bool, device=dev),
                        qpy, qpb, qpr, lam=lam, is_inter=inter,
                        ipred_y=pred_y, ipred_cb=pred_cb, ipred_cr=pred_cr,
                        m32_in=m32_in, nr_offsets=nr_offsets)
-
-        def rep4(a):
-            return a.reshape(gh, gw, -1).repeat_interleave(
-                4, 0).repeat_interleave(4, 1)
-
-        poc4 = rep4(ref_pocs[rsel.long()][:, None])[:, :, 0]
-        mv4 = rep4(mv).to(torch.int32)
-        motion_b = (torch.ones((gh * 4, gw * 4), dtype=torch.int32,
-                               device=dev), mv4, mv4, poc4, poc4)
-        small, tails, fplanes = finish((oy, ocb, ocr), out, qp_base,
-                                       dqp_cb, dqp_cr, sao_lam,
-                                       inter=inter, mv=mv,
-                                       motion_b=motion_b,
-                                       qp_base_ctb=qp_base_ctb,
-                                       merged=merged)
-        small = dict(small, use32=out[9], **nr_outputs(out[11]))
-        return small, tails, extend(fplanes)
+        res = []
+        for f in range(F):
+            poc4 = _rep4(ref_pocs[rsel[f].long()], gh, gw)[:, :, 0]
+            mv4 = _rep4(mv[f], gh, gw).to(torch.int32)
+            motion_b = (torch.ones((gh * 4, gw * 4), dtype=torch.int32,
+                                   device=dev), mv4, mv4, poc4, poc4)
+            out_f = _frame_scan_out(out, f)
+            small, tails, fplanes = finish(
+                (oy[f], ocb[f], ocr[f]), out_f, qp_base[f], dqp_cb[f],
+                dqp_cr[f], sao_lam[f], inter=inter[f], mv=mv[f],
+                motion_b=motion_b, qp_base_ctb=qp_base_ctb[f],
+                merged=merged[f])
+            small = dict(small, use32=out_f[9], **nr_outputs(out_f[11]))
+            res.append((small, tails, extend(fplanes)))
+        return _stack_frames(res)
 
     def run(oy, ocb, ocr, refs_y, refs_cb, refs_cr, qpy, qpb, qpr, lam,
             qp_base, dqp_cb, dqp_cr, sao_lam, qp_base_ctb, ref_pocs,
             wy=64, wo=0, n_act=None, nr_offsets=None):
         if n_act is None:
             n_act = len(refs_y)
+        refs_y, refs_cb, refs_cr = (tuple(refs) for refs in (
+            refs_y, refs_cb, refs_cr))
+        args = [oy, ocb, ocr, qpy, qpb, qpr, lam, qp_base_ctb]
+        if not batch:
+            args = [x[None] for x in args]
+            refs_y, refs_cb, refs_cr = (tuple(r[None] for r in refs)
+                                        for refs in (refs_y, refs_cb,
+                                                     refs_cr))
+        oy, ocb, ocr, qpy, qpb, qpr, lam, qp_base_ctb = args
         rbits = ref_idx_bits(nr, n_act)
         (modes, mode32, mv, rsel, inter, pred_y, pred_cb, pred_cr,
-         cost_p, cost_i) = prep(oy, tuple(refs_y), tuple(refs_cb),
-                                tuple(refs_cr), qp_base, rbits, int(wy),
-                                int(wo))
+         cost_p, cost_i) = prep(oy, refs_y, refs_cb, refs_cr, qp_base, rbits,
+                                wy, wo)
         small, tails, ext = main(
             oy, ocb, ocr, modes, mode32, mv, rsel, inter, pred_y, pred_cb,
             pred_cr, qpy, qpb, qpr, lam, qp_base, dqp_cb, dqp_cr, sao_lam,
@@ -834,6 +949,10 @@ def build_p_pipeline(enc, nr: int = 1):
                                          device=dev), nr_offsets)
         small = dict(small, modes=modes, mode32=mode32, mv=mv.to(torch.int16),
                      ref_idx=rsel, inter=inter, cost_p=cost_p, cost_i=cost_i)
+        if not batch:
+            small = {k: v[0] for k, v in small.items()}
+            tails = {k: tuple(p[0] for p in v) for k, v in tails.items()}
+            ext = tuple(p[0] for p in ext)
         return small, tails, ext
 
     run.prep = prep
@@ -880,27 +999,14 @@ def build_b_pipeline(enc, batch: int | None = None, make_ext: bool = False):
     satd_, bi = tools["satd"], tools["bi_avg"]
     col_ok = torch.arange(nb, device=dev) % gw > 0
     row_ok = torch.arange(nb, device=dev) // gw > 0
-
-    def quad_inbounds(bs):
-        by = (np.arange(gh) // bs) * bs * 16
-        bx = (np.arange(gw) // bs) * bs * 16
-        return torch.as_tensor((by[:, None] + bs * 16 <= g.height)
-                               & (bx[None, :] + bs * 16 <= g.width),
-                               device=dev).reshape(-1)
-
     F = batch or 1
-
-    def frames(x):
-        """Per-frame host values as a list (one value, or one per frame)."""
-        if torch.is_tensor(x):
-            return x.reshape(-1).tolist()
-        return np.ravel(np.asarray(x)).tolist()
+    quad_inbounds, qsum, top_left, all_of = _quad_helpers(g, F, dev)
 
     def prep(oy, r0y, r0cb, r0cr, r1y, r1cb, r1cr, qp_base):
         """Returns (modes, mode32, mv0, mv1, d, inter, pred_y, pred_cb,
         pred_cr), each with a leading frame dimension when batched."""
         oy = oy.reshape(F, ph, pw)
-        lam_f = torch.stack([me_lambda(q) for q in frames(qp_base)]).to(dev)
+        lam_f = torch.stack([me_lambda(q) for q in _frames(qp_base)]).to(dev)
         lam = lam_f.repeat_interleave(nb)              # [F * nb]
         an = [analyse16(oy[f]) for f in range(F)]
         modes = torch.stack([a[0] for a in an])
@@ -959,33 +1065,15 @@ def build_b_pipeline(enc, batch: int | None = None, make_ext: bool = False):
             pred_y = torch.where(better[:, None, None], cp, pred_y)
             cost = torch.where(better, cc, cost)
 
-        def qsum(a, bs):
-            # per-quad sum in row-major order of the quad's blocks,
-            # broadcast back to the blocks
-            q = a.reshape(F, gh // bs, bs, gw // bs, bs)
-            s = None
-            for i in range(bs):
-                for j in range(bs):
-                    s = q[:, :, i, :, j] if s is None else s + q[:, :, i, :, j]
-            return s.repeat_interleave(bs, 1).repeat_interleave(
-                bs, 2).reshape(-1)
-
         def uniform_pass_b(mv0, mv1, d, pred_y, cost, bs, inb):
-            def tl(a):
-                return grid(a)[:, ::bs, ::bs].repeat_interleave(
-                    bs, 1).repeat_interleave(bs, 2).reshape(a.shape)
-
-            tl0, tl1, tld = tl(mv0), tl(mv1), tl(d)
+            tl0, tl1, tld = (top_left(a, bs) for a in (mv0, mv1, d))
             cand_pred = eval_b(tl0, tl1, tld)
             cand_cost = satd_(ob, cand_pred).to(torch.float32)
-            all_inter = inter.reshape(F, gh // bs, bs, gw // bs, bs).all(
-                4).all(2).repeat_interleave(bs, 1).repeat_interleave(
-                    bs, 2).reshape(-1)
             nb2 = float(bs * bs)
             cq = qsum(cand_cost, bs)
             accept = (cq + lam * 4.0
                       < qsum(cost.to(torch.float32), bs) + (lam * 6.0) * nb2)
-            accept = accept & all_inter & inb.repeat(F)
+            accept = accept & all_of(inter, bs) & inb
             mv0 = torch.where(accept[:, None], tl0, mv0)
             mv1 = torch.where(accept[:, None], tl1, mv1)
             d = torch.where(accept, tld, d)
@@ -1016,10 +1104,6 @@ def build_b_pipeline(enc, batch: int | None = None, make_ext: bool = False):
                     for i, x in enumerate(out))
         return out if batch else tuple(x[0] for x in out)
 
-    def rep4(a):
-        return a.reshape(gh, gw, -1).repeat_interleave(
-            4, 0).repeat_interleave(4, 1)
-
     def main(oy, ocb, ocr, modes, mode32, mv0, mv1, d, inter, pred_y,
              pred_cb, pred_cr, qpy, qpb, qpr, lam, qp_base, dqp_cb, dqp_cr,
              sao_lam, poc_l0, poc_l1, qp_base_ctb, nr_offsets=None):
@@ -1030,7 +1114,7 @@ def build_b_pipeline(enc, batch: int | None = None, make_ext: bool = False):
         (oy, ocb, ocr, modes, mode32, mv0, mv1, d, inter, pred_y, pred_cb,
          pred_cr, qpy, qpb, qpr, lam, qp_base_ctb) = args
         qp_base, dqp_cb, dqp_cr, sao_lam = (
-            frames(x) for x in (qp_base, dqp_cb, dqp_cr, sao_lam))
+            _frames(x) for x in (qp_base, dqp_cb, dqp_cr, sao_lam))
         merged = [finish.merged_masks(inter[f], (mv0[f], mv1[f], d[f]))
                   for f in range(F)]
         m32_in = None
@@ -1043,7 +1127,6 @@ def build_b_pipeline(enc, batch: int | None = None, make_ext: bool = False):
                        qpy, qpb, qpr, lam=lam, is_inter=inter,
                        ipred_y=pred_y, ipred_cb=pred_cb, ipred_cr=pred_cr,
                        m32_in=m32_in, nr_offsets=nr_offsets)
-        nr = out[11]
         res = []
         for f in range(F):
             # normalised per-4x4 two-list motion for the deblock
@@ -1053,31 +1136,21 @@ def build_b_pipeline(enc, batch: int | None = None, make_ext: bool = False):
             poca = torch.where(dir_eff == 2, int(poc_l1), int(poc_l0))
             mvb = torch.where((dir_eff == 3)[:, None], mv1[f], mva)
             pocb = torch.where(dir_eff == 3, int(poc_l1), poca)
-            motion_b = (rep4(nmv)[:, :, 0], rep4(mva).to(torch.int32),
-                        rep4(mvb).to(torch.int32),
-                        rep4(poca.to(torch.int32))[:, :, 0],
-                        rep4(pocb.to(torch.int32))[:, :, 0])
+            motion_b = (_rep4(nmv, gh, gw)[:, :, 0],
+                        _rep4(mva, gh, gw).to(torch.int32),
+                        _rep4(mvb, gh, gw).to(torch.int32),
+                        _rep4(poca.to(torch.int32), gh, gw)[:, :, 0],
+                        _rep4(pocb.to(torch.int32), gh, gw)[:, :, 0])
+            out_f = _frame_scan_out(out, f)
             small, tails, fplanes = finish(
-                (oy[f], ocb[f], ocr[f]),
-                tuple(None if x is None else x[f] for x in out[:11]) + (None,),
-                qp_base[f],
-                dqp_cb[f], dqp_cr[f], sao_lam[f], inter=inter[f],
-                mv=mv0[f], motion_b=motion_b, qp_base_ctb=qp_base_ctb[f],
+                (oy[f], ocb[f], ocr[f]), out_f, qp_base[f], dqp_cb[f],
+                dqp_cr[f], sao_lam[f], inter=inter[f], mv=mv0[f],
+                motion_b=motion_b, qp_base_ctb=qp_base_ctb[f],
                 merged=merged[f])
-            small = dict(small, use32=out[9][f], **nr_outputs(
-                None if nr is None else {c: tuple(v[f] for v in t)
-                                         for c, t in nr.items()}))
+            small = dict(small, use32=out_f[9], **nr_outputs(out_f[11]))
             res.append((small, tails,
                         extend(fplanes) if make_ext else None))
-        if not batch:
-            return res[0]
-        small = {k: torch.stack([r[0][k] for r in res]) for k in res[0][0]}
-        tails = {k: tuple(torch.stack(p) for p in zip(*(r[1][k]
-                                                         for r in res)))
-                 for k in res[0][1]}
-        ext = (tuple(torch.stack(p) for p in zip(*(r[2] for r in res)))
-               if make_ext else None)
-        return small, tails, ext
+        return _stack_frames(res) if batch else res[0]
 
     def run(oy, ocb, ocr, r0y, r0cb, r0cr, r1y, r1cb, r1cr, qpy, qpb, qpr,
             lam, qp_base, dqp_cb, dqp_cr, sao_lam, poc_l0, poc_l1,

@@ -124,15 +124,16 @@ class _Pending:
     rec: tuple = None           # recon planes of a lossless picture
     cu_size: int = 16
     allow_scenecut: bool = False
-    batch_idx: object = None    # index into a batched-B dispatch
-    qp_arrays: object = None    # stashed device QP inputs (deferred B)
+    batch_idx: object = None    # index into a batched dispatch
+    qp_arrays: object = None    # stashed device QP inputs (deferred)
     filter_qps: object = None
     wp: tuple = (64, 0, False)
 
 
 class _BatchFetch:
-    """The small outputs of a batched B dispatch, fetched to the host once
-    (one packed copy) for all its frames."""
+    """The small outputs of a batched dispatch (B frames of a mini-GOP, or
+    a GOP-parallel round), fetched to the host once (one packed copy) for
+    all its frames."""
 
     def __init__(self, small):
         self.small = small
@@ -816,10 +817,12 @@ class Encoder:
 
     def _dispatch_one(self, planes, poc: int, kind: str, l0_poc=None,
                       l1_poc=None, la=None, cplx=None, defer_b: bool = False,
-                      ref_b: bool = False, didx=None):
+                      ref_b: bool = False, didx=None,
+                      defer_all: bool = False):
         """Run one picture's device work and return its _Pending (a
         deferred B only stashes its inputs: ``_dispatch_b_batch`` runs
-        them)."""
+        them; with ``defer_all`` any picture only stashes them, for an
+        outside batcher such as ``parallel.gop``)."""
         g = self.geom
         p = self.params
         ph = g.ctbs_h << g.log2_ctb
@@ -888,7 +891,11 @@ class Encoder:
         if p.lossless:
             pend.rec = self._encode_lossless(ps, orig)
             return pend
-        if is_b:
+        if defer_all:
+            # the batcher stacks the device inputs of several encoders
+            pend.qp_arrays = self._qp_arrays
+            pend.filter_qps = self._filter_qps()
+        elif is_b:
             ps.b_is_ref = ref_b         # TRAIL_R
             if defer_b:
                 # batched mini-GOP dispatch: _dispatch_b_batch stacks these

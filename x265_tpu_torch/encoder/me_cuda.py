@@ -52,9 +52,11 @@ from ..ops.cost import satd
 from ..ops.interp import mc_luma_batch
 
 #: launches of K2 made by ``refine`` (counted once per kernel launch), and
-#: of those the launches of its 10-bit path
+#: of those the launches of its 10-bit path; ``LAUNCHES_BLOCKS`` sums the
+#: blocks of each launch
 LAUNCHES = 0
 LAUNCHES_10BIT = 0
+LAUNCHES_BLOCKS = 0
 
 _DELTAS = [(dy, dx) for dy in (-1, 0, 1) for dx in (-1, 0, 1)]
 MV_BITS_LEN = 1024
@@ -147,7 +149,7 @@ def launch(lib, W, ob, mvi, pmv, lam, subme: int, mrq: int,
            bit_depth: int = 8):
     """Launch K2 from ``lib`` on the device of ``W`` (the CUDA library on
     CUDA tensors; the host build of the same source on CPU tensors)."""
-    global LAUNCHES, LAUNCHES_10BIT
+    global LAUNCHES, LAUNCHES_10BIT, LAUNCHES_BLOCKS
     if bit_depth not in (8, 10):
         raise NotImplementedError(
             f"K2 covers bit depths 8 and 10, not {bit_depth}")
@@ -180,6 +182,7 @@ def launch(lib, W, ob, mvi, pmv, lam, subme: int, mrq: int,
         raise RuntimeError(
             f"K2 launch failed: {lib.k_error_string(rc).decode()}")
     LAUNCHES += 1
+    LAUNCHES_BLOCKS += B
     if bit_depth == 10:
         LAUNCHES_10BIT += 1
     return q0, pred, cost

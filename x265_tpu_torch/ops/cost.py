@@ -1,6 +1,6 @@
-"""Distortion kernels: SAD, SATD (4x4 Hadamard) and the psy-rd energy
-cost — torch twin of ``x265_tpu.ops.cost``.  Integer-exact: the Hadamard
-butterflies run on int32 differences."""
+"""Distortion kernels: SAD, SSE, SATD (4x4 Hadamard), SA8D (8x8) and the
+psy-rd energy cost — torch twin of ``x265_tpu.ops.cost``.  Integer-exact:
+the Hadamard butterflies run on int32 differences."""
 
 from __future__ import annotations
 
@@ -11,6 +11,12 @@ def sad(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """[..., H, W] -> [...] int32 sum of absolute differences."""
     d = (a.to(torch.int32) - b.to(torch.int32)).abs()
     return d.sum(dim=(-2, -1), dtype=torch.int32)
+
+
+def sse(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """[..., H, W] -> [...] int32 sum of squared differences."""
+    d = a.to(torch.int32) - b.to(torch.int32)
+    return (d * d).sum(dim=(-2, -1), dtype=torch.int32)
 
 
 def _had4(x: torch.Tensor, dim: int) -> torch.Tensor:
@@ -40,6 +46,15 @@ def satd(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     d = _tiles(a.to(torch.int32) - b.to(torch.int32), 4)
     had = _had4(_had4(d, -1), -2)
     per_blk = (had.abs().sum(dim=(-2, -1), dtype=torch.int32) + 1) >> 1
+    return per_blk.sum(dim=(-2, -1), dtype=torch.int32)
+
+
+def sa8d(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Sum over 8x8 blocks of (sum |H d H^T| + 2) >> 2; a, b [..., H, W]
+    with H, W multiples of 8 -> [...] int32."""
+    d = _tiles(a.to(torch.int32) - b.to(torch.int32), 8)
+    had = _had8(_had8(d, -1), -2)
+    per_blk = (had.abs().sum(dim=(-2, -1), dtype=torch.int32) + 2) >> 2
     return per_blk.sum(dim=(-2, -1), dtype=torch.int32)
 
 

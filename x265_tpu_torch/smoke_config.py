@@ -33,7 +33,16 @@ content (8-bit; ``synthetic_frame10`` at Main10):
   hiding, ``min_cu_size=16`` (read nowhere in either package);
 * ctu16: the IPPP slice's configuration at ``ctu_size=16`` (120 x 68
   CTBs, 254 levels; no 32x32 candidate) with the MD5 hash SEI, four
-  frames through ``encode_frame``.
+  frames through ``encode_frame``;
+* gop_parallel: the IPPP slice's configuration at ``keyint_max=3``,
+  ``scenecut_threshold=0`` and ``cu_tree=False`` (AQ 2, weightp and 3
+  references stay on; the GOP path runs no cuTree lookahead), 24 frames
+  of the pan through ``encode_gop_parallel`` as 8 closed GOPs of 3: one
+  I round and two P rounds of 8 frames each.
+
+The wavefront recon's inputs (``smoke_wavefront_inputs``) are not a
+slice: one seeded 1920x1088 frame, no block crossing the picture's edge,
+with seeded intra modes, coded as luma 16x16 and Cb 8x8 blocks.
 
 The CTU-32 and CTU-16 slices carry the MD5 hash SEI
 (``decoded_picture_hash=1``), the others the checksum.
@@ -65,6 +74,7 @@ from .common.params import default_params
 WIDTH, HEIGHT, FRAMES = 1920, 1080, 4
 FRAMES_B = 6
 FRAMES_BENCH = 10
+GOPS, GOP_SIZE = 8, 3
 
 
 def smoke_params() -> dict:
@@ -120,6 +130,37 @@ def smoke_params_ultrafast() -> dict:
 
 def smoke_params_ctu16() -> dict:
     return dict(smoke_params(), ctu_size=16, decoded_picture_hash=1)
+
+
+def smoke_params_gop_parallel() -> dict:
+    return dict(smoke_params(), keyint_max=GOP_SIZE, scenecut_threshold=0,
+                cu_tree=False)
+
+
+def smoke_frames_gop_parallel() -> list:
+    """The gop_parallel slice's 24 display-order frames (the pan)."""
+    return smoke_frames(GOPS * GOP_SIZE)
+
+
+def smoke_wavefront_inputs() -> dict:
+    """The wavefront recon's inputs at 1920x1088 (68 x 120 blocks in both
+    planes): ``y`` luma 16x16 and ``cb`` chroma 8x8 blocks [8160, n, n]
+    int32 of ``synthetic_frame(1920, 1088, 5)`` in raster order, seeded
+    modes 0..34 per block, luma QP 30 and Cb QP 29 (QP 30's chroma
+    QP)."""
+    w, h = WIDTH, 1088
+    y, u, _v = synthetic_frame(w, h, 5)
+    rng = np.random.RandomState(11)
+
+    def blocks(pl, n):
+        ph, pw = pl.shape
+        return np.ascontiguousarray(pl.astype(np.int32).reshape(
+            ph // n, n, pw // n, n).transpose(0, 2, 1, 3).reshape(-1, n, n))
+
+    nb = (h // 16) * (w // 16)
+    return dict(width=w, height=h,
+                y=(blocks(y, 16), rng.randint(0, 35, nb).astype(np.int32), 30),
+                cb=(blocks(u, 8), rng.randint(0, 35, nb).astype(np.int32), 29))
 
 
 def smoke_args_crf_cli(y4m: str, out: str, csv: str) -> list:
