@@ -125,7 +125,22 @@ Phases (each raises on failure; the script then exits non-zero):
      seeded modes (smoke_config.smoke_wavefront_inputs), encode then
      decode of its levels; the plane's and the levels' MD5s equal to
      golden_1080p_wavefront.json (the reference's WavefrontIntraRecon),
-     the decoded plane equal to the encoded one, and the walls.
+     the decoded plane equal to the encoded one, and the walls;
+ 19. the decoder (x265_tpu_torch.decoder) on the card: first the intra16
+     stream (smoke_config.smoke_params_intra16: the pan's first two frames
+     at CTU 16 without AQ, every frame an IDR, MD5 hashes) through
+     Encoder.encode_frame, its MD5 and size equal to
+     golden_1080p_decode.json's and K1 254 launches a frame, all at CTB
+     16; then Decoder(device="cuda") on phase 6's bench stream, phase 7's
+     Main10 bench stream and the intra16 stream: every picture hash good,
+     the POCs in display order and each picture's plane MD5s equal to the
+     golden (the reference's decode_annexb on the reference's own
+     streams), each picture equal to the encoder's recon, deblocking and
+     SAO on the card, the intra16 pictures (and only they) through the
+     batched wavefront recon on the card (WAVEFRONT_DECODES == 2); the
+     walls of the parse, the host recon, the device passes, the fetch and
+     the hash check, each picture's and each stream's fps and the peak
+     device memory.
 Phases 13-16 each run one timed encode (the earlier phases have built and
 warmed the kernels) and print its fps.
 Phases 2 and 3 also hold the kernels at a GOP-parallel round's shapes: K1
@@ -871,12 +886,14 @@ def _lookahead_timers(stats):
     return unwrap
 
 
-def encode_bench_slice(dev, lookahead_stats=None, name="bench"):
+def encode_bench_slice(dev, lookahead_stats=None, name="bench", keep=None):
     """A slice (``name`` "bench", "bench10" or "slow", the lookahead on, or
     "nr") through push_frame / flush with a fresh Encoder; returns the stream's
     access units (headers first), the encode-order POCs and kinds, the wall
     seconds of each call with the POCs it returned, and the encoder.  With
-    ``lookahead_stats`` (a dict) the lookahead's parts are timed into it."""
+    ``lookahead_stats`` (a dict) the lookahead's parts are timed into it;
+    with ``keep`` (a dict) the recons in display order go to its
+    "recons"."""
     import torch
     from x265_tpu_torch import Encoder, Params
     from x265_tpu_torch import smoke_config as sc
@@ -898,8 +915,15 @@ def encode_bench_slice(dev, lookahead_stats=None, name="bench"):
     finally:
         if unwrap is not None:
             unwrap()
+    if keep is not None:
+        keep["recons"] = [ef.recon for ef in sorted(
+            efs, key=lambda e: e.display_idx)]
     return ([enc.headers()] + [ef.au for ef in efs], [ef.poc for ef in efs],
             [ef.kind for ef in efs], calls, enc)
+
+
+# name -> (stream, recons in display order) of an encode phase 19 decodes
+DECODE_INPUTS = {}
 
 
 def check_bench_slice(dev, smi, name="bench"):
@@ -907,7 +931,8 @@ def check_bench_slice(dev, smi, name="bench"):
     against its golden; returns the K1 and K2 launches of the timed encode
     (phase 7: also that every one of them took the kernels' 10-bit path;
     phase 8: every K1 launch the RDOQ path, and P frames searching 4
-    references)."""
+    references).  The timed encode's stream and recons go to
+    ``DECODE_INPUTS``."""
     from x265_tpu_torch.encoder import ctu_scan_cuda, me_cuda
 
     main10 = name == "bench10"
@@ -919,8 +944,11 @@ def check_bench_slice(dev, smi, name="bench"):
     ctu_scan_cuda.LAUNCHES = ctu_scan_cuda.LAUNCHES_10BIT = 0
     ctu_scan_cuda.LAUNCHES_RDOQ = ctu_scan_cuda.LAUNCHES_NR = 0
     me_cuda.LAUNCHES = me_cuda.LAUNCHES_10BIT = 0
-    aus, pocs, kinds, calls, enc = encode_bench_slice(dev, la_stats, name)
+    keep = {}
+    aus, pocs, kinds, calls, enc = encode_bench_slice(dev, la_stats, name,
+                                                      keep)
     n1, n2 = ctu_scan_cuda.LAUNCHES, me_cuda.LAUNCHES
+    DECODE_INPUTS[name] = (b"".join(aus), keep["recons"])
     t1, t2 = ctu_scan_cuda.LAUNCHES_10BIT, me_cuda.LAUNCHES_10BIT
     r1, nr1 = ctu_scan_cuda.LAUNCHES_RDOQ, ctu_scan_cuda.LAUNCHES_NR
     stream = b"".join(aus)
@@ -1567,6 +1595,135 @@ def check_wavefront(dev, smi):
                                  "from its encode")
 
 
+def encode_intra16(dev, smi):
+    """Phase 19's all-intra stream (``smoke_params_intra16``: CTU 16, no
+    AQ, two IDRs) through Encoder.encode_frame on the card: MD5 and size
+    equal to golden_1080p_decode.json's, K1 254 launches a frame, all at
+    CTB 16, no K2.  Returns the K1 launches."""
+    import torch
+    from x265_tpu_torch import Encoder, Params
+    from x265_tpu_torch import smoke_config as sc
+    from x265_tpu_torch.encoder import ctu_scan_cuda, me_cuda
+
+    golden = _golden("decode")["intra16"]
+    _zero_counts()
+    enc = Encoder(Params(**sc.smoke_params_intra16()), device=dev)
+    aus, recons = [enc.headers()], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for planes in sc.smoke_frames_intra16():
+        au, rec = enc.encode_frame(planes)
+        aus.append(au)
+        recons.append(rec)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1 = ctu_scan_cuda
+    n1, n2 = k1.LAUNCHES, me_cuda.LAUNCHES
+    stream = b"".join(aus)
+    md5 = hashlib.md5(stream).hexdigest()
+    print(f"intra16 stream (1080p, CTU 16, aq_mode=0, two IDRs) on {smi}: "
+          f"bytes per AU {[len(a) for a in aus]}, {wall:.3f} s with the "
+          f"first call's allocations; launches K1 {n1} (want {254 * 2}, CTB "
+          f"16 {k1.LAUNCHES_CTB16}), K2 {n2}; md5 {md5} (golden "
+          f"{golden['md5']})", flush=True)
+    if md5 != golden["md5"] or len(stream) != golden["total_bytes"]:
+        raise AssertionError("the intra16 stream differs from x265_tpu's "
+                             "golden")
+    if n1 != 254 * 2 or k1.LAUNCHES_CTB16 != n1 or n2:
+        raise AssertionError("the intra16 encode did not run through K1 at "
+                             "CTB 16 as expected")
+    DECODE_INPUTS["intra16"] = (stream, recons)
+    return n1
+
+
+def check_decode(dev, smi):
+    """Phase 19: the port's decoder on the card (``Decoder(device=dev)``)
+    on the bench and Main10 bench streams of phases 6 and 7 and the
+    intra16 stream: every picture hash good, POCs in display order, each
+    picture's plane MD5s equal to golden_1080p_decode.json's (the
+    reference's decoder on the reference's streams), each picture equal to
+    the encoder's recon; the intra16 pictures through the batched
+    wavefront recon (``WAVEFRONT_DECODES``) and the loop filters of every
+    stream on the card.  Prints the walls per stage, the fps and the peak
+    device memory."""
+    import numpy as np
+    import torch
+    from x265_tpu_torch.decoder import Decoder, decoder as dmod
+
+    golden = _golden("decode")
+    seen = set()
+    real_db, real_sao = dmod.deblock_decoded_picture, \
+        dmod.sao_apply_decoded_plane
+
+    def db(ps, planes, *a, **k):
+        seen.add(("deblock", planes[0].device.type))
+        return real_db(ps, planes, *a, **k)
+
+    def sao(plane, *a, **k):
+        seen.add(("sao", plane.device.type))
+        return real_sao(plane, *a, **k)
+
+    dmod.deblock_decoded_picture, dmod.sao_apply_decoded_plane = db, sao
+    try:
+        for name in ("bench", "bench10", "intra16"):
+            stream, recons = DECODE_INPUTS[name]
+            g = golden[name]
+            seen.clear()
+            wf0 = dmod.WAVEFRONT_DECODES
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            d = Decoder(device=dev)
+            d.push_bytes(stream)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            # the decode's own peak, above what earlier phases still hold
+            peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+            wf = dmod.WAVEFRONT_DECODES - wf0
+            pics = d.pictures
+            stages = {s: sum(w[s] for w in d.walls) for s in dmod.STAGES}
+            per_pic = [sum(w[s] for s in dmod.STAGES) for w in d.walls]
+            print(f"decode {name} ({len(stream)} bytes, {len(pics)} "
+                  f"pictures) on {smi}: {wall:.3f} s, {len(pics) / wall:.3f}"
+                  f" fps; stages " + ", ".join(
+                      f"{s} {v:.3f} s" for s, v in stages.items())
+                  + f"; peak device memory {peak:.1f} MiB; wavefront "
+                  f"pictures {wf}; filters on {sorted(seen)}", flush=True)
+            print("  per picture (decode order): " + ", ".join(
+                f"POC {w['poc']} {s:.3f} s ({1 / s:.3f} fps)"
+                for w, s in zip(d.walls, per_pic)), flush=True)
+            md5s = []
+            for p in pics:
+                dt = np.uint8 if p.bit_depth == 8 else np.dtype("<u2")
+                md5s.append([hashlib.md5(np.ascontiguousarray(
+                    pl.astype(dt)).tobytes()).hexdigest()
+                    for pl in p.planes])
+            if not all(p.hash_ok is True for p in pics):
+                raise AssertionError(f"decode {name}: a picture hash "
+                                     "failed")
+            if ([p.poc for p in pics] != [x["poc"] for x in g["pictures"]]
+                    or md5s != [x["md5"] for x in g["pictures"]]
+                    or len(stream) != g["total_bytes"]):
+                raise AssertionError(f"decode {name} differs from "
+                                     "x265_tpu's golden")
+            if len(pics) != len(recons) or not all(
+                    np.array_equal(a, b) for p, r in zip(pics, recons)
+                    for a, b in zip(p.planes, r)):
+                raise AssertionError(f"decode {name}: a picture differs "
+                                     "from the encoder's recon")
+            want_wf = 2 if name == "intra16" else 0
+            on_card = {("deblock", "cuda"), ("sao", "cuda")}
+            if wf != want_wf or seen != on_card or (want_wf and {
+                    w.device.type for k, v in d._wf_cache.items()
+                    for w in v[:2]} != {"cuda"}):
+                raise AssertionError(f"decode {name} did not take the "
+                                     "device path as expected")
+    finally:
+        dmod.deblock_decoded_picture, dmod.sao_apply_decoded_plane = \
+            real_db, real_sao
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1685,6 +1842,10 @@ def main():
     # wavefront intra recon
     n1g, n2g, _fps = check_gop_parallel(dev, smi, fps)
     check_wavefront(dev, smi)
+    # phase 19: the decoder on the card (the bench, Main10 bench and intra16
+    # streams; the intra16 stream encoded first)
+    n1i = encode_intra16(dev, smi)
+    check_decode(dev, smi)
 
     kp, kp10 = k1["P"], k1_10["P"]
     # the RDOQ / NR busiest-level records: {mode}_{I|P}[_F2][_10bit]
@@ -1715,7 +1876,7 @@ def main():
              source="x265_tpu_torch/csrc/k1_ctu_step.cu",
              replaces="x265_tpu/encoder/ctu_scan_pallas.py:72",
              launches=(n1 + n1b + n1s + n1m + n1w + n1n + n1f + n1u + n1c
-                       + n1x + n1v + n1t + n1g),
+                       + n1x + n1v + n1t + n1g + n1i),
              max_abs_err=max(
                  k1["I"]["err"], kp["err"], kp["F2"]["err"],
                  k1["I"]["F2"]["err"], kp["F8"]["err"], k1["I"]["F8"]["err"],
@@ -1735,7 +1896,8 @@ def main():
              scan_ms_P_10bit=kp10["scan_ms"], launches_slow=n1w,
              launches_nr=n1n, launches_superfast=n1f,
              launches_ultrafast=n1u, launches_ctu16=n1c,
-             launches_ctb32=n1f + n1u, launches_ctb16=n1c,
+             launches_ctb32=n1f + n1u, launches_ctb16=n1c + n1i,
+             launches_intra16=n1i,
              launches_crf_cli=n1x, launches_abr_vbv_hrd=n1v,
              launches_twopass=n1t, launches_lossless=0,
              launches_gop_parallel=n1g, ms_F8_P=kp["F8"]["ms"],
@@ -1757,6 +1919,7 @@ def main():
              launches_ultrafast=n2u, launches_ctu16=n2c,
              launches_crf_cli=n2x, launches_abr_vbv_hrd=n2v,
              launches_twopass=n2t, launches_lossless=0,
+             launches_intra16=0,
              max_abs_err=max(k2["err"], k2_10["err"]), ms=k2["ms"],
              plain_ms=k2["plain_ms"], bound_ms=k2["bound_ms"],
              bound_by=k2["bound_by"], library_ms=None,

@@ -7,8 +7,9 @@ Main10 mini-GOP (10-bit frames, the lookahead on), then a B mini-GOP with
 RDOQ (psy-RDOQ 1.0) and noise reduction, then an I P pair at CTU 32, then
 the CLI at CRF with VBV and HRD and a lossless encode_sequence, then two
 closed GOPs through encode_gop_parallel and the wavefront intra recon of a
-luma plane, all on the CPU, and the streams have the expected
-structure."""
+luma plane, then decodes the I P pair and the B mini-GOP with the port's
+own decoder (every picture hash good), all on the CPU, and the streams
+have the expected structure."""
 
 import os
 import subprocess
@@ -144,6 +145,16 @@ wf_plane, wf_levels = wf.encode(
     y.astype(np.int32).reshape(4, 16, 8, 16).transpose(0, 2, 1, 3).reshape(
         -1, 16, 16), np.arange(32, dtype=np.int32) % 35, 30)
 assert torch.equal(wf.decode(wf_levels, np.arange(32) % 35, 30), wf_plane)
+# the port's decoder on the I P pair and the B mini-GOP
+from x265_tpu_torch.decoder import decode_annexb
+pics = decode_annexb(hdr + b"".join(au for au, _ in aus), device="cpu")
+assert [p.poc for p in pics] == [0, 1]
+assert all(p.hash_ok is True for p in pics)
+pics_b = decode_annexb(encb.headers() + b"".join(ef.au for ef in efs),
+                       device="cpu")
+assert [p.poc for p in pics_b] == [0, 1, 2, 3]
+assert all(p.hash_ok is True for p in pics_b)
+assert np.array_equal(pics[1].planes[0], aus[1][1][0])
 assert not any(m == "jax" or m.startswith(("jax.", "x265_tpu."))
                for m in sys.modules if sys.modules[m] is not None)
 print("NOJAX-OK", len(hdr), [len(au) for au, _ in aus],

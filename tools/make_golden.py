@@ -48,7 +48,15 @@ size, the size of each access unit and the encode-order POCs go to
 * ``x265_tpu_torch/data/golden_1080p_wavefront.json``: the MD5s of the
   reference ``WavefrontIntraRecon``'s recon plane and levels on
   ``smoke_wavefront_inputs`` (luma 16x16 and Cb 8x8 blocks at
-  1920x1088).
+  1920x1088);
+* ``x265_tpu_torch/data/golden_1080p_decode.json``: the reference's
+  decoder (``x265_tpu.decoder.decode_annexb``) on the reference's own
+  streams of the bench slice, the Main10 bench slice (each checked
+  against its encode golden) and the intra16 stream (two all-intra
+  frames at CTU 16 without AQ, ``Encoder.encode_frame``; its MD5 and
+  sizes are recorded here): each picture's POC in output order, hash
+  check, QP and the MD5 of each cropped plane (uint8, or little-endian
+  uint16 at 10 bits).
 
 The last four also record each access unit's size and the encode-order
 POCs and kinds (from the reference's ``Encoder._finish_one``).
@@ -57,9 +65,9 @@ POCs and kinds (from the reference's ``Encoder._finish_one``).
         [bench10] [slow] [nr] [superfast] [ultrafast] [ctu16] [crf_cli] \
         [abr_vbv_hrd] [twopass] [lossless] \
 
-        [gop_parallel] [wavefront]
+        [gop_parallel] [wavefront] [decode]
 
-With no argument it writes all fifteen.
+With no argument it writes all sixteen.
 """
 
 import hashlib
@@ -381,11 +389,69 @@ def wavefront():
     print(json.dumps(out))
 
 
+def _decode_record(stream):
+    import time
+
+    import numpy as np
+
+    from x265_tpu.decoder import decode_annexb
+
+    t0 = time.perf_counter()
+    pics = decode_annexb(stream)
+    secs = time.perf_counter() - t0
+    assert pics and all(p.hash_ok is True for p in pics)
+    out = []
+    for p in pics:
+        dt = np.uint8 if p.bit_depth == 8 else np.dtype("<u2")
+        out.append(dict(poc=p.poc, hash_ok=p.hash_ok, qp=p.qp,
+                        bit_depth=p.bit_depth, shape=list(p.planes[0].shape),
+                        md5=[hashlib.md5(np.ascontiguousarray(
+                            pl.astype(dt)).tobytes()).hexdigest()
+                            for pl in p.planes]))
+    print(f"decoded {len(pics)} pictures in {secs:.1f} s", flush=True)
+    return out
+
+
+def decode():
+    from x265_tpu.common.params import Params
+    from x265_tpu.encoder import Encoder
+    from x265_tpu_torch import smoke_config as sc
+
+    out = dict(made_by="x265_tpu on the CPU (tools/make_golden.py): "
+                       "x265_tpu.decoder.decode_annexb")
+    for name in ("bench", "bench10"):
+        enc = Encoder(Params(**getattr(sc, f"smoke_params_{name}")()))
+        efs = []
+        for planes in getattr(sc, f"smoke_frames_{name}")():
+            efs += enc.push_frame(planes)
+        efs += enc.flush()
+        stream = enc.headers() + b"".join(ef.au for ef in efs)
+        md5 = hashlib.md5(stream).hexdigest()
+        with open(os.path.join(DATA, f"golden_1080p_{name}.json")) as f:
+            assert md5 == json.load(f)["md5"], name
+        out[name] = dict(md5=md5, total_bytes=len(stream),
+                         pictures=_decode_record(stream))
+    params = sc.smoke_params_intra16()
+    enc = Encoder(Params(**params))
+    aus = [enc.headers()]
+    for planes in sc.smoke_frames_intra16():
+        aus.append(enc.encode_frame(planes)[0])
+    stream = b"".join(aus)
+    out["intra16"] = dict(params=params, md5=hashlib.md5(stream).hexdigest(),
+                          total_bytes=len(stream),
+                          au_bytes=[len(a) for a in aus],
+                          pictures=_decode_record(stream))
+    with open(os.path.join(DATA, "golden_1080p_decode.json"), "w") as f:
+        json.dump(out, f, indent=1)
+        f.write("\n")
+    print(json.dumps({k: v for k, v in out.items() if k != "made_by"}))
+
+
 if __name__ == "__main__":
     which = sys.argv[1:] or ["ippp", "b", "bench", "bench10", "slow", "nr",
                              "superfast", "ultrafast", "ctu16", "crf_cli",
                              "abr_vbv_hrd", "twopass", "lossless",
-                             "gop_parallel", "wavefront"]
+                             "gop_parallel", "wavefront", "decode"]
     if "gop_parallel" in which:
         # the reference shards the GOPs over a mesh: one virtual CPU
         # device per GOP, set before JAX starts
@@ -401,4 +467,4 @@ if __name__ == "__main__":
              ultrafast=lambda: _preset("ultrafast"), ctu16=ctu16,
              crf_cli=crf_cli, abr_vbv_hrd=abr_vbv_hrd, twopass=twopass,
              lossless=lossless, gop_parallel=gop_parallel,
-             wavefront=wavefront)[name]()
+             wavefront=wavefront, decode=decode)[name]()

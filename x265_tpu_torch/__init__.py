@@ -11,9 +11,9 @@ for the two hot loops that were Pallas kernels in ``x265_tpu``:
   * K2, the subpel motion refine (``encoder/me_cuda.py``,
     ``csrc/k2_subpel_refine.cu``), one launch per reference.
 
-Layout mirrors ``x265_tpu`` (``ops/``, ``encoder/``, ``common/``,
-``cabac/``, ``native/``, ``io/``, ``parallel/``, ``tools/``, ``api.py``,
-``cli.py``) with the same module and function names; ``parallel``'s
+Layout mirrors ``x265_tpu`` (``ops/``, ``encoder/``, ``decoder/``,
+``common/``, ``cabac/``, ``native/``, ``io/``, ``parallel/``, ``tools/``,
+``api.py``, ``cli.py``) with the same module and function names; ``parallel``'s
 GOP-parallel encoder batches G GOPs' frames on one card where the
 reference shards them over a mesh.  The port stands on its own: it imports
 nothing of ``x265_tpu``.  The host modules it needs (params with
@@ -22,12 +22,16 @@ the picture syntax arrays and CABAC context init, the native C serializer
 with the lossless bypass flag and the input dithering, the deblock/SAO
 tables, the ``Encoder`` host logic with HRD and lossless, AQ, rate
 control, weightp, the CTU tables, Y4M / YUV I/O, SSIM, the x265-style
-procedural API and the CLI) are copies, line for line where the stream
-depends on them; only the tests import both packages.
+procedural API and the CLI, and the decoder's parsers, CABAC decoder,
+motion-vector prediction and host recon) are copies, line for line where
+the stream or a decoded sample depends on them; only the tests import both
+packages.  The decoder (``decoder.decode_annexb``, ``decoder.Decoder``)
+parses and reconstructs on the host and runs its picture-wide passes
+(deblocking, SAO, the batched all-intra wavefront recon) on the device.
 
 Device policy: ``Encoder``, ``encode_sequence``, ``api.x265_encoder_open``,
-``parallel.encode_gop_parallel``, ``encoder.wavefront.WavefrontIntraRecon``
-and the CLI (``python -m x265_tpu_torch.cli``, ``--device``) run on the
+``parallel.encode_gop_parallel``, ``encoder.wavefront.WavefrontIntraRecon``,
+``decoder.Decoder``, ``decoder.decode_annexb`` and the CLI (``python -m x265_tpu_torch.cli``, ``--device``) run on the
 card (``device="cuda"``) unless the caller asks for the CPU
 (``device="cpu"``, as the tests do); nothing falls back silently.  TF32 is switched off for matmul and cuDNN at import: every
 float product in the port is meant to be exact (integer operands) or IEEE

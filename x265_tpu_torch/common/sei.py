@@ -1,17 +1,16 @@
-"""SEI message writing (ITU-T H.265 Annex D): the decoded picture hash,
-user data, mastering display, content light level, and the HRD's
-buffering period and picture timing — the writer side of
-``x265_tpu/common/sei.py``, copied line for line.
+"""SEI message writing and parsing (ITU-T H.265 Annex D): the decoded
+picture hash, user data, mastering display, content light level, and the
+HRD's buffering period and picture timing — ``x265_tpu/common/sei.py``,
+copied line for line.
 """
 
 from __future__ import annotations
-
 
 import hashlib
 
 import numpy as np
 
-from .bitstream import BitWriter
+from .bitstream import BitReader, BitWriter
 
 SEI_BUFFERING_PERIOD = 0
 SEI_PICTURE_TIMING = 1
@@ -123,6 +122,41 @@ def write_sei_rbsp(messages: list[tuple[int, bytes]]) -> bytes:
             bw.write(b, 8)
     bw.rbsp_trailing_bits()
     return bw.getvalue()
+
+
+def parse_sei_rbsp(rbsp: bytes) -> list[tuple[int, bytes]]:
+    br = BitReader(rbsp)
+    out = []
+    while br.more_rbsp_data():
+        ptype = 0
+        b = br.read(8)
+        while b == 255:
+            ptype += 255
+            b = br.read(8)
+        ptype += b
+        size = 0
+        b = br.read(8)
+        while b == 255:
+            size += 255
+            b = br.read(8)
+        size += b
+        payload = bytes(br.read(8) for _ in range(size))
+        out.append((ptype, payload))
+    return out
+
+
+def parse_picture_hash(payload: bytes):
+    """Returns (hash_type, [digest per plane])."""
+    hash_type = payload[0]
+    body = payload[1:]
+    if hash_type == HASH_MD5:
+        n = len(body) // 16
+        return hash_type, [body[i * 16:(i + 1) * 16] for i in range(n)]
+    if hash_type == HASH_CRC:
+        n = len(body) // 2
+        return hash_type, [body[i * 2:(i + 1) * 2] for i in range(n)]
+    n = len(body) // 4
+    return hash_type, [body[i * 4:(i + 1) * 4] for i in range(n)]
 
 
 def mastering_display_payload(text: str) -> bytes:

@@ -1,10 +1,16 @@
 """HEVC deblocking (H.265 §8.7.2) on whole padded planes — torch twin of
-``x265_tpu.ops.deblock.deblock_picture_jnp``.
+``x265_tpu.ops.deblock.deblock_picture_jnp``, and the decoder's deblocking.
 
 Vertical edges on the 8-px grid tile the plane exactly, so each direction
 is reshape -> batched segment filter -> reshape; the horizontal pass runs
 on the transposed output.  The spec tables, the chroma QP map and the static
 edge masks are copies of the reference's numpy helpers.
+
+The decoder derives the boundary strengths and the per-edge QPs on the
+host from the parsed ``PicSyntax`` (``derive_edge_flags``, ``derive_bs``,
+``qp4_per_cu``: copies of the reference's, line for line) and filters the
+picture's planes on their device (``deblock_decoded_picture``), with the
+maps ``deblock_picture_np`` builds.
 """
 
 from __future__ import annotations
@@ -259,4 +265,190 @@ def deblock_picture(planes, intra4, cbf4, mv4, use32, static_masks,
                        tc_off=tc_off, chroma=True)
     cr = deblock_plane(planes[2].to(torch.int32), cv, chm, qp_cr, bit_depth,
                        tc_off=tc_off, chroma=True)
+    return y, cb, cr
+
+
+def derive_edge_flags(ps):
+    """TU/CU boundary flags + per-4x4 luma-cbf map at 4x4 luma granularity.
+
+    edge_v[y4, x4] = vertical edge along the LEFT side of that 4x4 block;
+    picture-boundary edges excluded (§8.7.2: not filtered).  cbf4 marks
+    4x4 blocks whose containing luma TU has nonzero coefficients (used by
+    the BS=1 derivation).  2Nx2N PUs: PU edges coincide with CU edges.
+    """
+    from ..common.recon import cu_leaves, tu_leaves
+
+    g = ps.geom
+    ev = np.zeros((g.h4, g.w4), bool)
+    eh = np.zeros((g.h4, g.w4), bool)
+    cbf4 = np.zeros((g.h4, g.w4), bool)
+    for ctu in range(g.n_ctbs):
+        for (cx, cy, log2_cb) in cu_leaves(ps, ctu):
+            for (tx, ty, log2_tb, _d) in tu_leaves(ps, cx, cy, log2_cb):
+                n4 = 1 << (log2_tb - 2)
+                ty4, tx4 = ty >> 2, tx >> 2
+                if tx > 0:
+                    ev[ty4:ty4 + n4, tx4] = True
+                if ty > 0:
+                    eh[ty4, tx4:tx4 + n4] = True
+                sz = 1 << log2_tb
+                if np.any(ps.coeff_y[ty:ty + sz, tx:tx + sz]):
+                    cbf4[ty4:ty4 + n4, tx4:tx4 + n4] = True
+    return ev, eh, cbf4
+
+
+def motion_bs_planes(ps):
+    """Per-4x4 motion-comparison state for the BS derivation (§8.7.2.4):
+
+    Returns (nmv, mva, mvb, poca, pocb) where nmv is 1/2, mva/mvb the
+    (up to) two MVs with their reference POCs; uni-predicted blocks
+    duplicate their single (mv, poc) into both slots.
+    """
+    d = np.where(ps.inter_dir == 0, 1, ps.inter_dir).astype(np.int32)
+    pocs0 = np.asarray(ps.ref_pocs_l0 if len(ps.ref_pocs_l0) else [0],
+                       np.int32)
+    pocs1 = np.asarray(ps.ref_pocs_l1 if len(ps.ref_pocs_l1) else [0],
+                       np.int32)
+    poc_l0 = pocs0[np.minimum(ps.ref_idx0.astype(np.int32),
+                              len(pocs0) - 1)]
+    poc_l1 = pocs1[np.minimum(ps.ref_idx1.astype(np.int32),
+                              len(pocs1) - 1)]
+    mv0 = ps.mv0.astype(np.int32)
+    mv1 = ps.mv1.astype(np.int32)
+    nmv = np.where(d == 3, 2, 1)
+    # slot A: L0 motion unless the block is uni-L1
+    use_l1a = d == 2
+    mva = np.where(use_l1a[..., None], mv1, mv0)
+    poca = np.where(use_l1a, poc_l1, poc_l0)
+    # slot B: L1 motion for bi, duplicate of A for uni
+    mvb = np.where((d == 3)[..., None], mv1, mva)
+    pocb = np.where(d == 3, poc_l1, poca)
+    return nmv, mva, mvb, poca, pocb
+
+
+def derive_bs(ps, ev, eh, cbf4):
+    """Boundary strength per edge (§8.7.2.4): (bs_v, bs_h) uint8 arrays.
+
+    2 = either side intra; 1 = nonzero luma coeffs in either TU, or
+    motion mismatch: different MV count, different reference pictures,
+    or any MV delta >= 1 luma sample (4 qpel) — with the both-orderings
+    check when a bi block's two references are the same picture.
+    """
+    from ..cabac.ctu import MODE_INTRA as _INTRA
+
+    intra4 = ps.pred_mode == _INTRA
+    nmv, mva, mvb, poca, pocb = motion_bs_planes(ps)
+
+    def ge4(a, b):
+        return np.any(np.abs(a - b) >= 4, axis=-1)
+
+    def bs_dir(edge, axis):
+        p_intra = np.roll(intra4, 1, axis=axis)
+        p_cbf = np.roll(cbf4, 1, axis=axis)
+        pn = np.roll(nmv, 1, axis=axis)
+        pmva = np.roll(mva, 1, axis=axis)
+        pmvb = np.roll(mvb, 1, axis=axis)
+        ppoca = np.roll(poca, 1, axis=axis)
+        ppocb = np.roll(pocb, 1, axis=axis)
+        # reference-picture set comparison (order-free)
+        set_eq = (((poca == ppoca) & (pocb == ppocb))
+                  | ((poca == ppocb) & (pocb == ppoca)))
+        aligned = ge4(mva, pmva) | ge4(mvb, pmvb)
+        crossed = ge4(mva, pmvb) | ge4(mvb, pmva)
+        # when the two references differ, MVs pair by picture; when both
+        # point at the same picture, BS=1 only if both orderings exceed
+        same_pair = poca == pocb
+        align_ok = np.where(
+            poca == ppoca, aligned,
+            np.where(poca == ppocb, crossed, True))
+        bi_diff = np.where(same_pair, aligned & crossed, align_ok)
+        mv_big = np.where(nmv != pn, True,
+                          np.where(~set_eq, True, bi_diff))
+        bs = np.where(intra4 | p_intra, 2,
+                      np.where(cbf4 | p_cbf | mv_big, 1, 0)).astype(np.uint8)
+        return np.where(edge, bs, 0).astype(np.uint8)
+
+    return bs_dir(ev, axis=1), bs_dir(eh, axis=0)
+
+
+def qp4_per_cu(ps) -> np.ndarray:
+    """[h4, w4] per-4x4 QpY under cu_qp_delta (QG == CTB).
+
+    Within a CTB, CUs preceding (z-order) the first coefficient-bearing
+    CU have QpY = qPY_PRED (the previous CTB's actual QP, slice QP for
+    the first); the first coded CU and all following CUs have the
+    signaled QP (ps.qp_ctb).  Mirrors libde265's per-CU
+    decode_quantization_parameters calls (transform.cc:31, slice.cc:4256).
+    """
+    from ..common.recon import cu_leaves
+
+    g = ps.geom
+    qp4 = np.zeros((g.h4, g.w4), np.int32)
+    pred = ps.slice_qp
+    for ctu in range(g.n_ctbs):
+        q_ctb = int(ps.qp_ctb[ctu])
+        delta_seen = False
+        for (cx, cy, log2_cb) in cu_leaves(ps, ctu):
+            sz = 1 << log2_cb
+            if not delta_seen:
+                if (np.any(ps.coeff_y[cy:cy + sz, cx:cx + sz])
+                        or np.any(ps.coeff_cb[cy >> 1:(cy + sz) >> 1,
+                                              cx >> 1:(cx + sz) >> 1])
+                        or np.any(ps.coeff_cr[cy >> 1:(cy + sz) >> 1,
+                                              cx >> 1:(cx + sz) >> 1])):
+                    delta_seen = True
+            q = q_ctb if delta_seen else pred
+            qp4[cy >> 2:(cy + sz) >> 2, cx >> 2:(cx + sz) >> 2] = q
+        pred = q_ctb
+    return qp4
+
+
+def deblock_decoded_picture(ps, planes, qp_y: int, bit_depth: int = 8,
+                            beta_off: int = 0, tc_off: int = 0,
+                            cb_qp_offset: int = 0, cr_qp_offset: int = 0):
+    """Deblock a decoded picture on its planes' device: ``planes`` are the
+    (Y, Cb, Cr) int32 tensors at the CTB-padded size of ``ps.geom``;
+    returns the filtered planes.  The boundary strengths and QP maps are
+    ``deblock_picture_np``'s, built on the host at the padded size (no edge
+    lies outside the coded picture, so the padding is never filtered and
+    never read by a filtered edge); the planes equal that function's on
+    the coded-size crop."""
+    from ..cabac.ctu import chroma_qp
+
+    dev = planes[0].device
+    ev, eh, cbf4 = derive_edge_flags(ps)
+    bs_v, bs_h = derive_bs(ps, ev, eh, cbf4)
+    lv, lh = bs_v.copy(), bs_h.copy()
+    lv[:, 1::2] = 0
+    lh[1::2, :] = 0
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a, np.int32),
+                               device=dev)
+
+    if ps.cu_qp_delta_enabled:
+        qp4 = qp4_per_cu(ps)
+        qv = (np.roll(qp4, 1, axis=1) + qp4 + 1) >> 1
+        qh = (np.roll(qp4, 1, axis=0) + qp4 + 1) >> 1
+        qp_l = (t(qv), t(qh))
+        qp_cb = (t(_chroma_qp_arr(qv[::2, ::2], cb_qp_offset)),
+                 t(_chroma_qp_arr(qh[::2, ::2], cb_qp_offset)))
+        qp_cr = (t(_chroma_qp_arr(qv[::2, ::2], cr_qp_offset)),
+                 t(_chroma_qp_arr(qh[::2, ::2], cr_qp_offset)))
+    else:
+        qp_l = qp_y
+        qp_cb = chroma_qp(qp_y, cb_qp_offset)
+        qp_cr = chroma_qp(qp_y, cr_qp_offset)
+    y = deblock_plane(planes[0], t(lv), t(lh), qp_l, bit_depth, beta_off,
+                      tc_off)
+    h4c, w4c = ev.shape[0] // 2, ev.shape[1] // 2
+    cv = np.zeros((h4c, w4c), np.int32)
+    ch = np.zeros((h4c, w4c), np.int32)
+    cv[:, 0::2] = np.where(bs_v[::2, 0::4] == 2, 2, 0)
+    ch[0::2, :] = np.where(bs_h[0::4, ::2] == 2, 2, 0)
+    cv, ch = t(cv), t(ch)
+    cb = deblock_plane(planes[1], cv, ch, qp_cb, bit_depth, tc_off=tc_off,
+                       chroma=True)
+    cr = deblock_plane(planes[2], cv, ch, qp_cr, bit_depth, tc_off=tc_off,
+                       chroma=True)
     return y, cb, cr

@@ -1,6 +1,7 @@
 """Quantization / dequantization (H.265 §8.6.3), sign-data hiding and
 RDOQ — torch twin of ``x265_tpu.ops.quantize`` (flat scaling lists, int32
-math split exactly as the reference splits it)."""
+math split exactly as the reference splits it); ``dequant_np`` is the
+reference's numpy spec oracle, which the decoder's host recon runs."""
 
 from __future__ import annotations
 
@@ -303,3 +304,17 @@ def _rdoq_core(coef: torch.Tensor, qp, bit_depth: int,
 def rdoq(coef: torch.Tensor, qp, bit_depth: int = 8) -> torch.Tensor:
     """[B, N, N] int32 transform coeffs, qp scalar or [B] -> RDO levels."""
     return _rdoq_core(coef, qp, bit_depth)
+
+
+# ---------------------------------------------------------------------------
+# numpy reference: the decoder's host recon
+# ---------------------------------------------------------------------------
+
+def dequant_np(level: np.ndarray, qp: int, bit_depth: int = 8) -> np.ndarray:
+    """Normative §8.6.3 with flat scaling list (m=16)."""
+    n = level.shape[-1]
+    log2n = n.bit_length() - 1
+    bd_shift = bit_depth + log2n - 5
+    scale = (int(INV_QUANT_SCALES[qp % 6]) * 16) << (qp // 6)
+    d = (level.astype(np.int64) * scale + (1 << (bd_shift - 1))) >> bd_shift
+    return np.clip(d, -32768, 32767).astype(np.int32)

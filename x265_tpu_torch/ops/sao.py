@@ -1,6 +1,8 @@
 """Sample Adaptive Offset (H.265 §8.7.3) estimation and apply on padded
 planes — torch twin of ``x265_tpu.ops.sao`` (``sao_estimate_plane_jnp``,
-``sao_apply_plane_jnp``).
+``sao_apply_plane_jnp``), and the decoder's apply
+(``sao_apply_decoded_plane``, equal to ``sao_apply_plane_np`` on the
+coded-size crop).
 
 Every float sum here is integer-valued and below 2^24 (per-CTB counts and
 difference sums, offset-walk deltas), exactly as in the reference, so the
@@ -11,6 +13,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .._util import dev_table
 
 # EO neighbor offsets per class: ((dy0, dx0), (dy1, dx1))
 EO_NEIGHBORS = [((0, -1), (0, 1)), ((-1, 0), (1, 0)),
@@ -139,3 +143,30 @@ def sao_apply_plane(plane, ctbs_h, ctbs_w, ctb, types, classes, band_pos,
     tmap = rep(types)
     off = torch.where(tmap == 2, eo_off, torch.where(tmap == 1, bo_off, 0))
     return (plane + off).clamp(0, maxval)
+
+
+def sao_apply_decoded_plane(plane, ps, c_idx: int, ctb: int, coded_w: int,
+                            coded_h: int, bit_depth: int = 8):
+    """SAO of one decoded plane on its device: ``plane`` [ph, pw] int32 at
+    the CTB-padded size (``ctb`` in this plane's samples), the per-CTB
+    parameters of component ``c_idx`` (0 = Y, 1 = Cb, 2 = Cr; Cb and Cr
+    share the type and class) from ``ps``; the samples inside the coded
+    ``coded_w`` x ``coded_h`` picture equal ``sao_apply_plane_np`` on the
+    coded-size crop."""
+    g = ps.geom
+    ch, cw = g.ctbs_h, g.ctbs_w
+    sel = 0 if c_idx == 0 else 1
+    dev = plane.device
+    ph, pw = plane.shape
+
+    def t(a, *shape):
+        return torch.as_tensor(np.ascontiguousarray(a, np.int32).reshape(
+            ch, cw, *shape), device=dev)
+
+    valid = dev_table(("eo_valid", ph, pw, coded_w, coded_h),
+                      lambda: eo_valid_masks_np(ph, pw, coded_w, coded_h)[0],
+                      dev)
+    return sao_apply_plane(plane, ch, cw, ctb, t(ps.sao_type[:, sel]),
+                           t(ps.sao_eo_class[:, sel]),
+                           t(ps.sao_band_pos[:, c_idx]),
+                           t(ps.sao_offsets[:, c_idx], 4), valid, bit_depth)

@@ -6,6 +6,8 @@ CUDA has no integer matmul, so here each stage is a float64 matmul of
 integer operands: every product and partial sum is an integer below 2^53
 (|T| <= 90, N <= 32, |x| <= 2^16), so the result is exact in any summation
 order, then rounded back to int32 before the normative shifts.
+``inverse_transform_np`` is the reference's numpy spec oracle, which the
+decoder's host recon runs.
 """
 
 from __future__ import annotations
@@ -68,3 +70,22 @@ def inverse_transform(coef: torch.Tensor, bit_depth: int = 8,
     tmp = _rshift_round(_mm("ki,bkj->bij", t, coef), 7).clamp(-32768, 32767)
     out = _rshift_round(_mm("lj,bil->bij", t, tmp), 20 - bit_depth)
     return out.clamp(-32768, 32767)
+
+
+# ---------------------------------------------------------------------------
+# numpy reference (spec oracle): the decoder's host recon
+# ---------------------------------------------------------------------------
+
+def inverse_transform_np(coef: np.ndarray, bit_depth: int = 8,
+                         dst: bool = False) -> np.ndarray:
+    """Normative inverse transform (§8.6.4): returns NxN int32 residual."""
+    n = coef.shape[-1]
+    t = (DST4 if dst else dct_matrix(n)).astype(np.int64)
+    shift1 = 7
+    shift2 = 20 - bit_depth
+    # stage 1 vertical: E = clip16((T^T C + 64) >> 7)
+    tmp = (t.T @ coef.astype(np.int64) + (1 << (shift1 - 1))) >> shift1
+    tmp = np.clip(tmp, -32768, 32767)
+    # stage 2 horizontal: R = clip16((E T + add) >> shift2)
+    out = (tmp @ t + (1 << (shift2 - 1))) >> shift2
+    return np.clip(out, -32768, 32767).astype(np.int32)

@@ -132,6 +132,19 @@ def smoke_params_ctu16() -> dict:
     return dict(smoke_params(), ctu_size=16, decoded_picture_hash=1)
 
 
+def smoke_params_intra16() -> dict:
+    """The decoder's all-intra stream: CTU 16 without AQ (uniform 16x16
+    CUs at one QP, the structure the decoder's batched wavefront recon
+    takes; the coded height is 1088), every frame an IDR, MD5 hashes."""
+    return dict(smoke_params(), ctu_size=16, aq_mode=0, keyint_max=1,
+                decoded_picture_hash=1)
+
+
+def smoke_frames_intra16() -> list:
+    """The intra16 stream's two frames (the pan's first two)."""
+    return smoke_frames(2)
+
+
 def smoke_params_gop_parallel() -> dict:
     return dict(smoke_params(), keyint_max=GOP_SIZE, scenecut_threshold=0,
                 cu_tree=False)
