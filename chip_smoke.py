@@ -119,7 +119,12 @@ Phases (each raises on failure; the script then exits non-zero):
      own encode_gop_parallel on 8 virtual CPU devices); K1 must launch 62
      x 3 times, every launch over 8 frames' lanes, and K2 3 x 2 times,
      every launch over 8 x 8160 blocks; it prints the fps beside phase 4's
-     and the wall of each round;
+     and the wall of each round.  Then the same 24 frames over D shards
+     (``devices=``): one a card when the machine has two or more, else two
+     on cuda:0, each on its own host thread and CUDA stream (it prints
+     which layout ran): the same golden, K1 62 x 3 x D launches of 8 / D
+     frames' lanes, K2 3 x 2 x D over 8 / D x 8160 blocks, the fps and
+     each shard's round walls beside the one-device run's;
  18. the wavefront intra recon (x265_tpu_torch.encoder.wavefront) at
      1920x1088: luma 16x16 and Cb 8x8 blocks of a seeded frame with
      seeded modes (smoke_config.smoke_wavefront_inputs), encode then
@@ -154,6 +159,14 @@ step, NR sums included, with seeded offsets for NR and, for RDOQ, a P
 frame's CTU planted to code a level of 8192; each with its one-launch
 time, the plain step's time and the bound (RDOQ's float operations at the
 float32 rate, ``RDOQ_FLOPS``).
+Phase 2 also holds K1's RQT path (``check_k1_rqt``): the whole 1080p P
+scan with the inter RQT split (``scan_fn(..., rqt=True)``) through K1 and
+through the plain step, every output equal (``tu8`` included, its split
+blocks printed), every launch counted on the RQT path, at CTB 64, 32 and
+16 at 8 and 10 bits and at CTB 64 with RDOQ + psy-RDOQ 1.0; at CTB 64 and
+8 bits the outputs' MD5s equal to golden_1080p_rqt.json (the reference's
+own RQT scan on ``smoke_config.scan_frame(1)``) and the busiest level's P
+launch at F = 1 and 2 with its time, the plain step's and the bound.
 Phase 2 also holds K1 at CTB 32 and 16 (``k1_inputs(..., log2_ctb)``, the
 126- and 254-level scans of the same 1080p planes, decide32 at CTB 32 as
 the pipelines run it): the whole scan, then the busiest level (30 and 60
@@ -312,9 +325,12 @@ def k1_level_bound(xs, ys, inter, scan):
     operations (``RDOQ_FLOPS`` a coefficient, ``PSY_FLOPS`` more on luma
     with psy-RDOQ) at the float32 rate, and the lambda table; with noise
     reduction the offsets read and the statistics written, and (every quad
-    then runs the trial) the trial of every quad.  The bound is the larger
-    of the bytes' time and the slower pipe's time."""
+    then runs the trial) the trial of every quad; with the RQT split
+    (``rqt_ok`` among the inputs) the split's four chains of 8x8 luma and
+    4x4 chroma TUs in every inter slot of the level, the mask and T4.  The
+    bound is the larger of the bytes' time and the slower pipe's time."""
     L = xs["cx"].shape[0]
+    rqt = "rqt_ok" in xs
     t = scan.t
     has32, nq, spq = t["has32"], t["n_quads"], t["slots_per_quad"]
     ctb = 1 << t["geom"].log2_ctb
@@ -325,11 +341,15 @@ def k1_level_bound(xs, ys, inter, scan):
               "quad_ok"] if has32 else ["o16y", "o8c"])
     if inter:
         keys += ["inter", "ipy", "ipc", "m32_in"]
+    if rqt:
+        keys += ["rqt_ok"]
     # per lane: reads 2 rows + 1 column + 1 corner of each plane's frontier,
     # writes 1 row + 1 column + 1 corner of each
     frontier = L * 4 * ((3 * ctb + 1) + (2 * ctb + 1) + 2 * (
         (3 * ctbc + 1) + (2 * ctbc + 1)))
     tables = 4 * 4 * 336     # K1's packed DCT matrices, one bulk copy
+    if rqt:
+        tables += 4 * 16     # and T4
     if scan.rdoq:
         tables += 4 * 2 * 64
     if scan.noise_reduction:
@@ -338,13 +358,16 @@ def k1_level_bound(xs, ys, inter, scan):
         tables + _nbytes([y for y in ys if y is not None])
     trials = ((L * nq if scan.noise_reduction else int(xs["m32_in"].sum()))
               if inter and has32 else 0)
+    splits = int(xs["inter"].sum()) if rqt else 0  # inter slots
     macs = (L * nq * ((_tu_chain_macs(32) if has32 else 0)
                       + spq * _tu_chain_macs(16))
-            + trials * _tu_chain_macs(32))
+            + trials * _tu_chain_macs(32) + splits * 4 * _tu_chain_macs(8))
     t_ops = macs / DP2A_MAC_PER_S
     if scan.rdoq:
-        coefs = L * nq * ((1536 if has32 else 0) + spq * 384) + trials * 1536
-        luma = L * nq * ((1024 if has32 else 0) + spq * 256) + trials * 1024
+        coefs = (L * nq * ((1536 if has32 else 0) + spq * 384) + trials * 1536
+                 + splits * 384)
+        luma = (L * nq * ((1024 if has32 else 0) + spq * 256) + trials * 1024
+                + splits * 256)
         flops = coefs * RDOQ_FLOPS + (luma * PSY_FLOPS if scan.psy_rdoq > 0
                                       else 0)
         t_ops = max(t_ops, flops / FP32_FLOPS_PER_S)
@@ -437,55 +460,25 @@ def k1_inputs(dev, bd=8, mode=None, log2_ctb=6):
     (``smoke_config.plant_level_8192``); "nr": with noise reduction, seeded
     offsets (some zero, DC zero).  Returns ``(scan, li, n_real, go)``: the
     busiest wavefront level ``li`` with its ``n_real`` real lanes, and
-    ``go(cfg, route, frames=1)`` that runs the whole scan (62 levels at CTB
-    64, 126 at 32, 254 at 16; decide32 where the CTB has 32x32 quads, as
-    the pipelines run it), ``cfg`` "I" or "P", ``route`` "kernel" or
-    "plain", of one frame or of ``frames`` frames batched (2 as a B
-    mini-GOP batches them, 8 as a GOP-parallel round does; frame k from
-    seed k + 1)."""
+    ``go(cfg, route, frames=1, rqt=False)`` that runs the whole scan (62
+    levels at CTB 64, 126 at 32, 254 at 16; decide32 where the CTB has
+    32x32 quads, as the pipelines run it), ``cfg`` "I" or "P", ``route``
+    "kernel" or "plain", of one frame or of ``frames`` frames batched (2 as
+    a B mini-GOP batches them, 8 as a GOP-parallel round does; frame k from
+    seed k + 1, ``smoke_config.scan_frame``), ``rqt`` with the inter RQT
+    split."""
     import numpy as np
     import torch
     from x265_tpu_torch.common.geometry import PictureGeometry
     from x265_tpu_torch.encoder.ctu_scan import NR_CATS, CtuScan
-    from x265_tpu_torch.smoke_config import plant_level_8192
+    from x265_tpu_torch.smoke_config import plant_level_8192, scan_frame
 
     g = PictureGeometry(1920, 1088, log2_ctb, 3)
-    ph, pw = g.ctbs_h << log2_ctb, g.ctbs_w << log2_ctb
-    b16, b32, nctb = (ph // 16) * (pw // 16), (ph // 32) * (pw // 32), \
-        g.n_ctbs
-
-    def T(a):
-        return torch.as_tensor(a).to(dev)
-
-    hi, dt = 1 << bd, np.uint8 if bd == 8 else np.uint16
-
-    def smp(rng, shape, dtype):
-        a = rng.randint(0, hi, shape)
-        if bd != 8:                   # the clamps: bands at 0 and 2^bd - 1
-            w = shape[-1]
-            a[..., :w // 8] = 0
-            a[..., w // 2:w // 2 + w // 8] = hi - 1
-        return a.astype(dtype)
+    nctb = g.n_ctbs
 
     def frame(seed):
-        rng = np.random.RandomState(seed)
-        x = dict(
-            oy=T(smp(rng, (ph, pw), dt)),
-            ocb=T(smp(rng, (ph // 2, pw // 2), dt)),
-            ocr=T(smp(rng, (ph // 2, pw // 2), dt)),
-            qp=T((rng.randint(24, 40, nctb) + 6 * (bd - 8)).astype(
-                np.int32)),
-            lam=T((0.85 * 2.0 ** (rng.randint(24, 40, nctb) / 3.0 - 4.0)
-                   ).astype(np.float32)),
-            modes=T(rng.randint(0, 35, b16).astype(np.int32)),
-            mode32=T(rng.randint(0, 35, b32).astype(np.int32)),
-            use32=torch.zeros((b32,), dtype=torch.bool, device=dev),
-            is_inter=T(rng.rand(b16) < 0.7),
-            ipred_y=T(smp(rng, (b16, 16, 16), np.int32)),
-            ipred_cb=T(smp(rng, (b16, 8, 8), np.int32)),
-            ipred_cr=T(smp(rng, (b16, 8, 8), np.int32)),
-            m32_in=T(rng.rand(b32) < 0.4))
-        return x
+        return {k: torch.as_tensor(v).to(dev)
+                for k, v in scan_frame(seed, bd, log2_ctb).items()}
 
     scan = CtuScan(g, bit_depth=bd, sign_hide=True,
                    strong_intra_smoothing=True, psy_rd=2.0,
@@ -521,10 +514,10 @@ def k1_inputs(dev, bd=8, mode=None, log2_ctb=6):
                 v[0] = 0
                 nr_offsets[cat + sfx] = v.astype(np.int32)
 
-    def go(cfg, route, frames=1):
+    def go(cfg, route, frames=1, rqt=False):
         x = one if frames == 1 else batch(frames)
         fn = scan.scan_fn(inter=cfg == "P", decide32=scan.t["has32"],
-                          allow_kernel=route == "kernel")
+                          rqt=rqt, allow_kernel=route == "kernel")
         return fn(x["oy"], x["ocb"], x["ocr"], x["modes"], x["mode32"],
                   x["use32"], x["qp"], x["qp"], x["qp"], lam=x["lam"],
                   nr_offsets=nr_offsets,
@@ -642,6 +635,86 @@ def check_k1(dev, lib, bd=8, mode=None, log2_ctb=6, cfgs=("I", "P"),
                         F2=rs[1] if batched else None,
                         F8=rs[-1] if f8 else None, level=li, n_levels=nl)
     return res
+
+
+#: the RQT checks of phase 2: (log2 CTB, bit depth, mode)
+RQT_CASES = ((6, 8, None), (5, 8, None), (4, 8, None), (6, 10, None),
+             (5, 10, None), (4, 10, None), (6, 8, "rdoq"))
+
+
+def check_k1_rqt(dev, lib):
+    """Phase 2, K1's RQT path: the whole 1080p P scan (``k1_inputs``,
+    decide32 where the CTB has quads, psy-rd 2.0, sign hiding) with the
+    inter RQT split, through K1 (the launch counts zeroed before it and
+    read after: every launch on the RQT path) and through the plain step,
+    every output equal, ``tu8`` included, at each of ``RQT_CASES``; at CTB
+    64 and 8 bits the outputs' MD5s equal to golden_1080p_rqt.json (the
+    reference's own scan) and the busiest level alone at F = 1 and 2: one
+    launch against one plain step, its time, the plain step's and the
+    bound.  Returns the RQT launches and the records."""
+    import torch
+    from x265_tpu_torch.encoder import ctu_scan_cuda
+    from x265_tpu_torch.smoke_config import scan_digests
+
+    golden = _golden("rqt")
+    res, launches = {}, 0
+    for log2, bd, mode in RQT_CASES:
+        scan, li, n_real, run = k1_inputs(dev, bd, mode, log2)
+        nl = scan.t["n_levels"]
+        tag = (f"K1 RQT {bd}-bit" + _ctb_tag(log2)
+               + (f" {mode}" if mode else ""))
+        _zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out_k = run("P", "kernel", rqt=True)
+        torch.cuda.synchronize()
+        scan_ms = 1e3 * (time.perf_counter() - t0)
+        n_rqt, n_all = ctu_scan_cuda.LAUNCHES_RQT, ctu_scan_cuda.LAUNCHES
+        launches += n_rqt
+        t0 = time.perf_counter()
+        out_p = run("P", "plain", rqt=True)
+        torch.cuda.synchronize()
+        plain_ms = 1e3 * (time.perf_counter() - t0)
+        err = _max_abs_err(out_k, out_p)
+        if err != 0.0:
+            _report_diff(f"{tag} scan", out_k, out_p)
+        split, n16 = int(out_k[10].sum()), int(out_p[10].numel())
+        print(f"{tag} P: {nl}-level scan {scan_ms:.1f} ms kernel (wall), "
+              f"{plain_ms:.1f} ms plain; blocks split {split} of {n16}; "
+              f"launches {n_all}, on the RQT path {n_rqt}; max_abs_err "
+              f"{err}", flush=True)
+        if err != 0.0 or n_rqt != nl or n_all != nl or split == 0:
+            raise AssertionError(f"{tag}: K1 differs from the plain step, "
+                                 "or did not run the split")
+        r = dict(err=err, split=split, scan_ms=scan_ms)
+        if (log2, bd, mode) == (6, 8, None):
+            got = scan_digests([None if o is None else o.cpu()
+                                for o in out_k[:11]], bd)
+            bad = sorted(k for k, v in golden["digests"].items()
+                         if got.get(k) != v)
+            print(f"{tag}: output MD5s against golden_1080p_rqt.json: "
+                  f"{'equal' if not bad else 'differ in ' + str(bad)} "
+                  f"(golden blocks split {golden['split_blocks']})",
+                  flush=True)
+            if bad or split != golden["split_blocks"]:
+                raise AssertionError(f"{tag}: the scan differs from "
+                                     "x265_tpu's golden")
+            for frames in (1, 2):
+                lv = _k1_level(lib, scan, li, True,
+                               lambda f=frames: run("P", "kernel", f,
+                                                    rqt=True),
+                               f"{tag} P F={frames} level")
+                print(f"{tag} P: level {li} (F = {lv['F']}, L = {lv['L']}, "
+                      f"{lv['F'] * n_real} real lanes): {lv['ms']:.4f} ms "
+                      f"per launch, plain step {lv['plain_ms']:.3f} ms, "
+                      f"bound {lv['bound_ms']:.5f} ms ({lv['bound_by']}), "
+                      f"max_abs_err {lv['err']}", flush=True)
+                if lv["err"] != 0.0:
+                    raise AssertionError(f"{tag}: the level differs from "
+                                         "the plain step")
+                r[f"F{frames}"] = lv
+        res[log2, bd, mode] = r
+    return launches, res
 
 
 def k2_inputs(kind, B, mrq, seed, bd=8):
@@ -1480,8 +1553,8 @@ def check_gop_parallel(dev, smi, ippp_fps):
     order) equal to ``golden_1080p_gop_parallel.json`` (the reference's
     own GOP-parallel encode), K1 one launch a level of a round (62 at
     1080p), all at F = 8, and K2 one a reference slot of a P round (3),
-    all over 8 x 8160 blocks.  Returns the K1 and K2 launches and the
-    fps."""
+    all over 8 x 8160 blocks.  Returns the K1 and K2 launches, the fps and
+    the round walls."""
     import torch
     from x265_tpu_torch import Params
     from x265_tpu_torch import smoke_config as sc
@@ -1542,6 +1615,96 @@ def check_gop_parallel(dev, smi, ippp_fps):
             or k2.LAUNCHES_BLOCKS != w2 * G * nb or len(rounds) != n):
         raise AssertionError("the GOP-parallel slice did not run through "
                              "K1/K2 as expected")
+    print(f"  md5 {md5} (golden {golden['md5']})", flush=True)
+    return n1, n2, fps, rounds
+
+
+def check_gop_parallel_sharded(smi, one_fps, one_rounds):
+    """Phase 17, sharded: the gop_parallel slice as D shards of 8 / D GOPs
+    (``encode_gop_parallel(..., devices=...)``), one a card when the machine
+    has two or more (D = their count, 8 / D a whole number), else two on
+    cuda:0, each shard on its own host thread and CUDA stream; a warm and a
+    timed encode.  The stream equal to golden_1080p_gop_parallel.json, K1
+    62 x 3 x D launches over 8 frames' lanes in all (8 / D each), K2 3 x 2
+    x D over 8 x 8160 blocks in all.  Prints the layout, the fps and each
+    shard's round walls beside the one-device run's.  Returns the K1 and
+    K2 launches and the fps."""
+    import threading
+
+    import torch
+    from x265_tpu_torch import Params
+    from x265_tpu_torch import smoke_config as sc
+    from x265_tpu_torch.encoder import ctu_scan_cuda, intra_encoder, me_cuda
+    from x265_tpu_torch.parallel import encode_gop_parallel
+
+    golden = _golden("gop_parallel")
+    frames = sc.smoke_frames_gop_parallel()
+    params = Params(**sc.smoke_params_gop_parallel())
+    G, n = sc.GOPS, sc.GOP_SIZE
+    count = torch.cuda.device_count()
+    D = max(d for d in range(1, count + 1) if G % d == 0)
+    if D >= 2:
+        devices = [torch.device(f"cuda:{i}") for i in range(D)]
+        layout = f"{D} shards, one a card"
+    else:
+        devices = [torch.device("cuda:0")] * 2
+        layout = "2 shards on cuda:0, each its own stream and thread"
+    D = len(devices)
+    encode_gop_parallel(frames, params, G, devices=devices)      # warm
+    # each shard's rounds start at its first GOP's dispatch, on its thread
+    starts = {}
+    real = intra_encoder.Encoder._dispatch_one
+
+    def dispatch(self, *a, **k):
+        if k.get("defer_all"):
+            starts.setdefault(threading.get_ident(), []).append(
+                time.perf_counter())
+        return real(self, *a, **k)
+
+    log, holder, unwrap = _record_finishes()
+    intra_encoder.Encoder._dispatch_one = dispatch
+    _zero_counts()
+    for d in devices:
+        torch.cuda.synchronize(d)
+    try:
+        t0 = time.perf_counter()
+        stream = encode_gop_parallel(frames, params, G, devices=devices)
+        for d in devices:
+            torch.cuda.synchronize(d)
+        t1 = time.perf_counter()
+    finally:
+        unwrap()
+        intra_encoder.Encoder._dispatch_one = real
+    wall = t1 - t0
+    per = G // D
+    rounds = [[round(b - a, 3) for a, b in zip(v[::per], v[per::per] + [t1])]
+              for v in starts.values()]
+    k1, k2 = ctu_scan_cuda, me_cuda
+    n1, n2 = k1.LAUNCHES, k2.LAUNCHES
+    fps = len(frames) / wall
+    enc = holder["enc"]
+    g = enc.geom
+    levels = enc._get_ctu_scan().t["n_levels"]
+    nb = (g.ctbs_h * g.ctbs_w) << 2 * (g.log2_ctb - 4)
+    w1, w2 = levels * n * D, enc.num_ref * (n - 1) * D
+    print(f"slice 1080p GOP-parallel sharded ({layout}: {per} GOPs a shard) "
+          f"on {smi}: {len(stream)} bytes, {len(frames)} frames in "
+          f"{wall:.3f} s, {fps:.3f} fps (one device {one_fps:.3f} fps); "
+          f"round walls by shard {rounds} s (one device "
+          f"{[round(x, 3) for x in one_rounds]} s)", flush=True)
+    blocks = enc.num_ref * (n - 1) * G * nb
+    print(f"launches: K1 {n1} (want {w1}; {k1.LAUNCHES_FRAMES} "
+          f"frame-launches, want {levels * n * G}), K2 {n2} (want {w2}; "
+          f"{k2.LAUNCHES_BLOCKS} blocks, want {blocks})", flush=True)
+    # the shards' threads finish their frames in any order: the golden's
+    # round order is every GOP's POC 0, then 1, then 2
+    md5 = _check_golden("GOP-parallel sharded", stream,
+                        sorted(log, key=lambda ef: ef.poc), golden)
+    if (n1 != w1 or k1.LAUNCHES_FRAMES != levels * n * G or n2 != w2
+            or k2.LAUNCHES_BLOCKS != blocks or len(rounds) != D
+            or any(len(r) != n for r in rounds)):
+        raise AssertionError("the sharded GOP-parallel slice did not run "
+                             "through K1/K2 as expected")
     print(f"  md5 {md5} (golden {golden['md5']})", flush=True)
     return n1, n2, fps
 
@@ -1748,7 +1911,8 @@ def main():
     srcs = [os.path.basename(x) for x in build._sources()]
     print(f"kernel build: {time.time() - t0:.1f} s (nvcc sm_90a, one "
           f"process per source, in parallel: {', '.join(srcs)}; K1 "
-          f"instantiations: 3 CTB sizes x 2 bit depths x 4 modes), K1 "
+          f"instantiations: 3 CTB sizes x 2 bit depths x 8 modes: RDOQ, NR "
+          f"and the RQT split on or off), K1 "
           f"shared memory {lib.k1_smem_bytes()} B", flush=True)
     for line in _ptxas_summary(build.BUILD_LOG):
         print("ptxas:", line, flush=True)
@@ -1766,6 +1930,9 @@ def main():
                               batched=False)
     kc[5, "rdoq"] = check_k1(dev, lib, mode="rdoq", log2_ctb=5, cfgs=("P",),
                              batched=False)
+    # K1's RQT path: the whole P scan at CTB 64 / 32 / 16, 8 and 10 bits,
+    # RDOQ; the golden; the busiest level's launch at F = 1 and 2
+    n_rqt, krqt = check_k1_rqt(dev, lib)
     k2 = check_k2(dev, lib, gops=8)
     k2_10 = check_k2(dev, lib, 10)
 
@@ -1840,7 +2007,8 @@ def main():
     check_lossless(smi)
     # phase 17: GOP-parallel, 8 closed GOPs a round; phase 18: the
     # wavefront intra recon
-    n1g, n2g, _fps = check_gop_parallel(dev, smi, fps)
+    n1g, n2g, gfps, grounds = check_gop_parallel(dev, smi, fps)
+    n1d, n2d, _fps = check_gop_parallel_sharded(smi, gfps, grounds)
     check_wavefront(dev, smi)
     # phase 19: the decoder on the card (the bench, Main10 bench and intra16
     # streams; the intra16 stream encoded first)
@@ -1871,12 +2039,20 @@ def main():
                 err_m = max(err_m, w["err"])
             if v["scan_ms"] is not None:
                 extra[f"scan_ms_ctb{1 << lg}_{cfg}{sfx}"] = v["scan_ms"]
+    rq = krqt[6, 8, None]
+    for f in ("F1", "F2"):
+        sfx = "" if f == "F1" else "_F2"
+        for key in ("ms", "plain_ms", "bound_ms", "bound_by"):
+            extra[f"{key}_rqt{sfx}_P"] = rq[f][key]
+        err_m = max(err_m, rq[f]["err"])
+    err_m = max([err_m] + [r["err"] for r in krqt.values()])
     print(json.dumps({"kernels": [
         dict(name="K1 ctu_step", route="cuda",
              source="x265_tpu_torch/csrc/k1_ctu_step.cu",
              replaces="x265_tpu/encoder/ctu_scan_pallas.py:72",
              launches=(n1 + n1b + n1s + n1m + n1w + n1n + n1f + n1u + n1c
-                       + n1x + n1v + n1t + n1g + n1i),
+                       + n1x + n1v + n1t + n1g + n1i + n_rqt + n1d),
+             launches_rqt=n_rqt, launches_gop_parallel_sharded=n1d,
              max_abs_err=max(
                  k1["I"]["err"], kp["err"], kp["F2"]["err"],
                  k1["I"]["F2"]["err"], kp["F8"]["err"], k1["I"]["F8"]["err"],
@@ -1910,8 +2086,9 @@ def main():
              source="x265_tpu_torch/csrc/k2_subpel_refine.cu",
              replaces="x265_tpu/encoder/me_pallas.py:71",
              launches=(n2 + n2b + n2s + n2m + n2w + n2n + n2f + n2u + n2c
-                       + n2x + n2v + n2t + n2g),
-             launches_gop_parallel=n2g, ms_F8=k2["F8"]["ms"],
+                       + n2x + n2v + n2t + n2g + n2d),
+             launches_gop_parallel=n2g, launches_gop_parallel_sharded=n2d,
+             ms_F8=k2["F8"]["ms"],
              plain_ms_F8=k2["F8"]["plain_ms"],
              bound_ms_F8=k2["F8"]["bound_ms"],
              bound_by_F8=k2["F8"]["bound_by"],

@@ -149,11 +149,14 @@ def test_cpu_tensors_take_the_plain_step():
     scan = CtuScan(g, bit_depth=8, sign_hide=True,
                    strong_intra_smoothing=True, psy_rd=2.0)
     n0 = ctu_scan_cuda.LAUNCHES
-    _run(scan, torch, x, "I", True)
+    want = _run(scan, torch, x, "I", True)
     assert ctu_scan_cuda.LAUNCHES == n0
-    # RDOQ and noise reduction are ported; the RQT split is not
-    with pytest.raises(NotImplementedError):
-        CtuScan(g, bit_depth=8, rdoq=True).scan_fn(inter=True, rqt=True)
+    # the RQT split is an inter candidate: an intra scan with it codes no
+    # block with the split and gives the same outputs
+    got = _call(scan.scan_fn(inter=False, decide32=True, rqt=True), torch,
+                x, "I", True)
+    assert not got[10].any()
+    _assert_same(want, got)
 
 
 def _run_batch(scan, xs, cfg, decide):

@@ -241,5 +241,5 @@ def test_k1_takes_every_ctb_size():
             ctu_scan_cuda.kernel_args(_scan(log2, 12), False, True, None, {
                 "cx": torch.zeros(1, dtype=torch.int32)})
     lib = load_host_library()
-    assert lib.k1_ctu_step(None, 49, 1, 1, 1, 1, 8, 0, 0.0, None) == -2
+    assert lib.k1_ctu_step(None, 51, 1, 1, 1, 1, 8, 0, 0.0, None) == -2
     assert b"CTB size" in lib.k_error_string(-2)

@@ -12,15 +12,22 @@ CPU.
   GOPs: the stream byte-identical to x265_tpu's sequential
   ``encode_sequence`` (which test_multichip.py holds the reference's own
   GOP-parallel stream to), decoding with matching hashes in x265_tpu's
-  decoder.
+  decoder; the same over two shards (``devices=["cpu", "cpu"]``, each on
+  its own host thread), against the same reference stream.
+* A shard that raises makes ``encode`` raise; threads launching K1's host
+  build side by side count every launch.
 * ABR, three GOPs of three frames at 64x48 (test_multichip.py's ABR
   case): each GOP's stream equal to the port's sequential Encoder on that
   GOP alone.
 * The refusals: B frames, GOPs of unequal length, a frame count that does
-  not split.
+  not split, GOPs that do not split over the devices.
 """
 
 import dataclasses
+import functools
+import os
+import sys
+import threading
 
 import numpy as np
 import pytest
@@ -219,13 +226,20 @@ def test_k1_source_eight_frames(monkeypatch, cfg):
             assert (a is None and b is None) or np.array_equal(a, b)
 
 
+@functools.lru_cache(maxsize=None)
+def _ref_sequential():
+    """x265_tpu's sequential stream of the 8 frames at keyint 2 (traced
+    once for the module)."""
+    want, _ = ref_encode_sequence(_mc_frames(8),
+                                  _mc_params(RefParams, keyint_max=2))
+    return want
+
+
 def test_cqp_equals_reference_sequential():
     frames = _mc_frames(8)
     stream = encode_gop_parallel(frames, _mc_params(Params, keyint_max=2), 4,
                                  device="cpu")
-    want, _ = ref_encode_sequence(frames, _mc_params(RefParams,
-                                                     keyint_max=2))
-    assert stream == want
+    assert stream == _ref_sequential()
     pics = decode_annexb(stream)
     assert len(pics) == 8 and all(p.hash_ok for p in pics)
 
@@ -270,3 +284,90 @@ def test_refusals():
         enc.encode([frames[:2]])
     with pytest.raises(ValueError, match="equal GOPs"):
         encode_gop_parallel(frames[:5], _mc_params(Params), 2, device="cpu")
+
+
+def test_cqp_two_shards_equals_reference_sequential():
+    """Four GOPs of two over two shards (two GOPs each, one host thread
+    each) equal the reference's sequential stream."""
+    frames = _mc_frames(8)
+    enc = GopParallelEncoder(_mc_params(Params, keyint_max=2), 4,
+                             devices=["cpu", "cpu"])
+    assert [len(sh.encoders) for sh in enc.shards] == [2, 2]
+    stream = encode_gop_parallel(frames, _mc_params(Params, keyint_max=2), 4,
+                                 devices=["cpu", "cpu"])
+    assert stream == _ref_sequential()
+    pics = decode_annexb(stream)
+    assert len(pics) == 8 and all(p.hash_ok for p in pics)
+
+
+def test_shard_exception_raises_from_encode():
+    """A shard that fails makes ``encode`` raise its exception, after the
+    other shard has run."""
+    enc = GopParallelEncoder(_mc_params(Params), 4, devices=["cpu", "cpu"])
+    ran = []
+
+    def ok(gops):
+        ran.append(len(gops))
+        return [b"", b""]
+
+    def fail(gops):
+        raise RuntimeError("shard 1 failed")
+
+    enc.shards[0].encode_on_stream = ok
+    enc.shards[1].encode_on_stream = fail
+    frames = _mc_frames(8)
+    with pytest.raises(RuntimeError, match="shard 1 failed"):
+        enc.encode([frames[2 * k:2 * k + 2] for k in range(4)])
+    assert ran == [2]
+
+
+def test_refuses_gops_that_do_not_split_over_devices():
+    with pytest.raises(ValueError, match="equal shards"):
+        GopParallelEncoder(_mc_params(Params), 3, devices=["cpu", "cpu"])
+    with pytest.raises(ValueError, match="equal shards"):
+        GopParallelEncoder(_mc_params(Params), 2, devices=[])
+
+
+def test_k1_launches_from_threads_count_exactly(monkeypatch):
+    """More threads than cores, each scanning a frame twice through
+    K1's host build (ctypes releases the interpreter lock, so the launches
+    overlap), with a short switch interval: every launch is counted (the
+    counts are bumped under a lock) and every scan equals the plain step."""
+    from test_torch_ctu_scan import _inputs as scan_inputs
+    from test_torch_ctu_scan import _run
+
+    lib = load_host_library()
+    g = scan_inputs()[0]
+    scan = CtuScan(g, bit_depth=8, sign_hide=True,
+                   strong_intra_smoothing=True, psy_rd=2.0)
+    xs = [scan_inputs(seed=30 + k)[1] for k in range(2)]
+    want = [_run(scan, torch, x, "P", True) for x in xs]
+    monkeypatch.setattr(
+        ctu_scan_cuda, "ctu_step",
+        lambda s, inter, d, carry, x, plain: ctu_scan_cuda.launch(
+            lib, s, inter, d, carry, x))
+    n0, f0 = ctu_scan_cuda.LAUNCHES, ctu_scan_cuda.LAUNCHES_FRAMES
+    T, reps = (os.cpu_count() or 1) + 2, 2
+    got = [None] * T
+
+    def work(k):
+        for _ in range(reps):
+            got[k] = _run(scan, torch, xs[k % 2], "P", True)
+
+    threads = [threading.Thread(target=work, args=(k,)) for k in range(T)]
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    levels = scan.t["n_levels"]
+    assert ctu_scan_cuda.LAUNCHES - n0 == T * reps * levels
+    assert ctu_scan_cuda.LAUNCHES_FRAMES - f0 == T * reps * levels
+    for k, gg in enumerate(got):
+        for a, b in zip(want[k % 2], gg):
+            assert (a is None and b is None) or np.array_equal(a, b)

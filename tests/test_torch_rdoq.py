@@ -3,7 +3,7 @@ CPU, against x265_tpu (jnp) and, for K1, against the port's plain step.
 
 * The float tables (lambda2 / lambda_sad per QP 0..63, the rate term per
   level 0..32767) equal XLA's values over their whole range.
-* ``_rdoq_core`` equals the reference's at n = 8, 16, 32, bit depths 8
+* ``_rdoq_core`` equals the reference's at n = 4, 8, 16, 32, bit depths 8
   and 10, psy-RDOQ off and on, with a QP per block over 0..51 (0..63 at
   10 bits) and with scalar QPs; a block whose DC level is 8192 (the rate
   table's odd entry) is among the inputs.
@@ -90,7 +90,7 @@ def _coefs(rng, b, n, bd):
 
 
 @pytest.mark.parametrize("bd", [8, 10])
-@pytest.mark.parametrize("n", [8, 16, 32])
+@pytest.mark.parametrize("n", [4, 8, 16, 32])
 @pytest.mark.parametrize("psy", [0.0, 1.0])
 def test_rdoq_core_matches_reference(n, bd, psy):
     rng = np.random.RandomState(n * 10 + bd + int(psy))

@@ -49,6 +49,13 @@ size, the size of each access unit and the encode-order POCs go to
   reference ``WavefrontIntraRecon``'s recon plane and levels on
   ``smoke_wavefront_inputs`` (luma 16x16 and Cb 8x8 blocks at
   1920x1088);
+* ``x265_tpu_torch/data/golden_1080p_rqt.json``: the MD5s of the outputs
+  (``smoke_config.scan_digests``) of the reference ``CtuScan``'s P scan
+  with the inter RQT split (``scan_fn(inter=True, decide32=True,
+  rqt=True)``, psy-rd 2.0, sign hiding, strong intra smoothing, 8 bits,
+  CTB 64) on ``smoke_config.scan_frame(1)`` (1920x1088 seeded inputs,
+  ``chip_smoke.k1_inputs``' first frame), and the number of blocks coded
+  with the split (``rqt``: ~4 min, ~3 GB);
 * ``x265_tpu_torch/data/golden_1080p_decode.json``: the reference's
   decoder (``x265_tpu.decoder.decode_annexb``) on the reference's own
   streams of the bench slice, the Main10 bench slice (each checked
@@ -64,10 +71,9 @@ POCs and kinds (from the reference's ``Encoder._finish_one``).
     JAX_PLATFORMS=cpu python tools/make_golden.py [ippp] [b] [bench] \
         [bench10] [slow] [nr] [superfast] [ultrafast] [ctu16] [crf_cli] \
         [abr_vbv_hrd] [twopass] [lossless] \
+        [gop_parallel] [wavefront] [decode] [rqt]
 
-        [gop_parallel] [wavefront] [decode]
-
-With no argument it writes all sixteen.
+With no argument it writes all seventeen.
 """
 
 import hashlib
@@ -389,6 +395,38 @@ def wavefront():
     print(json.dumps(out))
 
 
+def rqt():
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    from x265_tpu.common.geometry import PictureGeometry
+    from x265_tpu.encoder.ctu_scan import CtuScan
+    from x265_tpu_torch import smoke_config as sc
+
+    opts = dict(bit_depth=8, sign_hide=True, strong_intra_smoothing=True,
+                psy_rd=2.0)
+    scan = CtuScan(PictureGeometry(1920, 1088, 6, 3), **opts)
+    fn = jax.jit(scan.scan_fn(inter=True, decide32=True, rqt=True))
+    x = {k: jnp.asarray(v) for k, v in sc.scan_frame(1).items()}
+    outs = fn(x["oy"], x["ocb"], x["ocr"], x["modes"], x["mode32"],
+              x["use32"], x["qp"], x["qp"], x["qp"], lam=x["lam"],
+              is_inter=x["is_inter"], ipred_y=x["ipred_y"],
+              ipred_cb=x["ipred_cb"], ipred_cr=x["ipred_cr"],
+              m32_in=x["m32_in"])
+    outs = [None if o is None else np.asarray(o) for o in outs[:11]]
+    out = dict(inputs="smoke_config.scan_frame(1): 1920x1088, CTB 64",
+               options=dict(opts, inter=True, decide32=True, rqt=True),
+               digests=sc.scan_digests(outs),
+               split_blocks=int(outs[10].sum()),
+               inter_blocks=int(np.asarray(x["is_inter"]).sum()),
+               made_by="x265_tpu on the CPU (tools/make_golden.py)")
+    with open(os.path.join(DATA, "golden_1080p_rqt.json"), "w") as f:
+        json.dump(out, f, indent=1)
+        f.write("\n")
+    print(json.dumps(out))
+
+
 def _decode_record(stream):
     import time
 
@@ -451,7 +489,7 @@ if __name__ == "__main__":
     which = sys.argv[1:] or ["ippp", "b", "bench", "bench10", "slow", "nr",
                              "superfast", "ultrafast", "ctu16", "crf_cli",
                              "abr_vbv_hrd", "twopass", "lossless",
-                             "gop_parallel", "wavefront", "decode"]
+                             "gop_parallel", "wavefront", "decode", "rqt"]
     if "gop_parallel" in which:
         # the reference shards the GOPs over a mesh: one virtual CPU
         # device per GOP, set before JAX starts
@@ -467,4 +505,4 @@ if __name__ == "__main__":
              ultrafast=lambda: _preset("ultrafast"), ctu16=ctu16,
              crf_cli=crf_cli, abr_vbv_hrd=abr_vbv_hrd, twopass=twopass,
              lossless=lossless, gop_parallel=gop_parallel,
-             wavefront=wavefront, decode=decode)[name]()
+             wavefront=wavefront, decode=decode, rqt=rqt)[name]()

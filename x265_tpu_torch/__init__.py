@@ -6,15 +6,17 @@ for the two hot loops that were Pallas kernels in ``x265_tpu``:
 
   * K1, the CTU-wavefront step (``encoder/ctu_scan_cuda.py``,
     ``csrc/k1_ctu_step.cuh``, instantiated per CTB size in
-    ``csrc/k1_ctu_step.cu``, ``k1_ctb32.cu``, ``k1_ctb16.cu``), one launch
-    per wavefront level;
+    ``csrc/k1_ctu_step.cu``, ``k1_ctb32.cu``, ``k1_ctb16.cu`` and, with the
+    inter RQT split, ``k1_rqt_ctb{64,32,16}.cu``), one launch per
+    wavefront level;
   * K2, the subpel motion refine (``encoder/me_cuda.py``,
     ``csrc/k2_subpel_refine.cu``), one launch per reference.
 
 Layout mirrors ``x265_tpu`` (``ops/``, ``encoder/``, ``decoder/``,
 ``common/``, ``cabac/``, ``native/``, ``io/``, ``parallel/``, ``tools/``,
 ``api.py``, ``cli.py``) with the same module and function names; ``parallel``'s
-GOP-parallel encoder batches G GOPs' frames on one card where the
+GOP-parallel encoder batches G GOPs' frames on one card, or G / D on each
+of D devices (``devices=``, one host thread and stream a shard), where the
 reference shards them over a mesh.  The port stands on its own: it imports
 nothing of ``x265_tpu``.  The host modules it needs (params with
 ``param_parse``, geometry, headers, SEI with the HRD's messages, level,

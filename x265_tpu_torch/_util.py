@@ -1,21 +1,38 @@
-"""Small shared helpers: exact float32 fused multiply-add, table caches and
-the device dtype of picture samples."""
+"""Small shared helpers: exact float32 fused multiply-add, table caches,
+the current-device context of the kernels' launches and the device dtype
+of picture samples."""
 
 from __future__ import annotations
+
+import contextlib
+import threading
 
 import numpy as np
 import torch
 
 _TABLE_CACHE: dict = {}
+_TABLE_LOCK = threading.Lock()
 
 
 def dev_table(key, make, device) -> torch.Tensor:
-    """A constant table built by ``make()`` (numpy), cached per device."""
+    """A constant table built by ``make()`` (numpy), cached per device
+    (filled under a lock: threads driving several devices share it)."""
     k = (key, str(device))
     t = _TABLE_CACHE.get(k)
     if t is None:
-        t = _TABLE_CACHE[k] = torch.as_tensor(make()).to(device)
+        with _TABLE_LOCK:
+            t = _TABLE_CACHE.get(k)
+            if t is None:
+                t = _TABLE_CACHE[k] = torch.as_tensor(make()).to(device)
     return t
+
+
+def on_device(dev):
+    """The context that makes ``dev`` the calling thread's current CUDA
+    device (nothing for a CPU device): a kernel launched through ctypes
+    goes to the current device, whichever device its tensors are on."""
+    return (torch.cuda.device(dev) if dev.type == "cuda"
+            else contextlib.nullcontext())
 
 
 def fma32(a, b, c) -> torch.Tensor:

@@ -5,5 +5,5 @@
 #include "k1_ctu_step.cuh"
 
 int k1_run_ctb16(const K1Args& a, void* stream) {
-  return k1_run<16>(a, stream);
+  return k1_run<16, 0>(a, stream);
 }

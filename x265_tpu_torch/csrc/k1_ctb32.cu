@@ -5,5 +5,5 @@
 #include "k1_ctu_step.cuh"
 
 int k1_run_ctb32(const K1Args& a, void* stream) {
-  return k1_run<32>(a, stream);
+  return k1_run<32, 0>(a, stream);
 }

@@ -102,6 +102,20 @@
 // every size (one block an SM whatever it asks for: a level has at most
 // 60 lanes of a frame, at CTB 16).  Eight instantiations per CTB size,
 // each size in its own source file so that the three build in parallel.
+//   The inter RQT split candidate (K1_RQT, the fourth MODE bit; its eight
+// instantiations per CTB size in k1_rqt_ctb{64,32,16}.cu): after an inter
+// slot's TU16 chain, its depth-1 split runs as four chains of one 8x8 luma
+// and two 4x4 chroma blocks each (k1_chain<3>: the same passes, T4 for the
+// chroma transforms, RDOQ over the sub-blocks but no noise reduction, as
+// the plain step's sub-TUs), one after another on the slots' team; then
+// the psy terms of both recons (8 tiles), one thread's joint RD compare in
+// the plain step's order (c16 = SSD + lam * bits, c8 the same + 9 bits of
+// overhead, each + plam * psy, all fused as there), and the winner's recon,
+// levels and RD sums (which the 32-vs-16 decision reads) replace the
+// slot's.  Its state sits after the RDOQ scratch, so the other modes'
+// layout and code are what they were: the plain kernels ask for the first
+// 147808 bytes of K1Smem, the RDOQ / NR ones for 181720, the RQT ones for
+// all of it, 188000 (of the 232448 a block may have).
 
 #pragma once
 
@@ -115,6 +129,7 @@
 #define K1_BD10 32
 #define K1_RDOQ 64
 #define K1_NR 128
+#define K1_RQT 256
 
 #define K1_THREADS 768
 #define K1_MAXWARPS (K1_THREADS / 32)
@@ -158,6 +173,8 @@ struct K1Args {
   const u8 *use32, *inter;
   const int *ipy, *ipc;
   const u8* m32in;
+  const u8* rqt_ok;  // RQT: the slots that may split [L][ns]
+  int* tu8;          // RQT: the slots coded with the split [ns][L]
   const int *rowf, *colf, *rowfb, *colfb, *rowfr, *colfr;
   int *cornf, *cornfb, *cornfr;
   int *lv16, *lv8, *lv32, *lvc16, *sel32, *int_y, *int_c;
@@ -223,7 +240,8 @@ struct K1Smem {
   short r[3][132], rf[3][132], r32[3][132], rf32[3][132];
   int dc[3], dc32[3];
   // the chains' int16 work buffers (layouts in k1_chain): the slots' and
-  // the trial's, the 32x32 candidate's
+  // the trial's (the RQT split's four chains at 384..767), the 32x32
+  // candidate's
   alignas(16) short wa[1536];
   alignas(16) short wb[1536];
   alignas(16) short wa32[1536];
@@ -242,6 +260,16 @@ struct K1Smem {
   K1Rdoq rq[2];       // RDOQ scratch of the slots' team (and the trial),
                       // and of the 32x32 candidate's
   float rdlam[3][2];  // lambda2, lambda_sad per plane (y, cb, cr)
+  // RQT only (last): the split candidate of an inter slot, as four chains
+  // [j][luma 8x8 | cb 4x4 | cr 4x4] (j the z-order quadrant)
+  int T4[16];          // the DCT matrix T4 in the four layouts, 4 words each
+  int P8[384], LV8[384];  // the chains' predictions and levels
+  short R8[384];       // their recon: luma 16x16 | cb 8x8 | cr 8x8
+  int part8[4][K1_MAXWARPS][6];  // per chain and warp: SSD y/cb/cr, bits
+  int psy8[8];         // psy of the TU16 recon's 8x8 tiles, then the split's
+  int dqmax2[3];       // k1_dequant_max per plane at 4x4
+  u8 rqok[16];         // the slots that may split
+  int tu8;             // the slot's decision
 };
 
 #if defined(__CUDACC__) && defined(K1_STAGE_CLOCKS)
@@ -294,6 +322,15 @@ KDEV int k1_mod6(int q) { return q - 6 * k1_div6(q); }
 //   3: [k4][m] = T[4 k4 .. 4 k4 + 3][m]   (inverse rows, lane m)
 KDEV int k1_tp(int kind, int lg) {
   return kind * 336 + (lg == 3 ? 0 : (lg == 4 ? 16 : 80));
+}
+// the start of layout `kind` of the 2^lg-point matrix: T8, T16, T32 in Tp,
+// T4 (the RQT chains' chroma) in T4, four words a layout
+template <int lg>
+KDEV const int* k1_tpp(const K1Smem* s, int kind) {
+  if constexpr (lg == 2)
+    return s->T4 + 4 * kind;
+  else
+    return s->Tp + k1_tp(kind, lg);
 }
 
 KDEV bool k1_filter_flag(int mode, int n, bool luma) {
@@ -573,7 +610,7 @@ KDEV int k1_fwd_row(const K1Smem* s, const short* x, int off) {  // [y][k]
   constexpr int n = 1 << lg;
   const int y = off >> lg, k = off & (n - 1);
   const short* d = x + (y << lg);
-  const int* t = s->Tp + k1_tp(0, lg) + k;
+  const int* t = k1_tpp<lg>(s, 0) + k;
   int acc = 0;
   KUNROLL
   for (int m4 = 0; m4 < n / 4; ++m4) {
@@ -587,7 +624,7 @@ template <int lg>
 KDEV int k1_fwd_col(const K1Smem* s, const short* xp, int off) {  // [v][u]
   constexpr int n = 1 << lg;
   const int v = off >> lg, u = off & (n - 1);
-  const int* t = s->Tp + k1_tp(1, lg) + v * (n / 4);
+  const int* t = k1_tpp<lg>(s, 1) + v * (n / 4);
   int acc = 0;
   KUNROLL
   for (int m4 = 0; m4 < n / 4; ++m4) {
@@ -601,7 +638,7 @@ template <int lg>
 KDEV int k1_inv_col(const K1Smem* s, const short* xp, int off) {  // [y][u]
   constexpr int n = 1 << lg;
   const int y = off >> lg, u = off & (n - 1);
-  const int* t = s->Tp + k1_tp(2, lg) + y * (n / 4);
+  const int* t = k1_tpp<lg>(s, 2) + y * (n / 4);
   int acc = 0;
   KUNROLL
   for (int v4 = 0; v4 < n / 4; ++v4) {
@@ -616,7 +653,7 @@ KDEV int k1_inv_row(const K1Smem* s, const short* e, int off) {  // [y][x]
   constexpr int n = 1 << lg;
   const int y = off >> lg, x = off & (n - 1);
   const short* d = e + (y << lg);
-  const int* t = s->Tp + k1_tp(3, lg) + x;
+  const int* t = k1_tpp<lg>(s, 3) + x;
   int acc = 0;
   KUNROLL
   for (int u4 = 0; u4 < n / 4; ++u4) {
@@ -705,6 +742,10 @@ KDEV float k1_group_incl(const float* x, int k) {
 // (warp minimum, then a shared atomic minimum of (cost key, position))
 // (R3), and per group the cut after the last position and the group
 // zeroing (R4): the reference's last-position and group passes.
+//   LG = 3 (the RQT split's chains): the chroma blocks are 4x4, one group
+// each, so a warp holds both (cb in its lower half, cr in its upper): R3
+// takes its minima over half-warps, and a one-group block's total is its
+// group's last prefix sum.
 template <int LG, int BD, int MODE, int OT>
 KDEV void k1_chain(K1Smem* s, const KTeam& t, const K1Chain& c,
                    bool sign_hide, bool rd, int (*part)[6], const K1Args& ka) {
@@ -791,8 +832,13 @@ KDEV void k1_chain(K1Smem* s, const KTeam& t, const K1Chain& c,
         cj = k1_group_incl(rq->gx[0] + g0, k - 1) + cj;
         cd = k1_group_incl(rq->gx[1] + g0, k - 1) + cd;
       }
-      const float td =
-          k1_group_incl(rq->gx[1] + g0, nk - 2) + rq->d0[base + nb * nb - 1];
+      float td;
+      if constexpr (LG == 3)
+        td = nk > 1 ? k1_group_incl(rq->gx[1] + g0, nk - 2) +
+                          rq->d0[base + nb * nb - 1]
+                    : rq->d0[base + nb * nb - 1];
+      else
+        td = k1_group_incl(rq->gx[1] + g0, nk - 2) + rq->d0[base + nb * nb - 1];
       const int pos = rq->sp[e];
       const int x = pos & (nb - 1), y = pos >> lg;
       const float lb = k_i2f(2 * k_msb(x + 1) + 2 * k_msb(y + 1) + 2);
@@ -800,10 +846,17 @@ KDEV void k1_chain(K1Smem* s, const KTeam& t, const K1Chain& c,
       if (c.lv[base + pos] == 0) cost = k_bitsf(0x7f800000u);  // +inf
       if (p == 0) rq->tot[b] = td;
       const unsigned ck = k_fkey(cost);
-      const unsigned kmin = k_warp_min(ck);
-      const unsigned pmin = k_warp_min(ck == kmin ? (unsigned)p : ~0u);
-      if (KLANE == 0)
-        k_atomic_min64(&rq->key[b], ((unsigned long long)kmin << 32) | pmin);
+      if constexpr (LG == 3) {  // 16-element blocks: half-warp minima
+        const unsigned kmin = k_min16(ck);
+        const unsigned pmin = k_min16(ck == kmin ? (unsigned)p : ~0u);
+        if (KLANE16 == 0)
+          k_atomic_min64(&rq->key[b], ((unsigned long long)kmin << 32) | pmin);
+      } else {
+        const unsigned kmin = k_warp_min(ck);
+        const unsigned pmin = k_warp_min(ck == kmin ? (unsigned)p : ~0u);
+        if (KLANE == 0)
+          k_atomic_min64(&rq->key[b], ((unsigned long long)kmin << 32) | pmin);
+      }
     }
     K1_TSYNC(t);
     for (int g = t.tid; g < ng; g += t.nth) {  // R4: per group
@@ -845,8 +898,13 @@ KDEV void k1_chain(K1Smem* s, const KTeam& t, const K1Chain& c,
     const int l = k_sign_hide16(c.lv[base + pos], rank, sign_hide,
                                 c.lv + base + (gy * nb + gx) * 4, nb, &any);
     c.lv[base + pos] = l;
+    int dqm;
+    if constexpr (LG == 3)  // the split's chains: 8x8 luma, 4x4 chroma
+      dqm = lg == 2 ? s->dqmax2[b] : s->dqmax[b][0];
+    else
+      dqm = s->dqmax[b][lg - 3];
     wa[base + k1_ppos(lg, pos >> lg, pos & (nb - 1))] =  // pair layout
-        (short)k1_dequant<BD>(l, k1_pick(c.qp, b), lg, s->dqmax[b][lg - 3]);
+        (short)k1_dequant<BD>(l, k1_pick(c.qp, b), lg, dqm);
     int* glv = k1_pick(c.glv, b);
     if (glv) glv[pos] = l;
     k1_add3(&b0, &b1, &b2, b, k1_level_bits(l) + (rank == 0 && any ? 2 : 0));
@@ -885,6 +943,106 @@ KDEV float k1_cost(const int* t, float ovh, float lam) {
   return KFMA(lam, fbits, dist);
 }
 
+// --- the RQT split candidate of an inter slot -----------------------------------
+
+// After slot i's TU16 chain (its recon in C, its levels in LVS, its sums in
+// part[1 + sl]; its residual's chains staged in P8 and wa[384..768)): the
+// four chains of the split, the psy terms, the joint compare, then the
+// winner's recon into C, its levels out and, when the split wins, its sums
+// in place of the slot's.  Run by the slots' team t.
+template <int CTB, int BD, int MODE, int OT>
+KDEV void k1_split(K1Smem* s, const KTeam& t, const K1Args& a, int i, int l,
+                   int sx, int sy, const int* o16, const int* const* oc8,
+                   int qpy, const int* qpc, bool psy, float lam, float plam,
+                   bool decide) {
+  using G = K1Geo<CTB>;
+  constexpr int OTC = OT / 2, CW = G::cw, CHC = G::chc, CWC = G::cwc;
+  constexpr int SUB = MODE & K1_RDOQ;  // no noise reduction in the sub-TUs
+  const int L = a.L, sl = i % G::spq;
+  for (int j = 0; j < 4; ++j) {
+    const int jx = j & 1, jy = j >> 1;
+    K1Chain c = {s->P8 + 96 * j,
+                 s->LV8 + 96 * j,
+                 {o16 + 8 * jy * OT + 8 * jx, oc8[0] + 4 * jy * OTC + 4 * jx,
+                  oc8[1] + 4 * jy * OTC + 4 * jx},
+                 {s->R8 + 8 * jy * 16 + 8 * jx, s->R8 + 256 + 4 * jy * 8 + 4 * jx,
+                  s->R8 + 320 + 4 * jy * 8 + 4 * jx},
+                 {16, 8, 8},
+                 {nullptr, nullptr, nullptr},
+                 {qpy, qpc[0], qpc[1]},
+                 false,
+                 s->wa + 384 + 96 * j,
+                 s->wb + 384 + 96 * j,
+                 SUB ? &s->rq[0] : nullptr,
+                 nullptr,
+                 a.nroff};
+    k1_chain<3, BD, SUB, OT>(s, t, c, (a.flags & K1_SIGN_HIDE) != 0, true,
+                             s->part8[j], a);
+  }
+  if (psy)  // 8x8 tiles: 0-3 the TU16 recon (in C), 4-7 the split's
+    for (int k = t.tid; k < 8 * K8LANES; k += t.nth) {
+      const int u = k / K8LANES, row = k - u * K8LANES;
+      const int tx = u & 1, ty = (u >> 1) & 1;
+      const int e = u < 4 ? k_psy8(o16 + 8 * ty * OT + 8 * tx, OT,
+                                   s->C + (1 + sy + 8 * ty) * CW + 1 + sx + 8 * tx,
+                                   CW, row)
+                          : k_psy8(o16 + 8 * ty * OT + 8 * tx, OT,
+                                   s->R8 + 8 * ty * 16 + 8 * tx, 16, row);
+      if (row == 0) s->psy8[u] = e;
+    }
+  K1_TSYNC(t);
+  if (t.tid == 0) {  // the plain step's costs: sums over the team's warps
+    int t16[6], t8[6];
+    for (int k = 0; k < 6; ++k) {
+      int v16 = 0, v8 = 0;
+      for (int w = t.w0; w < t.w0 + t.nw; ++w) {
+        v16 += s->part[1 + sl][w][k];
+        for (int j = 0; j < 4; ++j) v8 += s->part8[j][w][k];
+      }
+      t16[k] = v16;
+      t8[k] = v8;
+    }
+    float c16 = k1_cost(t16, 0.0f, lam), c8 = k1_cost(t8, 9.0f, lam);
+    if (psy) {
+      c16 = KFMA(plam, k_i2f(s->psy8[0] + s->psy8[1] + s->psy8[2] + s->psy8[3]),
+                 c16);
+      c8 = KFMA(plam, k_i2f(s->psy8[4] + s->psy8[5] + s->psy8[6] + s->psy8[7]),
+                c8);
+    }
+    const bool tu8 = s->rqok[i] && c8 < c16;
+    s->tu8 = tu8;
+    a.tu8[i * L + l] = tu8;
+  }
+  K1_TSYNC(t);
+  const bool tu8 = s->tu8;
+  for (int k = t.tid; k < 384; k += t.nth) {  // recon, levels out
+    int lv;
+    if (k < 256) {
+      const int y = k >> 4, x = k & 15;
+      if (tu8) s->C[(1 + sy + y) * CW + 1 + sx + x] = s->R8[k];
+      lv = tu8 ? s->LV8[96 * ((y >> 3) * 2 + (x >> 3)) + (y & 7) * 8 + (x & 7)]
+               : s->LVS[k];
+      a.lv16[(int64_t)(i * L + l) * 256 + k] = lv;
+    } else {
+      const int kk = k - 256, p = kk >> 6, j = kk & 63, y = j >> 3, x = j & 7;
+      if (tu8)
+        s->Cc[p * CHC * CWC + (1 + sy / 2 + y) * CWC + 1 + sx / 2 + x] =
+            s->R8[k];
+      lv = tu8 ? s->LV8[96 * ((y >> 2) * 2 + (x >> 2)) + 64 + 16 * p +
+                        (y & 3) * 4 + (x & 3)]
+               : s->LVS[k];
+      a.lv8[(int64_t)(i * 2 * L + p * L + l) * 64 + j] = lv;
+    }
+  }
+  if (tu8 && decide)  // the decision reads the split's sums for the slot
+    for (int k = t.tid; k < t.nw * 6; k += t.nth) {
+      const int w = t.w0 + k / 6, q = k % 6;
+      s->part[1 + sl][w][q] = s->part8[0][w][q] + s->part8[1][w][q] +
+                              s->part8[2][w][q] + s->part8[3][w][q];
+    }
+  K1_TSYNC(t);
+}
+
 // --- the lane ------------------------------------------------------------------
 
 template <int CTB, int BD, int MODE>
@@ -897,7 +1055,8 @@ KDEV void k1_lane(K1Smem* s, const K1Args& a, int l) {
   const bool inter = a.flags & K1_INTER, decide = a.flags & K1_DECIDE32;
   const bool psy = a.flags & K1_PSY, sh = a.flags & K1_SIGN_HIDE;
   const bool strong = a.flags & K1_STRONG;
-  constexpr bool rdnr = MODE != 0;
+  constexpr bool rdnr = (MODE & (K1_RDOQ | K1_NR)) != 0;
+  constexpr bool rqt = (MODE & K1_RQT) != 0;
   const int cx = a.cx[l], cy = a.cy[l];
   // the lane's frame: lanes are frame-major, L / F to a frame; its
   // frontiers lie at these offsets of rows [F][cw + 1][CTB | CTB / 2],
@@ -910,7 +1069,7 @@ KDEV void k1_lane(K1Smem* s, const K1Args& a, int l) {
   const int par = (cy - 1) & 1;
   const int qpy = a.qp_y[l];
   const int qpc[2] = {a.qp_cb[l], a.qp_cr[l]};
-  const float lam = decide ? a.lam[l] : 0.0f;
+  const float lam = decide || rqt ? a.lam[l] : 0.0f;
   const float plam = psy ? a.plam[l] : 0.0f;
   const KTeam all = k_team(0, K1_MAXWARPS, 0);
   const KTeam ts = k_team(0, K1_SLOT_WARPS, 1);
@@ -985,6 +1144,14 @@ KDEV void k1_lane(K1Smem* s, const K1Args& a, int l) {
   for (int i = KTID; i < 9; i += KNTH) {
     const int b = i / 3, qp = b == 0 ? qpy : (b == 1 ? qpc[0] : qpc[1]);
     s->dqmax[b][i - 3 * b] = k1_dequant_max<BD>(qp, 3 + i - 3 * b);
+  }
+  if constexpr (rqt) {  // the split's T4 (after the table's T8-T32), 4x4
+    // dequant bounds and the slots that may split
+    for (int i = KTID; i < 16; i += KNTH) s->T4[i] = a.Tp[4 * 336 + i];
+    for (int i = KTID; i < 3; i += KNTH)
+      s->dqmax2[i] = k1_dequant_max<BD>(i == 0 ? qpy : qpc[i - 1], 2);
+    for (int i = KTID; i < NS; i += KNTH)
+      s->rqok[i] = inter && a.rqt_ok[l * NS + i];
   }
   if constexpr (MODE & K1_RDOQ)
     for (int i = KTID; i < 6; i += KNTH) {
@@ -1081,6 +1248,7 @@ KDEV void k1_lane(K1Smem* s, const K1Args& a, int l) {
       const int* o16 = o32 + oy * OT + ox;  // row stride OT
       const int* oc8[2] = {oc32[0] + oy / 2 * OTC + ox / 2,
                            oc32[1] + oy / 2 * OTC + ox / 2};  // stride OTC
+      const bool split = rqt && iv;  // the slot tries the RQT split
       if (!iv) {
         k1_prep3<CTB, 16, BD>(s, ts, sx, sy, s->l16av + i * 65,
                               s->c8av + i * 33, m, false, s->r, s->rf, s->dc);
@@ -1095,6 +1263,11 @@ KDEV void k1_lane(K1Smem* s, const K1Args& a, int l) {
                                      x, true);
           s->IPQ[(oy + y) * 32 + ox + x] = v;
           o = o16[y * OT + x];
+          if (split) {  // chain j = the z-order 8x8 quadrant
+            const int e = 96 * ((y >> 3) * 2 + (x >> 3)) + (y & 7) * 8 + (x & 7);
+            s->P8[e] = v;
+            s->wa[384 + e] = (short)(o - v);
+          }
         } else {
           const int kk = k - 256, p = kk >> 6, j = kk & 63;
           const int y = j >> 3, x = j & 7;
@@ -1103,6 +1276,12 @@ KDEV void k1_lane(K1Smem* s, const K1Args& a, int l) {
                                      s->dc[1 + p], m, 8, y, x, false);
           s->IPQ[1024 + p * 256 + (oy / 2 + y) * 16 + ox / 2 + x] = v;
           o = oc8[p][y * OTC + x];
+          if (split) {
+            const int e = 96 * ((y >> 2) * 2 + (x >> 2)) + 64 + 16 * p +
+                          (y & 3) * 4 + (x & 3);
+            s->P8[e] = v;
+            s->wa[384 + e] = (short)(o - v);
+          }
         }
         s->PS[k] = v;
         s->wa[k] = (short)(o - v);
@@ -1115,9 +1294,10 @@ KDEV void k1_lane(K1Smem* s, const K1Args& a, int l) {
                      s->Cc + (1 + sy / 2) * CWC + 1 + sx / 2,
                      s->Cc + CHC * CWC + (1 + sy / 2) * CWC + 1 + sx / 2},
                     {CW, CWC, CWC},
-                    {a.lv16 + (int64_t)(i * L + l) * 256,
-                     a.lv8 + (int64_t)(i * 2 * L + l) * 64,
-                     a.lv8 + (int64_t)(i * 2 * L + L + l) * 64},
+                    {split ? nullptr : a.lv16 + (int64_t)(i * L + l) * 256,
+                     split ? nullptr : a.lv8 + (int64_t)(i * 2 * L + l) * 64,
+                     split ? nullptr
+                           : a.lv8 + (int64_t)(i * 2 * L + L + l) * 64},
                     {qpy, qpc[0], qpc[1]},
                     !iv,
                     s->wa,
@@ -1125,7 +1305,15 @@ KDEV void k1_lane(K1Smem* s, const K1Args& a, int l) {
                     rdnr ? &s->rq[0] : nullptr,
                     nrs,
                     a.nroff};
-      k1_chain<4, BD, MODE, OT>(s, ts, cs, sh, decide, s->part[1 + sl], a);
+      k1_chain<4, BD, MODE, OT>(s, ts, cs, sh, decide || split,
+                                s->part[1 + sl], a);
+      if constexpr (rqt) {
+        if (split)
+          k1_split<CTB, BD, MODE, OT>(s, ts, a, i, l, sx, sy, o16, oc8, qpy,
+                                      qpc, psy, lam, plam, decide);
+        else if (ts.tid == 0)
+          a.tu8[i * L + l] = 0;
+      }
     }
     KSYNC();
     if constexpr (G::has32) {
@@ -1278,6 +1466,7 @@ static inline void k1_unpack(K1Args* a, void* const* p, int L, int F, int cw,
   a->use32 = NEXT(const u8*); a->inter = NEXT(const u8*);
   a->ipy = NEXT(const int*); a->ipc = NEXT(const int*);
   a->m32in = NEXT(const u8*);
+  a->rqt_ok = NEXT(const u8*); a->tu8 = NEXT(int*);
   a->rowf = NEXT(const int*); a->colf = NEXT(const int*);
   a->cornf = NEXT(int*); a->rowfb = NEXT(const int*);
   a->colfb = NEXT(const int*); a->cornfb = NEXT(int*);
@@ -1296,9 +1485,13 @@ static inline void k1_unpack(K1Args* a, void* const* p, int L, int F, int cw,
   a->psyq = psyq;
 }
 
-#define K1_NPTRS 49
+#define K1_NPTRS 51
+// devices a process may launch K1 on (k1_launch's per-device attribute)
+#define K1_MAX_DEVICES 64
 
 #ifdef __CUDACC__
+#include <atomic>
+
 // one instantiation per CTB size, bit depth and mode (RDOQ / NR stages
 // compiled in or out), so the plain chain carries none of their code
 template <int CTB, int BD, int MODE>
@@ -1311,63 +1504,80 @@ __global__ void __launch_bounds__(K1_THREADS) k1_kernel(K1Args a) {
 
 template <int CTB, int BD, int MODE>
 static int k1_launch(const K1Args& a, cudaStream_t stream) {
-  // the RDOQ / NR scratch closes K1Smem: the plain kernel leaves it out
-  constexpr int bytes = MODE ? (int)sizeof(K1Smem) : (int)offsetof(K1Smem, rq);
-  static bool attr_set = false;
-  if (!attr_set) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        k1_kernel<CTB, BD, MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        bytes);
+  // the RDOQ / NR scratch closes K1Smem, then the RQT state: the plain
+  // kernel leaves both out, the RDOQ / NR kernels the RQT state
+  constexpr int bytes = MODE & K1_RQT ? (int)sizeof(K1Smem)
+                        : MODE        ? (int)offsetof(K1Smem, T4)
+                                      : (int)offsetof(K1Smem, rq);
+  // the attribute is the device's: set it once on each device a launch
+  // meets (the calling thread's current one)
+  static std::atomic<bool> attr_set[K1_MAX_DEVICES];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev < 0 || dev >= K1_MAX_DEVICES) return -3;
+  if (!attr_set[dev].load(std::memory_order_acquire)) {
+    e = cudaFuncSetAttribute(k1_kernel<CTB, BD, MODE>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
     if (e != cudaSuccess) return (int)e;
-    attr_set = true;
+    attr_set[dev].store(true, std::memory_order_release);
   }
   k1_kernel<CTB, BD, MODE><<<a.L, K1_THREADS, bytes, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-template <int CTB, int BD>
+// RQT: 0 or K1_RQT, the instantiations of one source file
+template <int CTB, int BD, int RQT>
 static int k1_launch_mode(const K1Args& a, cudaStream_t stream) {
   switch (a.flags & (K1_RDOQ | K1_NR)) {
-    case K1_RDOQ: return k1_launch<CTB, BD, K1_RDOQ>(a, stream);
-    case K1_NR: return k1_launch<CTB, BD, K1_NR>(a, stream);
-    case K1_RDOQ | K1_NR: return k1_launch<CTB, BD, K1_RDOQ | K1_NR>(a, stream);
-    default: return k1_launch<CTB, BD, 0>(a, stream);
+    case K1_RDOQ: return k1_launch<CTB, BD, K1_RDOQ | RQT>(a, stream);
+    case K1_NR: return k1_launch<CTB, BD, K1_NR | RQT>(a, stream);
+    case K1_RDOQ | K1_NR:
+      return k1_launch<CTB, BD, K1_RDOQ | K1_NR | RQT>(a, stream);
+    default: return k1_launch<CTB, BD, RQT>(a, stream);
   }
 }
 
-// One launch of K1 at CTB size CTB (the instantiations of one size).
-template <int CTB>
+// One launch of K1 at CTB size CTB, with or without the RQT split (the
+// instantiations of one source file).
+template <int CTB, int RQT>
 static int k1_run(const K1Args& a, void* stream) {
-  return a.flags & K1_BD10 ? k1_launch_mode<CTB, 10>(a, (cudaStream_t)stream)
-                           : k1_launch_mode<CTB, 8>(a, (cudaStream_t)stream);
+  return a.flags & K1_BD10
+             ? k1_launch_mode<CTB, 10, RQT>(a, (cudaStream_t)stream)
+             : k1_launch_mode<CTB, 8, RQT>(a, (cudaStream_t)stream);
 }
 #else
-template <int CTB, int BD>
+template <int CTB, int BD, int RQT>
 static void k1_host_lane(K1Smem* s, const K1Args& a, int l) {
   switch (a.flags & (K1_RDOQ | K1_NR)) {
-    case K1_RDOQ: k1_lane<CTB, BD, K1_RDOQ>(s, a, l); break;
-    case K1_NR: k1_lane<CTB, BD, K1_NR>(s, a, l); break;
-    case K1_RDOQ | K1_NR: k1_lane<CTB, BD, K1_RDOQ | K1_NR>(s, a, l); break;
-    default: k1_lane<CTB, BD, 0>(s, a, l);
+    case K1_RDOQ: k1_lane<CTB, BD, K1_RDOQ | RQT>(s, a, l); break;
+    case K1_NR: k1_lane<CTB, BD, K1_NR | RQT>(s, a, l); break;
+    case K1_RDOQ | K1_NR: k1_lane<CTB, BD, K1_RDOQ | K1_NR | RQT>(s, a, l); break;
+    default: k1_lane<CTB, BD, RQT>(s, a, l);
   }
 }
 
 // The host build: the lanes one after another, one thread each.
-template <int CTB>
+template <int CTB, int RQT>
 static int k1_run(const K1Args& a, void* stream) {
   (void)stream;
   K1Smem* s = (K1Smem*)malloc(sizeof(K1Smem));
   for (int l = 0; l < a.L; ++l) {
     if (a.flags & K1_BD10)
-      k1_host_lane<CTB, 10>(s, a, l);
+      k1_host_lane<CTB, 10, RQT>(s, a, l);
     else
-      k1_host_lane<CTB, 8>(s, a, l);
+      k1_host_lane<CTB, 8, RQT>(s, a, l);
   }
   free(s);
   return 0;
 }
 #endif
 
-// the launches at CTB 32 and 16 (k1_ctb32.cu, k1_ctb16.cu)
+// the launches at CTB 32 and 16 (k1_ctb32.cu, k1_ctb16.cu) and those with
+// the RQT split (k1_rqt_ctb{64,32,16}.cu)
 int k1_run_ctb32(const K1Args& a, void* stream);
 int k1_run_ctb16(const K1Args& a, void* stream);
+int k1_run_rqt_ctb64(const K1Args& a, void* stream);
+int k1_run_rqt_ctb32(const K1Args& a, void* stream);
+int k1_run_rqt_ctb16(const K1Args& a, void* stream);

@@ -1,0 +1,9 @@
+// K1's instantiations with the RQT split at CTB 64 (the kernel:
+// k1_ctu_step.cuh; the entry point: k1_ctu_step.cu), in a source file of
+// their own so that they build in parallel with the others.
+
+#include "k1_ctu_step.cuh"
+
+int k1_run_rqt_ctb64(const K1Args& a, void* stream) {
+  return k1_run<64, K1_RQT>(a, stream);
+}

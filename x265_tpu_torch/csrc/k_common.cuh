@@ -194,6 +194,21 @@ KDEV int k_sum16(int v) {
 #endif
 }
 
+// Minimum of v over the 16 lanes of the calling half-warp (all 16 call it;
+// the other half may be elsewhere); every lane gets it.  Host: v.
+KDEV unsigned k_min16(unsigned v) {
+#ifdef __CUDACC__
+  const unsigned m = 0xffffu << (threadIdx.x & 16);
+  for (int s = 8; s > 0; s >>= 1) {
+    const unsigned o = __shfl_xor_sync(m, v, s, 16);
+    v = o < v ? o : v;
+  }
+  return v;
+#else
+  return v;
+#endif
+}
+
 // Bytes of the 8-byte value (b:a) picked by the four nibbles of sel, byte 0
 // of the result by the lowest (PTX prmt, __byte_perm).
 KDEV unsigned k_prmt(unsigned a, unsigned b, unsigned sel) {

@@ -5,6 +5,7 @@
 extern "C" const char* k_error_string(int code) {
   if (code == -1) return "wrong number of kernel arguments";
   if (code == -2) return "CTB size other than 16, 32 and 64";
+  if (code == -3) return "device ordinal beyond K1_MAX_DEVICES";
   return cudaGetErrorString((cudaError_t)code);
 }
 #else

@@ -14,10 +14,12 @@ one call of the step, which on a CUDA device is the hand-written kernel K1
 
 Ported branches: decide32 on/off, intra and inter (with the ``m32_in``
 TU32 trial), psy-rd, sign hiding, strong intra smoothing, RDOQ with
-psy-RDOQ and DCT-domain noise reduction, at CTB sizes 64, 32 and 16 (at 16
+psy-RDOQ and DCT-domain noise reduction, the inter RQT split candidate
+(``rqt``: four 8x8 luma and 4x4 chroma TUs against the TU16 of every inter
+16x16 slot), at CTB sizes 64, 32 and 16 (at 16
 one 16x16 slot a CTU and no 32x32 candidate), at bit depth 8 and 10 (the recon
 planes come out uint8, or int16 holding the reference's uint16 values:
-``_util.sample_dtype``).  The RQT split raises ``NotImplementedError``.
+``_util.sample_dtype``).
 """
 
 from __future__ import annotations
@@ -233,7 +235,7 @@ class CtuScan:
 
     # -- the per-level step (plain torch; K1's reference) -------------------
 
-    def make_step(self, inter: bool, decide32: bool):
+    def make_step(self, inter: bool, decide32: bool, rqt: bool = False):
         """Returns step(carry, xs) -> (carry, ys) for one wavefront level.
 
         carry: (rowf, colf, cornf, rowfb, colfb, cornfb, rowfr, colfr,
@@ -244,9 +246,11 @@ class CtuScan:
         [nslots, L, 16, 16], lv8 [nslots, 2L, 8, 8], lv32 [nq, L, 32, 32],
         lvc16 [nq, 2L, 16, 16], sel32 [nq, L], int_y [L, ctb, ctb], int_c
         [2L, ctbc, ctbc], nr [F, W] int32 or None: with noise reduction
-        the level's NR statistics of each frame, ``nr_layout()``); with
-        noise reduction xs also holds the offsets ``nr_pack`` [W] int32 in
-        the statistics' layout (the count words zero)."""
+        the level's NR statistics of each frame, ``nr_layout()``, tu8
+        [nslots, L] bool or None: with ``rqt`` in an inter scan the slots
+        coded with the split tree); with noise reduction xs also holds the
+        offsets ``nr_pack`` [W] int32 in the statistics' layout (the count
+        words zero), with the split ``rqt_ok`` [L, nslots] bool."""
         t = self.t
         bd = self.bit_depth
         g = t["geom"]
@@ -254,7 +258,8 @@ class CtuScan:
         n_quads, spq = t["n_quads"], t["slots_per_quad"]
         strong = self.strong
         sign_hide = self.sign_hide
-        psy = self.psy_rd > 0.0 and decide32
+        psy = self.psy_rd > 0.0 and (decide32 or rqt)
+        rqt = rqt and inter
         maxv = (1 << bd) - 1
         ctb = 1 << g.log2_ctb
         ctbc = ctb // 2
@@ -279,10 +284,10 @@ class CtuScan:
             """One TU stage.  With noise reduction, the category's offsets
             come off |coef| and its statistics (|coef| before that, and the
             blocks with any nonzero coefficient, by intra / inter) add to
-            ``nr`` [F, W]; with RDOQ the levels are ``_rdoq_core``'s
-            (psy-RDOQ on luma only)."""
+            ``nr`` [F, W] (not for the RQT sub-TUs, ``nr_cat`` None); with
+            RDOQ the levels are ``_rdoq_core``'s (psy-RDOQ on luma only)."""
             coef = forward_transform(orig - pred, bd)
-            if use_nr:
+            if use_nr and nr_cat is not None:
                 K = coef.shape[0]
                 a = coef.abs().reshape(K, n * n)
                 base, nn = nr_off[nr_cat]
@@ -353,12 +358,13 @@ class CtuScan:
             dev = cx.device
             qp_y = xs["qp_y"]
             qp_c2 = torch.cat([xs["qp_cb"], xs["qp_cr"]])
-            if decide32:
+            if decide32 or rqt:
                 lam = xs["lam"]
                 plam = xs["plam"] if psy else None
             ones_l = torch.ones((L,), dtype=torch.bool, device=dev)
             ones_2l = torch.ones((2 * L,), dtype=torch.bool, device=dev)
             lv16_o, lv8_o, lv32_o, lvc16_o, u32_o = [], [], [], [], []
+            tu8_o = []
 
             fi = torch.arange(L, device=dev) // (L // rowf.shape[0])
             nr = None
@@ -438,6 +444,35 @@ class CtuScan:
                     slot_predcs.append(predc)
                     lvc, recc = tq(predc, oc, qp_c2, imask2, 8, "c8", nr,
                                    luma=False)
+                    if rqt:
+                        # the depth-1 RQT candidate: four 8x8 luma TUs and
+                        # four 4x4 TUs a chroma plane, RD-compared jointly
+                        # with the TU16 configuration (x265 search.cpp:2838)
+                        lv8s, rec8s = tq(_split4(pred, 8), _split4(o16, 8),
+                                         qp_y.repeat(4), imask.repeat(4), 8,
+                                         None)
+                        lv4s, rec4s = tq(_split4(predc, 4), _split4(oc, 4),
+                                         qp_c2.repeat(4), imask2.repeat(4), 4,
+                                         None, luma=False)
+                        rec8, rec4 = _join4(rec8s, 8), _join4(rec4s, 4)
+                        c16 = rd(rec, o16, recc, oc, lv, lvc, 0.0, lam, L)
+                        sc4 = ssd(rec4, oc)
+                        b8 = level_bits(lv8s).reshape(4, L).sum(0)
+                        bc4 = level_bits(lv4s).reshape(4, 2 * L).sum(0)
+                        # split flag + extra cbf signalling overhead
+                        c8 = fma32(lam, b8 + bc4[:L] + bc4[L:] + 9.0,
+                                   ssd(rec8, o16) + sc4[:L] + sc4[L:])
+                        if psy:
+                            c16 = fma32(plam, psy_cost(o16, rec), c16)
+                            c8 = fma32(plam, psy_cost(o16, rec8), c8)
+                        tu8 = iv & xs["rqt_ok"][:, i] & (c8 < c16)
+                        t3 = tu8[:, None, None]
+                        t3c = cat2(tu8)[:, None, None]
+                        rec = torch.where(t3, rec8, rec)
+                        lv = torch.where(t3, _join4(lv8s, 8), lv)
+                        recc = torch.where(t3c, rec4, recc)
+                        lvc = torch.where(t3c, _join4(lv4s, 4), lvc)
+                        tu8_o.append(tu8)
                     lv16_o.append(lv)
                     lv8_o.append(lvc)
                     C[:, 1 + sy:1 + sy + 16, 1 + sx:1 + sx + 16] = rec
@@ -515,7 +550,7 @@ class CtuScan:
                   stack(lvc16_o), stack(u32_o),
                   C[:, 1:1 + ctb, 1:1 + ctb].contiguous(),
                   Cc[:, 1:1 + ctbc, 1:1 + ctbc].contiguous(),
-                  nr["acc"] if use_nr else None)
+                  nr["acc"] if use_nr else None, stack(tu8_o))
             return (rowf, colf, cornf, rowfb, colfb, cornfb,
                     rowfr, colfr, cornfr), ys
 
@@ -536,10 +571,12 @@ class CtuScan:
         decide32; ``is_inter`` / ``ipred_*`` / ``m32_in`` with ``inter``.
         ``nr_offsets`` ({"<cat>_i" / "<cat>_p": [n * n] int32}, missing
         entries zero) with noise reduction; the frames of a batched call
-        share them.  ``allow_kernel=False`` runs the plain step on any
-        device."""
-        if rqt:
-            raise NotImplementedError("x265_tpu_torch: RQT is not ported")
+        share them.  With ``rqt`` (inter scans; elsewhere it changes
+        nothing) every inter 16x16 slot also tries the depth-1 split and
+        ``tu8`` [B16] marks the blocks coded with it, whose lv16 / lv8 rows
+        hold the four sub-TUs' levels in place; ``rqt_ok`` [B16] bool (all
+        true when None) masks the blocks that cannot split.
+        ``allow_kernel=False`` runs the plain step on any device."""
         from .ctu_scan_cuda import ctu_step
 
         t = self.t
@@ -555,8 +592,8 @@ class CtuScan:
         cw, ch = g.ctbs_w, g.ctbs_h
         nctb = t["nctb"]
         bd = self.bit_depth
-        psy = self.psy_rd > 0.0 and decide32
-        plain = self.make_step(inter, decide32)
+        psy = self.psy_rd > 0.0 and (decide32 or rqt)
+        plain = self.make_step(inter, decide32, rqt)
         # level streams of the dummy-padded tables, plus block-raster
         # inverse permutations of the level stacks (static per geometry)
         inv16 = _inv_perm(t["xs"]["b16"], B16)
@@ -613,7 +650,7 @@ class CtuScan:
                 xs["m32"] = lev(fr(mode32).to(i32), b32t)
                 if not decide32:
                     xs["use32"] = lev(fr(use32).to(torch.bool), b32t)
-            if decide32:
+            if decide32 or rqt:
                 lam_c = lev(fr(lam).to(torch.float32), ctut)
                 xs["lam"] = lam_c
                 if psy:
@@ -631,6 +668,10 @@ class CtuScan:
                                         device=dev)
                             if m32_in is None else fr(m32_in).to(torch.bool))
                     xs["m32_in"] = lev(m32b.reshape(F, -1), b32t)
+                if rqt:
+                    rq = (torch.ones((F, B16), dtype=torch.bool, device=dev)
+                          if rqt_ok is None else fr(rqt_ok).to(torch.bool))
+                    xs["rqt_ok"] = lev(rq.reshape(F, -1), b16t)
             xs = {k: v.contiguous() for k, v in xs.items()}
             nr_xs = {}
             if self.noise_reduction:
@@ -661,16 +702,16 @@ class CtuScan:
                                          plain)
                 else:
                     carry, ys = plain(carry, xl)
-                ys_all.append(ys[:7])
+                ys_all.append(ys[:7] + ys[8:])
                 if ys[7] is not None:
                     nr_sum = ys[7] if nr_sum is None else nr_sum + ys[7]
-            (lv16_s, lv8_s, lv32_s, lvc16_s, u32_s, int_y, int_c) = (
+            (lv16_s, lv8_s, lv32_s, lvc16_s, u32_s, int_y, int_c, tu8_s) = (
                 torch.stack([y[k] for y in ys_all]) if ys_all[0][k]
-                is not None else None for k in range(7))
+                is not None else None for k in range(8))
             outs = [frame_outputs(
                 *(None if v is None else v.narrow(dim, f * lmax, lmax)
                   for v, dim in ((lv16_s, 2), (lv32_s, 2), (u32_s, 2),
-                                 (int_y, 1))),
+                                 (int_y, 1), (tu8_s, 2))),
                 *(None if v is None else v.reshape(
                     v.shape[:dim] + (2, F, lmax) + v.shape[dim + 1:]).select(
                         dim + 1, f)
@@ -686,8 +727,8 @@ class CtuScan:
                         *(o[11][cat] for o in outs)))
                     for cat in outs[0][11]},)
 
-        def frame_outputs(lv16_s, lv32_s, u32_s, int_y, lv8_s, lvc16_s,
-                          int_c, nr):
+        def frame_outputs(lv16_s, lv32_s, u32_s, int_y, tu8_s, lv8_s,
+                          lvc16_s, int_c, nr):
             """One frame's outputs from its lanes of the level stacks (the
             chroma stacks as [..., 2, lmax, ...]) and its NR statistics."""
             dev = int_y.device
@@ -730,7 +771,13 @@ class CtuScan:
             else:
                 lv32_y = lv16_cb = lv16_cr = None
                 use32_out = torch.zeros((B32,), dtype=torch.bool, device=dev)
-            tu8_out = torch.zeros((B16,), dtype=torch.bool, device=dev)
+            if tu8_s is not None:
+                tu8_out = torch.cat(
+                    [tu8_s.reshape(-1),
+                     torch.zeros((1,), dtype=torch.bool, device=dev)])[
+                         T(inv16).long()]
+            else:
+                tu8_out = torch.zeros((B16,), dtype=torch.bool, device=dev)
             nr_out = None
             if nr is not None:
                 lay, _ = nr_layout()
@@ -755,8 +802,16 @@ def _to_blocks(pl, n):
         0, 1, 3, 2, 4).reshape(pl.shape[:-2] + (-1, n, n))
 
 
+def _split4(x, m):
+    """[K, 2m, 2m] -> [4K, m, m]: the z-order quadrants, quadrant-major."""
+    K = x.shape[0]
+    return x.reshape(K, 2, m, 2, m).permute(1, 3, 0, 2, 4).reshape(
+        4 * K, m, m)
+
+
 def _join4(x, m):
-    """[4K, m, m] z-order quadrants -> [K, 2m, 2m]."""
+    """[4K, m, m] z-order quadrants -> [K, 2m, 2m] (inverse of
+    ``_split4``)."""
     K = x.shape[0] // 4
     return x.reshape(2, 2, K, m, m).permute(2, 0, 3, 1, 4).reshape(
         K, 2 * m, 2 * m)

@@ -51,16 +51,28 @@ with noise reduction the position offsets (``xs["nr_pack"]``) come off
 buffer, the step's ``ys[7]``.  Such a launch is also counted in
 ``LAUNCHES_RDOQ`` / ``LAUNCHES_NR``; on CUDA tensors these modes run the
 kernel or raise, like every other.
+
+The RQT split (flag 256, on when the level's inputs hold ``rqt_ok``, as an
+inter ``scan_fn(..., rqt=True)`` stages them): every inter slot also runs
+its depth-1 split (four 8x8 luma and 4x4 chroma TUs) and keeps the cheaper
+configuration, as the plain step does; the step's ``ys[8]`` is ``tu8``
+[nslots, L].  Such a launch is also counted in ``LAUNCHES_RQT``.
+
+Devices and threads.  A launch runs on the device of its tensors (the
+wrapper makes it the current one around the C call) on that device's
+current stream, so several host threads may each drive their own device
+or stream; the counts are bumped under one lock.
 """
 
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import numpy as np
 import torch
 
-from .._util import dev_table
+from .._util import dev_table, on_device
 from ..build import load_library
 from ..ops._dct_matrix import T32
 from ..ops.quantize import rdoq_lambda_table, rdoq_rate_table
@@ -68,15 +80,18 @@ from .ctu_scan import nr_layout
 
 #: launches of K1 made by ``ctu_step`` (the wrapper counts here, once per
 #: kernel launch, and nowhere else), and of those the launches of its
-#: 10-bit instantiation, with RDOQ, with noise reduction, and at CTB 32
-#: and 16; ``LAUNCHES_FRAMES`` sums the frames of each launch's lanes
+#: 10-bit instantiation, with RDOQ, with noise reduction, with the RQT
+#: split and at CTB 32 and 16; ``LAUNCHES_FRAMES`` sums the frames of each
+#: launch's lanes.  Bumped under ``_COUNT_LOCK``.
 LAUNCHES = 0
+LAUNCHES_RQT = 0
 LAUNCHES_FRAMES = 0
 LAUNCHES_10BIT = 0
 LAUNCHES_RDOQ = 0
 LAUNCHES_NR = 0
 LAUNCHES_CTB32 = 0
 LAUNCHES_CTB16 = 0
+_COUNT_LOCK = threading.Lock()
 
 #: the level inputs K1 reads; of the original samples only the quads'
 #: tiling (the slots' o16y / o8c hold the same samples as its sub-blocks);
@@ -101,31 +116,37 @@ def launch(lib, scan, inter: bool, decide32: bool, carry, xs):
     CUDA tensors; the host build of the same source on CPU tensors, which
     is how the CPU tests reach the kernel's arithmetic)."""
     global LAUNCHES, LAUNCHES_10BIT, LAUNCHES_RDOQ, LAUNCHES_NR
-    global LAUNCHES_CTB32, LAUNCHES_CTB16, LAUNCHES_FRAMES
+    global LAUNCHES_CTB32, LAUNCHES_CTB16, LAUNCHES_FRAMES, LAUNCHES_RQT
     args, ys = kernel_args(scan, inter, decide32, carry, xs)
-    rc = lib.k1_ctu_step(*args)
+    with on_device(xs["cx"].device):
+        rc = lib.k1_ctu_step(*args)
     if rc != 0:
         raise RuntimeError(
             f"K1 launch failed: {lib.k_error_string(rc).decode()}")
-    LAUNCHES += 1
-    LAUNCHES_FRAMES += carry[0].shape[0]
-    if scan.bit_depth == 10:
-        LAUNCHES_10BIT += 1
-    if scan.rdoq:
-        LAUNCHES_RDOQ += 1
-    if scan.noise_reduction:
-        LAUNCHES_NR += 1
+    rqt = "rqt_ok" in xs
     ctb = 1 << scan.t["geom"].log2_ctb
-    if ctb == 32:
-        LAUNCHES_CTB32 += 1
-    elif ctb == 16:
-        LAUNCHES_CTB16 += 1
-    lv16, lv8, lv32, lvc16, sel32, int_y, int_c, nr = ys
+    with _COUNT_LOCK:
+        LAUNCHES += 1
+        LAUNCHES_FRAMES += carry[0].shape[0]
+        if scan.bit_depth == 10:
+            LAUNCHES_10BIT += 1
+        if scan.rdoq:
+            LAUNCHES_RDOQ += 1
+        if scan.noise_reduction:
+            LAUNCHES_NR += 1
+        if rqt:
+            LAUNCHES_RQT += 1
+        if ctb == 32:
+            LAUNCHES_CTB32 += 1
+        elif ctb == 16:
+            LAUNCHES_CTB16 += 1
+    lv16, lv8, lv32, lvc16, sel32, int_y, int_c, nr, tu8 = ys
     if not scan.t["has32"]:
         lv32 = lvc16 = sel32 = None
     return carry, (lv16, lv8, lv32, lvc16,
                    None if sel32 is None else sel32.to(torch.bool), int_y,
-                   int_c, nr if scan.noise_reduction else None)
+                   int_c, nr if scan.noise_reduction else None,
+                   tu8.to(torch.bool) if rqt else None)
 
 
 def kernel_args(scan, inter: bool, decide32: bool, carry, xs):
@@ -150,7 +171,8 @@ def kernel_args(scan, inter: bool, decide32: bool, carry, xs):
     ctb, has32 = 1 << g.log2_ctb, t["has32"]
     ctbc = ctb // 2
     nq, ns = t["n_quads"], t["nslots"]
-    psy = scan.psy_rd > 0.0 and decide32
+    rqt = "rqt_ok" in xs            # the RQT split (inter scans only)
+    psy = scan.psy_rd > 0.0 and (decide32 or rqt)
     L = xs["cx"].shape[0]
     F = carry[0].shape[0]           # frames: L / F lanes each, frame-major
     if F < 1 or L % F:
@@ -176,7 +198,7 @@ def kernel_args(scan, inter: bool, decide32: bool, carry, xs):
     for k in _IN_KEYS:
         _check(k, ins[k], b8 if k.endswith("_av") or k == "quad_ok" else i32,
                shapes[k])
-    lam = xs["lam"] if decide32 else dummy["f"]
+    lam = xs["lam"] if decide32 or rqt else dummy["f"]
     plam = xs["plam"] if psy else dummy["f"]
     use32 = xs["use32"] if has32 and not decide32 else dummy["bq"]
     _check("lam", lam, f32, (L,))
@@ -195,6 +217,13 @@ def kernel_args(scan, inter: bool, decide32: bool, carry, xs):
     else:
         iv, ipy, ipc, m32in = dummy["bs"], dummy["i1"], dummy["i1"], \
             dummy["bq"]
+    if rqt:
+        if not inter:
+            raise ValueError("K1: the RQT split needs an inter scan")
+        rqt_ok = xs["rqt_ok"]
+        _check("rqt_ok", rqt_ok, b8, (L, ns))
+    else:
+        rqt_ok = dummy["bs"]
     for k in bulk:   # the kernel stages these with 16-byte bulk copies
         if ins[k].data_ptr() % 16:
             raise ValueError(f"K1 input {k} is not 16-byte aligned")
@@ -232,9 +261,10 @@ def kernel_args(scan, inter: bool, decide32: bool, carry, xs):
     else:                       # not written at CTB 16
         lv32 = lvc16 = sel32 = dummy["i1"]
     int_y, int_c = out(L, ctb, ctb), out(2 * L, ctbc, ctbc)
+    tu8 = out(ns, L) if rqt else dummy["i1"]
     # the new frontiers and corners are written into the carry in place
     ptrs = [ins[k] for k in _IN_KEYS] + [
-        lam, plam, use32, iv, ipy, ipc, m32in,
+        lam, plam, use32, iv, ipy, ipc, m32in, rqt_ok, tu8,
         rowf, colf, cornf, rowfb, colfb, cornfb, rowfr, colfr, cornfr,
         lv16, lv8, lv32, lvc16, sel32, int_y, int_c,
         rowf, colf, rowfb, colfb, rowfr, colfr,
@@ -246,10 +276,11 @@ def kernel_args(scan, inter: bool, decide32: bool, carry, xs):
              | (8 if scan.sign_hide else 0) | (16 if scan.strong else 0)
              | (32 if scan.bit_depth == 10 else 0)
              | (64 if scan.rdoq else 0)
-             | (128 if scan.noise_reduction else 0))
+             | (128 if scan.noise_reduction else 0)
+             | (256 if rqt else 0))
     stream = (torch.cuda.current_stream(dev).cuda_stream
               if dev.type == "cuda" else 0)
-    ys = (lv16, lv8, lv32, lvc16, sel32, int_y, int_c, nrs)
+    ys = (lv16, lv8, lv32, lvc16, sel32, int_y, int_c, nrs, tu8)
     psyq = scan.psy_rdoq if scan.rdoq else 0.0
     return (arr, len(ptrs), L, F, cw, ch, ctb, flags, ctypes.c_float(psyq),
             ctypes.c_void_p(stream)), ys
@@ -259,12 +290,14 @@ def _transform_tables():
     """The DCT matrices T8, T16, T32 (T[k][m]: rows k * 2^(5 - lg) of T32,
     first 2^lg columns) as signed bytes, four to an int32 word, in the four
     layouts of K1's transform passes (``k1_tp`` in the source), each layout
-    T8 | T16 | T32: 4 x 336 words that K1 stages with one bulk copy."""
+    T8 | T16 | T32: 4 x 336 words that K1 stages with one bulk copy; then
+    T4 in the four layouts, 4 x 4 words, which only the RQT split reads
+    (``k1_tpp``)."""
     def words(a):               # [..., 4] int8 -> [...] int32 (little-endian)
         return np.ascontiguousarray(a.astype(np.int8)).view("<i4")[..., 0]
 
     kinds = [[], [], [], []]
-    for lg in (3, 4, 5):
+    for lg in (3, 4, 5, 2):
         t = T32[::1 << (5 - lg), :1 << lg].astype(np.int64)
         n = 1 << lg
         rows = t.reshape(n, n // 4, 4)           # [k][m4][4]
@@ -273,8 +306,9 @@ def _transform_tables():
         kinds[1].append(words(rows))                      # [k][m4]
         kinds[2].append(words(cols))                      # [m][k4]
         kinds[3].append(words(cols.transpose(1, 0, 2)))   # [k4][m]
-    return np.concatenate([w.ravel() for k in kinds for w in k]).astype(
-        np.int32)
+    big = [w.ravel() for k in kinds for w in k[:3]]
+    t4 = [k[3].ravel() for k in kinds]
+    return np.concatenate(big + t4).astype(np.int32)
 
 
 def _dummies(scan, dev, L):

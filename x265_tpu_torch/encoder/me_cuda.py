@@ -42,21 +42,24 @@ from __future__ import annotations
 
 import ctypes
 import os
+import threading
 
 import numpy as np
 import torch
 
-from .._util import dev_table, fma32
+from .._util import dev_table, fma32, on_device
 from ..build import load_library
 from ..ops.cost import satd
 from ..ops.interp import mc_luma_batch
 
 #: launches of K2 made by ``refine`` (counted once per kernel launch), and
 #: of those the launches of its 10-bit path; ``LAUNCHES_BLOCKS`` sums the
-#: blocks of each launch
+#: blocks of each launch; bumped under ``_COUNT_LOCK`` (threads driving
+#: several devices launch side by side)
 LAUNCHES = 0
 LAUNCHES_10BIT = 0
 LAUNCHES_BLOCKS = 0
+_COUNT_LOCK = threading.Lock()
 
 _DELTAS = [(dy, dx) for dy in (-1, 0, 1) for dx in (-1, 0, 1)]
 MV_BITS_LEN = 1024
@@ -172,17 +175,19 @@ def launch(lib, W, ob, mvi, pmv, lam, subme: int, mrq: int,
     cost = torch.empty((B,), dtype=torch.float32, device=W.device)
     stream = (torch.cuda.current_stream(W.device).cuda_stream
               if W.device.type == "cuda" else 0)
-    rc = lib.k2_subpel_refine(
-        W.data_ptr(), ob.data_ptr(), mvi.data_ptr(), pmv.data_ptr(),
-        lam_t.data_ptr(), mvb.data_ptr(), q0.data_ptr(), pred.data_ptr(),
-        cost.data_ptr(), B, int(subme), int(mrq),
-        0 if lam_t.numel() == 1 else 1, 1 if bit_depth == 10 else 0,
-        ctypes.c_void_p(stream))
+    with on_device(W.device):
+        rc = lib.k2_subpel_refine(
+            W.data_ptr(), ob.data_ptr(), mvi.data_ptr(), pmv.data_ptr(),
+            lam_t.data_ptr(), mvb.data_ptr(), q0.data_ptr(), pred.data_ptr(),
+            cost.data_ptr(), B, int(subme), int(mrq),
+            0 if lam_t.numel() == 1 else 1, 1 if bit_depth == 10 else 0,
+            ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(
             f"K2 launch failed: {lib.k_error_string(rc).decode()}")
-    LAUNCHES += 1
-    LAUNCHES_BLOCKS += B
-    if bit_depth == 10:
-        LAUNCHES_10BIT += 1
+    with _COUNT_LOCK:
+        LAUNCHES += 1
+        LAUNCHES_BLOCKS += B
+        if bit_depth == 10:
+            LAUNCHES_10BIT += 1
     return q0, pred, cost

@@ -75,6 +75,10 @@ def get_lib():
         lib.dither_plane.argtypes = [u16p, u16p, ctypes.c_int, ctypes.c_int,
                                      i16p, ctypes.c_int]
         lib.dither_plane.restype = None
+        # the serializer's scan tables, once, before any thread encodes
+        lib.init_scan_tables.argtypes = []
+        lib.init_scan_tables.restype = None
+        lib.init_scan_tables()
         _LIB = lib
         return _LIB
 

@@ -124,6 +124,10 @@ static void build_scans(void) {
     scan_built = 1;
 }
 
+/* Builds the scan tables; the loader calls it once, under its lock, before
+ * any encode (encodes on several threads then only read them). */
+void init_scan_tables(void) { build_scans(); }
+
 /* ---- encoder state ---- */
 typedef struct {
     /* bit writer */

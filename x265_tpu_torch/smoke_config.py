@@ -42,7 +42,10 @@ content (8-bit; ``synthetic_frame10`` at Main10):
 
 The wavefront recon's inputs (``smoke_wavefront_inputs``) are not a
 slice: one seeded 1920x1088 frame, no block crossing the picture's edge,
-with seeded intra modes, coded as luma 16x16 and Cb 8x8 blocks.
+with seeded intra modes, coded as luma 16x16 and Cb 8x8 blocks.  Nor are
+the CTU scan's (``scan_frame``: seeded random planes, modes, QPs and inter
+predictions), which K1's checks and the RQT scan's golden
+(``scan_digests``) use.
 
 The CTU-32 and CTU-16 slices carry the MD5 hash SEI
 (``decoded_picture_hash=1``), the others the checksum.
@@ -174,6 +177,71 @@ def smoke_wavefront_inputs() -> dict:
     return dict(width=w, height=h,
                 y=(blocks(y, 16), rng.randint(0, 35, nb).astype(np.int32), 30),
                 cb=(blocks(u, 8), rng.randint(0, 35, nb).astype(np.int32), 29))
+
+
+#: the CTU scan's twelve outputs (``CtuScan.scan_fn``), in order
+SCAN_OUTPUTS = ("rec_y rec_cb rec_cr lv16_y lv8_cb lv8_cr lv32_y lv16_cb "
+                "lv16_cr use32 tu8 nr").split()
+
+
+def scan_frame(seed: int, bd: int = 8, log2_ctb: int = 6) -> dict:
+    """Seeded random inputs of one 1920x1088 frame's CTU scan at bit depth
+    ``bd`` and CTB size ``1 << log2_ctb`` (numpy; ``chip_smoke.k1_inputs``'
+    keys): the padded planes (at 10 bits with a band of columns at 0 and
+    one at 1023), QPs 24..39 per CTB (plus 12 at 10 bits), SSD-domain
+    lambdas, 16x16 and 32x32 intra modes, ``use32`` false, inter flags
+    (70%), inter predictions and ``m32_in`` (40%)."""
+    ctb = 1 << log2_ctb
+    cw, ch = -(-WIDTH // ctb), -(-1088 // ctb)
+    ph, pw = ch * ctb, cw * ctb
+    b16, b32, nctb = (ph // 16) * (pw // 16), (ph // 32) * (pw // 32), cw * ch
+    hi, dt = 1 << bd, np.uint8 if bd == 8 else np.uint16
+    rng = np.random.RandomState(seed)
+
+    def smp(shape, dtype):
+        a = rng.randint(0, hi, shape)
+        if bd != 8:                   # the clamps: bands at 0 and 2^bd - 1
+            w = shape[-1]
+            a[..., :w // 8] = 0
+            a[..., w // 2:w // 2 + w // 8] = hi - 1
+        return a.astype(dtype)
+
+    return dict(
+        oy=smp((ph, pw), dt), ocb=smp((ph // 2, pw // 2), dt),
+        ocr=smp((ph // 2, pw // 2), dt),
+        qp=(rng.randint(24, 40, nctb) + 6 * (bd - 8)).astype(np.int32),
+        lam=(0.85 * 2.0 ** (rng.randint(24, 40, nctb) / 3.0 - 4.0)).astype(
+            np.float32),
+        modes=rng.randint(0, 35, b16).astype(np.int32),
+        mode32=rng.randint(0, 35, b32).astype(np.int32),
+        use32=np.zeros((b32,), bool),
+        is_inter=rng.rand(b16) < 0.7,
+        ipred_y=smp((b16, 16, 16), np.int32),
+        ipred_cb=smp((b16, 8, 8), np.int32),
+        ipred_cr=smp((b16, 8, 8), np.int32),
+        m32_in=rng.rand(b32) < 0.4)
+
+
+def scan_digests(outputs, bd: int = 8) -> dict:
+    """MD5 of each array output of a CTU scan (``SCAN_OUTPUTS``; numpy
+    arrays or host tensors, None skipped) in one byte layout for both
+    packages: recon planes uint8 (little-endian uint16 at 10 bits), levels
+    little-endian int32, ``use32`` / ``tu8`` one byte a flag."""
+    import hashlib
+
+    out = {}
+    for name, o in zip(SCAN_OUTPUTS, outputs):
+        if o is None or name == "nr":
+            continue
+        a = np.asarray(o)
+        if name in ("use32", "tu8"):
+            a = a.astype(np.uint8)
+        elif name.startswith("rec"):
+            a = a.astype(np.uint8 if bd == 8 else "<u2")
+        else:
+            a = a.astype("<i4")
+        out[name] = hashlib.md5(np.ascontiguousarray(a).tobytes()).hexdigest()
+    return out
 
 
 def smoke_args_crf_cli(y4m: str, out: str, csv: str) -> list:
