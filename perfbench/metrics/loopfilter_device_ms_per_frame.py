@@ -1,0 +1,11 @@
+"""loopfilter_device_ms_per_frame: device time of the operations
+launched under the program's ``loopfilter`` spans (the spans they open
+included) per AU of the profiled part of a traced window (ms)."""
+from perfbench.metrics import _program
+
+_program.install()
+
+
+def read(ctx):
+    ns = _program.under_per_frame(ctx, "loopfilter", 0)
+    return None if ns is None else ns / 1e6

@@ -23,17 +23,16 @@ encode_gop_parallel: one batched I round, two batched P rounds) or
 encode of ``smoke_wavefront_inputs`` at 1920x1088, 528 levels, its stages
 the recon step's parts):
   1. warm-up;
-  2. torch.profiler over CPU and CUDA: device time by kernel name, the
-     device-busy sum and the idle share of the wall time, and the port's
-     own kernels (K1, K2) with their time and launches whatever their rank;
-  3. stage breakdown: the pipeline's stages are wrapped in
-     ``torch.cuda.synchronize()`` timers (intra analysis, motion search,
-     the CTU scan, the loop filters, the fetch, and the host's QP plan,
-     complexity estimate, weightp analysis, padding, syntax and CABAC
-     work; on the bench slices also the lookahead: the lowres analysis of
-     each pushed frame, the b-adapt trellis with its pair-cost and bidir
-     programs, and cuTree's host propagation, and the AQ offsets computed
-     at each push as its input); the rest of the frame time is "other".
+  2. torch.profiler over CPU and CUDA, with the encoder's span recorder
+     (``x265_tpu_torch.trace``) on: device time by kernel name, the port's
+     own kernels (K1, K2) with their time and launches whatever their
+     rank, and the idle share of the profiled encode (the union of the
+     device's operations, ``perfbench.measure.busy``);
+  3. stage breakdown from the recorder's spans (``perfbench.attribute``):
+     each span's host self time, the device time and operations launched
+     under it, the device's idle time by the innermost span, and the
+     host's waits for the device (``sync`` spans), per frame.  The
+     wavefront slice has no spans: its breakdown is empty.
 On the bench and slow slices it also times the lookahead's device programs
 alone with CUDA events at the 1080p lowres size (the lowres program, its SAD
 half that the trellis's pair costs run, and the bidir program), so that the
@@ -53,83 +52,6 @@ from collections import defaultdict
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
-
-
-def _timed(stats, name, fn):
-    import torch
-
-    def wrapped(*a, **k):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn(*a, **k)
-        torch.cuda.synchronize()
-        stats[name] += time.perf_counter() - t0
-        return out
-    return wrapped
-
-
-def _instrument(stats, bench=False):
-    """Wrap the stages at the builders' module seams (before the encoder
-    builds its pipelines)."""
-    from x265_tpu_torch.encoder import aq, ctu_scan, device_pipeline as dp
-    from x265_tpu_torch.encoder import intra_encoder as ie
-    from x265_tpu_torch.encoder import lookahead, weights
-
-    ab, itb, fsb = (dp._analyse_builder, dp._inter_tools_builder,
-                    dp._filter_stage_builder)
-    dp._analyse_builder = lambda *a: _timed(stats, "intra analysis", ab(*a))
-
-    def tools(enc):
-        t = dict(itb(enc))
-        t["me"] = _timed(stats, "motion search (incl. K2)", t["me"])
-        for k in ("eval_mv", "eval_mv_ps", "chroma_pred", "chroma_pred_ps",
-                  "bi_avg"):
-            t[k] = _timed(stats, "inter MC / uniformization", t[k])
-        return t
-    dp._inter_tools_builder = tools
-
-    def filters(enc):
-        f = fsb(enc)
-        g = _timed(stats, "deblock + SAO + checksums", f)
-        g.merged_masks = f.merged_masks
-        return g
-    dp._filter_stage_builder = filters
-    sf = ctu_scan.CtuScan.scan_fn
-    ctu_scan.CtuScan.scan_fn = lambda self, *a, **k: _timed(
-        stats, "CTU scan (K1)", sf(self, *a, **k))
-    for name, label in (("_fetch_outputs", "fetch to host"),
-                        ("_entropy_encode", "host CABAC (native C)"),
-                        ("_derive_inter_all", "host inter syntax"),
-                        ("_qp_plan", "host AQ offsets + QP plan"),
-                        ("_complexity_estimate", "host complexity estimate")):
-        setattr(ie.Encoder, name, _timed(stats, label,
-                                         getattr(ie.Encoder, name)))
-    ie.pad_plane = _timed(stats, "host padding", ie.pad_plane)
-    weights.analyse_luma_weight = _timed(stats, "host weightp analysis",
-                                         weights.analyse_luma_weight)
-    la_stage = "lookahead (lowres + bidir programs, trellis, cuTree)"
-    for owner, name in ((lookahead.Lookahead, "_analyze"),
-                        (lookahead.Lookahead, "_propagate"),
-                        (ie.Encoder, "_slicetype_decide")):
-        setattr(owner, name, _timed(stats, la_stage, getattr(owner, name)))
-    if bench:
-        # the QP plan takes the lookahead's offsets there, so the AQ
-        # offsets are computed only at push, as the lookahead's input
-        aq.aq_offsets = _timed(stats, "host AQ offsets at push",
-                               aq.aq_offsets)
-
-
-def _instrument_wavefront(stats):
-    """Wrap the wavefront recon step's parts (module globals of
-    ``encoder.wavefront``, looked up at each level)."""
-    from x265_tpu_torch.encoder import wavefront as wf
-    for name, label in (("_substitute", "gather + substitution"),
-                        ("_predict_lanes", "intra prediction"),
-                        ("forward_transform", "forward transform"),
-                        ("quant", "quant"),
-                        ("dequant", "dequant"),
-                        ("inverse_transform", "inverse transform")):
-        setattr(wf, name, _timed(stats, label, getattr(wf, name)))
 
 
 def _params(slice_):
@@ -255,9 +177,18 @@ def main():
               else smoke_frames(args.frames))
     warm = _encode(frames, args.slice)
 
+    from perfbench import measure
+    from perfbench.metrics import _program
+    from x265_tpu_torch import trace
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        phase = dict(t0=t0, epoch=time.time_ns() - time.perf_counter_ns())
+        trace.start()
         prof_wall = _encode(frames, args.slice)
+        spans = trace.stop()
+        t1 = time.perf_counter()
+        marker = _program.marker_launch()
     from torch.autograd import DeviceType
     by_kernel = defaultdict(float)
     own = defaultdict(lambda: dict(ms=0.0, launches=0))
@@ -270,28 +201,21 @@ def main():
                 k = own[ev.key.split("(")[0]]
                 k["ms"] += ev.self_device_time_total / 1e3
                 k["launches"] += ev.count
-    busy = sum(by_kernel.values())
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:25]
-
-    stats = defaultdict(float)
-    if args.slice == "wavefront":
-        _instrument_wavefront(stats)
-    else:
-        _instrument(stats, bench=bench)
-    staged = _encode(frames, args.slice)
-    stages = {k: v * 1e3 for k, v in sorted(stats.items(),
-                                            key=lambda kv: -kv[1])}
-    stages["other"] = staged * 1e3 - sum(stages.values())
+    lo = int(t0 * 1e9) + phase["epoch"]
+    hi = int(t1 * 1e9) + phase["epoch"]
+    busy = measure.busy(
+        [(s, e) for _n, s, e in measure.device_events(prof)], lo, hi) / 1e6
+    stages = _program.readings(spans, prof, phase, t1, marker).info
 
     la_ms = _lookahead_programs_ms(frames, args.slice) if bench else None
     out = dict(device=smi, slice=args.slice, frames=args.frames,
                warm_s=warm,
                wall_ms=prof_wall * 1e3, fps=args.frames / prof_wall,
                device_busy_ms=busy,
-               idle_share=1.0 - busy / (prof_wall * 1e3),
+               idle_share=1.0 - busy / ((hi - lo) / 1e6),
                kernels_ms=dict(top), port_kernels=dict(own),
-               staged_wall_ms=staged * 1e3,
-               stages_ms=stages, lookahead_programs_ms=la_ms)
+               stages=stages, lookahead_programs_ms=la_ms)
     os.makedirs(os.path.dirname(args.out), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(out, f, indent=1)
@@ -302,9 +226,16 @@ def main():
         print(f"  {k}: {v['ms']:.3f} ms over {v['launches']} launches")
     for k, v in top:
         print(f"  {v:10.3f} ms  {k[:100]}")
-    print(f"stages (synchronised, wall {staged * 1e3:.1f} ms):")
-    for k, v in stages.items():
-        print(f"  {v:10.1f} ms  {k}")
+    if stages.get("frames"):
+        print(f"stages, ms a frame over {stages['frames']} frames (host "
+              f"self / device under the span / idle under the innermost "
+              f"span); clock {stages.get('clock')}:")
+        dev = stages.get("under_device_ms_per_frame", {})
+        idle = stages.get("idle_ms_per_frame", {})
+        for k, v in sorted(stages["self_ms_per_frame"].items(),
+                           key=lambda kv: -kv[1]):
+            print(f"  {v:10.2f} {dev.get(k, 0.0):10.2f} "
+                  f"{idle.get(k, 0.0):10.2f}  {k}")
     if la_ms is not None:
         print(f"lookahead programs alone (device ms a call, lowres grid "
               f"{la_ms.pop('grid')}):")

@@ -10,6 +10,8 @@ import threading
 import numpy as np
 import torch
 
+from . import trace
+
 _TABLE_CACHE: dict = {}
 _TABLE_LOCK = threading.Lock()
 
@@ -23,7 +25,9 @@ def dev_table(key, make, device) -> torch.Tensor:
         with _TABLE_LOCK:
             t = _TABLE_CACHE.get(k)
             if t is None:
-                t = _TABLE_CACHE[k] = torch.as_tensor(make()).to(device)
+                with trace.sync():
+                    t = torch.as_tensor(make()).to(device)
+                _TABLE_CACHE[k] = t
     return t
 
 
@@ -74,14 +78,19 @@ def to_device(a, device) -> torch.Tensor:
     a = np.ascontiguousarray(a)
     if a.dtype == np.uint16:
         a = a.view(np.int16)
-    return torch.as_tensor(a, device=device)
+    with trace.sync():
+        return torch.as_tensor(a, device=device)
 
 
 def to_host_samples(t: torch.Tensor) -> np.ndarray:
     """Device samples as a host plane: int16 back to uint16."""
-    a = t.cpu().numpy()
+    with trace.sync():
+        a = t.cpu().numpy()
     return a.view(np.uint16) if a.dtype == np.int16 else a
 
 
 def f32(x, device=None) -> torch.Tensor:
-    return torch.as_tensor(x, dtype=torch.float32, device=device)
+    if device is None:
+        return torch.as_tensor(x, dtype=torch.float32)
+    with trace.sync():
+        return torch.as_tensor(x, dtype=torch.float32, device=device)

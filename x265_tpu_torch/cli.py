@@ -15,6 +15,7 @@ import time
 
 import numpy as np
 
+from . import trace
 from .common.params import default_params, param_parse
 from .encoder import Encoder
 from .io.y4m import Y4MReader, Y4MWriter, YUVReader, YUVWriter
@@ -173,6 +174,8 @@ def main(argv=None):
             on_trace_ready=torch.profiler.tensorboard_trace_handler(
                 args.profile_dir))
         prof.__enter__()
+        # the encoder's spans appear in the trace as user annotations
+        trace.start()
     n_in = 0
     for idx, frame in enumerate(rd):
         if idx < args.seek:
@@ -194,6 +197,7 @@ def main(argv=None):
             sys.stderr.flush()
     drain(enc.flush())
     if prof is not None:
+        trace.stop()
         prof.__exit__(None, None, None)
 
     el = time.time() - t0

@@ -19,6 +19,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from .. import trace
+
 
 def block_energy(planes, bit_depth: int = 8) -> np.ndarray:
     """[gh, gw] AC energy per 16x16 luma block (acEnergyCu semantics:
@@ -40,6 +42,7 @@ def block_energy(planes, bit_depth: int = 8) -> np.ndarray:
     return (vy[:gh, :gw] + vcb[:gh, :gw] + vcr[:gh, :gw]).astype(np.float64)
 
 
+@trace.spanned("aq")
 def aq_offsets(planes, aq_mode: int, strength: float,
                bit_depth: int = 8, normalize: bool = False) -> np.ndarray:
     """Per-16x16-block QP offsets [gh, gw] float (qpAqOffset analogue).

@@ -29,6 +29,7 @@ import functools
 import numpy as np
 import torch
 
+from .. import trace
 from .._util import f32, fma32, sample_dtype
 from ..common.geometry import PictureGeometry, intra_neighbor_coords
 from ..common.rdcost import level_bits
@@ -600,6 +601,7 @@ class CtuScan:
         inv32 = _inv_perm(t["xs"]["b32"], B32)
         inv_ctb = _inv_perm(t["lvl_ctu"].reshape(n_levels, lmax, 1), nctb)
 
+        @trace.spanned("scan")
         def run(oy, ocb, ocr, mode16, mode32, use32, qp_y, qp_cb, qp_cr,
                 lam=None, is_inter=None, ipred_y=None, ipred_cb=None,
                 ipred_cr=None, m32_in=None, rqt_ok=None, nr_offsets=None):
@@ -623,109 +625,120 @@ class CtuScan:
                     (n_levels, F * lmax) + tuple(x.shape[3:]))
 
             def T(a):
-                return torch.as_tensor(a, device=dev)
+                with trace.sync():
+                    return torch.as_tensor(a, device=dev)
 
             def static(a):
                 a = T(a)
                 return a.repeat((1, F) + (1,) * (a.dim() - 2))
 
-            b16t = T(t["xs"]["b16"]).long()
-            ctut = T(t["xs"]["ctu"]).long()
-            oy, ocb, ocr = (fr(x).to(i32) for x in (oy, ocb, ocr))
-            xs = {k: static(t["xs"][k]) for k in (
-                "cx", "cy", "l16_av", "c8_av", "l32_av", "c16_av",
-                "quad_ok")}
-            xs["o16y"] = lev(_to_blocks(oy, 16), b16t)
-            xs["o8c"] = torch.stack([lev(_to_blocks(ocb, 8), b16t),
-                                     lev(_to_blocks(ocr, 8), b16t)], 3)
-            xs["m16"] = lev(fr(mode16).to(i32), b16t)
-            xs["qp_y"] = lev(fr(qp_y).to(i32), ctut)
-            xs["qp_cb"] = lev(fr(qp_cb).to(i32), ctut)
-            xs["qp_cr"] = lev(fr(qp_cr).to(i32), ctut)
-            if has32:
-                b32t = T(t["xs"]["b32"]).long()
-                xs["o32y"] = lev(_to_blocks(oy, 32), b32t)
-                xs["o16cb"] = lev(_to_blocks(ocb, 16), b32t)
-                xs["o16cr"] = lev(_to_blocks(ocr, 16), b32t)
-                xs["m32"] = lev(fr(mode32).to(i32), b32t)
-                if not decide32:
-                    xs["use32"] = lev(fr(use32).to(torch.bool), b32t)
-            if decide32 or rqt:
-                lam_c = lev(fr(lam).to(torch.float32), ctut)
-                xs["lam"] = lam_c
-                if psy:
-                    # SAD-domain psy lambda: psyRd * 0.33 * sqrt(lam / 0.85)
-                    xs["plam"] = (f32(self.psy_rd * 0.33, dev)
-                                  * torch.sqrt(lam_c * f32(_INV_085, dev)))
-            if inter:
-                xs["inter"] = lev(fr(is_inter).to(torch.bool), b16t)
-                xs["ipy"] = lev(fr(ipred_y).to(i32), b16t)
-                xs["ipc"] = torch.stack([lev(fr(ipred_cb).to(i32), b16t),
-                                         lev(fr(ipred_cr).to(i32), b16t)],
-                                        3)
-                if decide32:
-                    m32b = (torch.zeros((F, B32), dtype=torch.bool,
-                                        device=dev)
-                            if m32_in is None else fr(m32_in).to(torch.bool))
-                    xs["m32_in"] = lev(m32b.reshape(F, -1), b32t)
-                if rqt:
-                    rq = (torch.ones((F, B16), dtype=torch.bool, device=dev)
-                          if rqt_ok is None else fr(rqt_ok).to(torch.bool))
-                    xs["rqt_ok"] = lev(rq.reshape(F, -1), b16t)
-            xs = {k: v.contiguous() for k, v in xs.items()}
-            nr_xs = {}
-            if self.noise_reduction:
-                # the offsets in the statistics' layout, count words zero
-                lay, words = nr_layout()
-                pack = np.zeros((words,), np.int32)
-                for cat, (o, nn) in lay.items():
-                    for cls, sfx in enumerate(("_i", "_p")):
-                        v = (nr_offsets or {}).get(cat + sfx)
-                        if v is not None:
-                            o1 = o + cls * (nn + 1)
-                            pack[o1:o1 + nn] = np.asarray(v)
-                nr_xs["nr_pack"] = torch.as_tensor(pack).to(dev)
+            with trace.span("scan.prep"):
+                b16t = T(t["xs"]["b16"]).long()
+                ctut = T(t["xs"]["ctu"]).long()
+                oy, ocb, ocr = (fr(x).to(i32) for x in (oy, ocb, ocr))
+                xs = {k: static(t["xs"][k]) for k in (
+                    "cx", "cy", "l16_av", "c8_av", "l32_av", "c16_av",
+                    "quad_ok")}
+                xs["o16y"] = lev(_to_blocks(oy, 16), b16t)
+                xs["o8c"] = torch.stack([lev(_to_blocks(ocb, 8), b16t),
+                                         lev(_to_blocks(ocr, 8), b16t)], 3)
+                xs["m16"] = lev(fr(mode16).to(i32), b16t)
+                xs["qp_y"] = lev(fr(qp_y).to(i32), ctut)
+                xs["qp_cb"] = lev(fr(qp_cb).to(i32), ctut)
+                xs["qp_cr"] = lev(fr(qp_cr).to(i32), ctut)
+                if has32:
+                    b32t = T(t["xs"]["b32"]).long()
+                    xs["o32y"] = lev(_to_blocks(oy, 32), b32t)
+                    xs["o16cb"] = lev(_to_blocks(ocb, 16), b32t)
+                    xs["o16cr"] = lev(_to_blocks(ocr, 16), b32t)
+                    xs["m32"] = lev(fr(mode32).to(i32), b32t)
+                    if not decide32:
+                        xs["use32"] = lev(fr(use32).to(torch.bool), b32t)
+                if decide32 or rqt:
+                    lam_c = lev(fr(lam).to(torch.float32), ctut)
+                    xs["lam"] = lam_c
+                    if psy:
+                        # SAD-domain psy lambda:
+                        # psyRd * 0.33 * sqrt(lam / 0.85)
+                        xs["plam"] = (f32(self.psy_rd * 0.33, dev)
+                                      * torch.sqrt(lam_c
+                                                   * f32(_INV_085, dev)))
+                if inter:
+                    xs["inter"] = lev(fr(is_inter).to(torch.bool), b16t)
+                    xs["ipy"] = lev(fr(ipred_y).to(i32), b16t)
+                    xs["ipc"] = torch.stack([lev(fr(ipred_cb).to(i32), b16t),
+                                             lev(fr(ipred_cr).to(i32), b16t)],
+                                            3)
+                    if decide32:
+                        m32b = (torch.zeros((F, B32), dtype=torch.bool,
+                                            device=dev)
+                                if m32_in is None
+                                else fr(m32_in).to(torch.bool))
+                        xs["m32_in"] = lev(m32b.reshape(F, -1), b32t)
+                    if rqt:
+                        rq = (torch.ones((F, B16), dtype=torch.bool,
+                                         device=dev)
+                              if rqt_ok is None
+                              else fr(rqt_ok).to(torch.bool))
+                        xs["rqt_ok"] = lev(rq.reshape(F, -1), b16t)
+                xs = {k: v.contiguous() for k, v in xs.items()}
+                nr_xs = {}
+                if self.noise_reduction:
+                    # the offsets in the statistics' layout, count words zero
+                    lay, words = nr_layout()
+                    pack = np.zeros((words,), np.int32)
+                    for cat, (o, nn) in lay.items():
+                        for cls, sfx in enumerate(("_i", "_p")):
+                            v = (nr_offsets or {}).get(cat + sfx)
+                            if v is not None:
+                                o1 = o + cls * (nn + 1)
+                                pack[o1:o1 + nn] = np.asarray(v)
+                    with trace.sync():
+                        nr_xs["nr_pack"] = torch.as_tensor(pack).to(dev)
 
-            def z(*shape):
-                return torch.zeros((F,) + shape, dtype=i32, device=dev)
+                def z(*shape):
+                    return torch.zeros((F,) + shape, dtype=i32, device=dev)
 
-            carry = (z(cw + 1, ctb), z(ch + 1, ctb), z(cw + 2, 2),
-                     z(cw + 1, ctbc), z(ch + 1, ctbc), z(cw + 2, 2),
-                     z(cw + 1, ctbc), z(ch + 1, ctbc), z(cw + 2, 2))
+                carry = (z(cw + 1, ctb), z(ch + 1, ctb), z(cw + 2, 2),
+                         z(cw + 1, ctbc), z(ch + 1, ctbc), z(cw + 2, 2),
+                         z(cw + 1, ctbc), z(ch + 1, ctbc), z(cw + 2, 2))
             ys_all = []
             nr_sum = None
             for li in range(n_levels):
-                xl = {k: v[li] for k, v in xs.items()}
-                xl.update(nr_xs)
-                if allow_kernel:
-                    carry, ys = ctu_step(self, inter, decide32, carry, xl,
-                                         plain)
-                else:
-                    carry, ys = plain(carry, xl)
-                ys_all.append(ys[:7] + ys[8:])
-                if ys[7] is not None:
-                    nr_sum = ys[7] if nr_sum is None else nr_sum + ys[7]
-            (lv16_s, lv8_s, lv32_s, lvc16_s, u32_s, int_y, int_c, tu8_s) = (
-                torch.stack([y[k] for y in ys_all]) if ys_all[0][k]
-                is not None else None for k in range(8))
-            outs = [frame_outputs(
-                *(None if v is None else v.narrow(dim, f * lmax, lmax)
-                  for v, dim in ((lv16_s, 2), (lv32_s, 2), (u32_s, 2),
-                                 (int_y, 1), (tu8_s, 2))),
-                *(None if v is None else v.reshape(
-                    v.shape[:dim] + (2, F, lmax) + v.shape[dim + 1:]).select(
-                        dim + 1, f)
-                  for v, dim in ((lv8_s, 2), (lvc16_s, 2), (int_c, 1))),
-                None if nr_sum is None else nr_sum[f])
-                for f in range(F)]
-            if not batched:
-                return outs[0]
-            return tuple(None if o[0] is None else torch.stack(o)
-                         for o in list(zip(*outs))[:11]) + (
-                None if nr_sum is None else {
-                    cat: tuple(torch.stack(v) for v in zip(
-                        *(o[11][cat] for o in outs)))
-                    for cat in outs[0][11]},)
+                with trace.span("scan.level"):
+                    xl = {k: v[li] for k, v in xs.items()}
+                    xl.update(nr_xs)
+                    if allow_kernel:
+                        carry, ys = ctu_step(self, inter, decide32, carry, xl,
+                                             plain)
+                    else:
+                        carry, ys = plain(carry, xl)
+                    ys_all.append(ys[:7] + ys[8:])
+                    if ys[7] is not None:
+                        nr_sum = ys[7] if nr_sum is None else nr_sum + ys[7]
+            with trace.span("scan.unpack"):
+                (lv16_s, lv8_s, lv32_s, lvc16_s, u32_s, int_y, int_c,
+                 tu8_s) = (torch.stack([y[k] for y in ys_all])
+                           if ys_all[0][k] is not None else None
+                           for k in range(8))
+                outs = [frame_outputs(
+                    *(None if v is None else v.narrow(dim, f * lmax, lmax)
+                      for v, dim in ((lv16_s, 2), (lv32_s, 2), (u32_s, 2),
+                                     (int_y, 1), (tu8_s, 2))),
+                    *(None if v is None else v.reshape(
+                        v.shape[:dim] + (2, F, lmax)
+                        + v.shape[dim + 1:]).select(dim + 1, f)
+                      for v, dim in ((lv8_s, 2), (lvc16_s, 2), (int_c, 1))),
+                    None if nr_sum is None else nr_sum[f])
+                    for f in range(F)]
+                if not batched:
+                    return outs[0]
+                return tuple(None if o[0] is None else torch.stack(o)
+                             for o in list(zip(*outs))[:11]) + (
+                    None if nr_sum is None else {
+                        cat: tuple(torch.stack(v) for v in zip(
+                            *(o[11][cat] for o in outs)))
+                        for cat in outs[0][11]},)
 
         def frame_outputs(lv16_s, lv32_s, u32_s, int_y, tu8_s, lv8_s,
                           lvc16_s, int_c, nr):
@@ -734,7 +747,8 @@ class CtuScan:
             dev = int_y.device
 
             def T(a):
-                return torch.as_tensor(a, device=dev)
+                with trace.sync():
+                    return torch.as_tensor(a, device=dev)
 
             def tiles_to_plane(tiles, size):
                 flat = torch.cat([tiles.reshape(-1, size, size),

@@ -25,6 +25,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import trace
 from .._util import dev_table, f32, fma32, sample_dtype
 from ..cabac.ctu import _CHROMA_QP_MAP
 from ..ops.cost import satd
@@ -211,6 +212,7 @@ def _filter_stage_builder(enc):
     wl = g.width - 2 * (cw0 + cr0)
     hl = g.height - 2 * (ct0 + cb0)
 
+    @trace.spanned("loopfilter")
     def finish(oy3, scan_out, qp_base, dqp_cb, dqp_cr, sao_lam,
                inter=None, mv=None, motion_b=None, qp_base_ctb=None,
                merged=None):
@@ -253,58 +255,60 @@ def _filter_stage_builder(enc):
             if has32:
                 cbf32 = (lv32_y != 0).any(2).any(1).reshape(gh32, gw32)
                 cbf4 = torch.where(_rep(u, 8), _rep(cbf32, 8), cbf4)
-            planes = deblock_picture(
-                planes, intra4, cbf4, mv4, u if has32 else None, masks,
-                dqp_y, dqp_cb, dqp_cr, bd, p.deblock_beta_offset,
-                p.deblock_tc_offset, motion_b=motion_b)
+            with trace.span("deblock"):
+                planes = deblock_picture(
+                    planes, intra4, cbf4, mv4, u if has32 else None, masks,
+                    dqp_y, dqp_cb, dqp_cr, bd, p.deblock_beta_offset,
+                    p.deblock_tc_offset, motion_b=motion_b)
 
         nctb = g.n_ctbs
         small = {}
         if p.sao:
-            oy, ocb, ocr = (x.to(torch.int32) for x in oy3)
-            lam_t = f32(sao_lam, dev)
-            dist, offs, bpos, bits = sao_estimate_plane(
-                oy, planes[0], chw, cww, ctb, eo_y, in_y, bd)
-            cost = fma32(lam_t, bits, dist)
-            cost[..., 0] = 0.0
-            best = torch.argmin(cost, -1).to(torch.int32)
-            db, ob_, pb, bb = sao_estimate_plane(
-                ocb, planes[1], chw, cww, ctb // 2, eo_c, in_c, bd)
-            dr, orr, pr, br = sao_estimate_plane(
-                ocr, planes[2], chw, cww, ctb // 2, eo_c, in_c, bd)
-            cost_c = fma32(lam_t, bb + br, db + dr)
-            cost_c[..., 0] = 0.0
-            best_c = torch.argmin(cost_c, -1).to(torch.int32)
+            with trace.span("sao"):
+                oy, ocb, ocr = (x.to(torch.int32) for x in oy3)
+                lam_t = f32(sao_lam, dev)
+                dist, offs, bpos, bits = sao_estimate_plane(
+                    oy, planes[0], chw, cww, ctb, eo_y, in_y, bd)
+                cost = fma32(lam_t, bits, dist)
+                cost[..., 0] = 0.0
+                best = torch.argmin(cost, -1).to(torch.int32)
+                db, ob_, pb, bb = sao_estimate_plane(
+                    ocb, planes[1], chw, cww, ctb // 2, eo_c, in_c, bd)
+                dr, orr, pr, br = sao_estimate_plane(
+                    ocr, planes[2], chw, cww, ctb // 2, eo_c, in_c, bd)
+                cost_c = fma32(lam_t, bb + br, db + dr)
+                cost_c[..., 0] = 0.0
+                best_c = torch.argmin(cost_c, -1).to(torch.int32)
 
-            def params_of(best_, offs_, bpos_):
-                types = torch.where(best_ == 0, 0,
-                                    torch.where(best_ == 5, 1, 2))
-                klass = (best_ - 1).clamp(0, 3)
-                osel = torch.gather(
-                    offs_, -2, best_.long()[..., None, None].expand(
-                        *best_.shape, 1, 4))[..., 0, :]
-                return types, klass, osel.to(torch.int32), bpos_
+                def params_of(best_, offs_, bpos_):
+                    types = torch.where(best_ == 0, 0,
+                                        torch.where(best_ == 5, 1, 2))
+                    klass = (best_ - 1).clamp(0, 3)
+                    osel = torch.gather(
+                        offs_, -2, best_.long()[..., None, None].expand(
+                            *best_.shape, 1, 4))[..., 0, :]
+                    return types, klass, osel.to(torch.int32), bpos_
 
-            ty, ky, oy_sel, by_ = params_of(best, offs, bpos)
-            tc_, kc, ob_sel, bb_ = params_of(best_c, ob_, pb)
-            _, _, or_sel, br_ = params_of(best_c, orr, pr)
-            planes = (
-                sao_apply_plane(planes[0], chw, cww, ctb, ty, ky, by_,
-                                oy_sel, eo_y, bd),
-                sao_apply_plane(planes[1], chw, cww, ctb // 2, tc_, kc, bb_,
-                                ob_sel, eo_c, bd),
-                sao_apply_plane(planes[2], chw, cww, ctb // 2, tc_, kc, br_,
-                                or_sel, eo_c, bd))
-            small["sao_type"] = torch.stack([ty.reshape(-1),
-                                             tc_.reshape(-1)], 1)
-            small["sao_class"] = torch.stack([ky.reshape(-1),
-                                              kc.reshape(-1)], 1)
-            small["sao_bpos"] = torch.stack([by_.reshape(-1),
-                                             bb_.reshape(-1),
-                                             br_.reshape(-1)], 1)
-            small["sao_offs"] = torch.stack([oy_sel.reshape(-1, 4),
-                                             ob_sel.reshape(-1, 4),
-                                             or_sel.reshape(-1, 4)], 1)
+                ty, ky, oy_sel, by_ = params_of(best, offs, bpos)
+                tc_, kc, ob_sel, bb_ = params_of(best_c, ob_, pb)
+                _, _, or_sel, br_ = params_of(best_c, orr, pr)
+                planes = (
+                    sao_apply_plane(planes[0], chw, cww, ctb, ty, ky, by_,
+                                    oy_sel, eo_y, bd),
+                    sao_apply_plane(planes[1], chw, cww, ctb // 2, tc_, kc,
+                                    bb_, ob_sel, eo_c, bd),
+                    sao_apply_plane(planes[2], chw, cww, ctb // 2, tc_, kc,
+                                    br_, or_sel, eo_c, bd))
+                small["sao_type"] = torch.stack([ty.reshape(-1),
+                                                 tc_.reshape(-1)], 1)
+                small["sao_class"] = torch.stack([ky.reshape(-1),
+                                                  kc.reshape(-1)], 1)
+                small["sao_bpos"] = torch.stack([by_.reshape(-1),
+                                                 bb_.reshape(-1),
+                                                 br_.reshape(-1)], 1)
+                small["sao_offs"] = torch.stack([oy_sel.reshape(-1, 4),
+                                                 ob_sel.reshape(-1, 4),
+                                                 or_sel.reshape(-1, 4)], 1)
         else:
             zi = torch.zeros
             small["sao_type"] = zi((nctb, 2), dtype=torch.int32, device=dev)
@@ -312,10 +316,12 @@ def _filter_stage_builder(enc):
             small["sao_bpos"] = zi((nctb, 3), dtype=torch.int32, device=dev)
             small["sao_offs"] = zi((nctb, 3, 4), dtype=torch.int32,
                                    device=dev)
+        with trace.span("checksum"):
+            checksums = _plane_checksums(planes, bd, g)
         small.update(cy=cy.to(torch.int16), ccb=ccb.to(torch.int16),
                      ccr=ccr.to(torch.int16),
                      qp_actual=qp_actual.to(torch.int32),
-                     checksums=_plane_checksums(planes, bd, g))
+                     checksums=checksums)
         if merged is not None:
             small["m32"], small["m64"] = merged
         out_planes = tuple(pl.to(sample_dtype(bd)) for pl in planes)
@@ -372,6 +378,7 @@ def _analyse_builder(enc, n, gh, gw, ph, pw):
         top = ypad[trow, tcol]                      # [gh, gw, 2n]
         return torch.cat([lc.flip(-1), top], -1).reshape(gh * gw, 4 * n + 1)
 
+    @trace.spanned("analysis")
     def analyse(y):
         refs = substitute_references(analysis_refs(y), avails,
                                      enc.bit_depth)
@@ -563,6 +570,7 @@ def _inter_tools_builder(enc):
         """Per-block constants of one frame repeated for B // nb frames."""
         return a if B == nb else a.repeat(B // nb)
 
+    @trace.spanned("search")
     def me(orig, ref_ext, ob, lam):
         """Per-block motion for one reference: returns (mv [B, 2] (x, y)
         qpel, cost [B] float32, pred [B, 16, 16]).  ``orig`` is one frame
@@ -614,10 +622,11 @@ def _inter_tools_builder(enc):
         W = _block_windows(S, dl[:, 0] + RF, dl[:, 1] + RF, n + 9)
 
         # K2 takes one lambda, or one per block for several frames
-        q0, pred, cost = refine(W.contiguous(), ob.contiguous(),
-                                mvi.contiguous(), pmv.contiguous(),
-                                lam_f if lam_f.numel() == 1 else lam_b,
-                                int(enc.params.subme), MRQ, bd)
+        with trace.span("search.k2"):
+            q0, pred, cost = refine(W.contiguous(), ob.contiguous(),
+                                    mvi.contiguous(), pmv.contiguous(),
+                                    lam_f if lam_f.numel() == 1 else lam_b,
+                                    int(enc.params.subme), MRQ, bd)
         mvq = mvi * 4 + q0
 
         # MV coherence: adopt the west / north neighbour's MV when its
@@ -653,11 +662,13 @@ def _inter_tools_builder(enc):
         return _windows(ref_ext, _tile(by0, B) + M - 3 + (mv[:, 1] >> 2),
                         _tile(bx0, B) + M - 3 + (mv[:, 0] >> 2), n + 7)
 
+    @trace.spanned("search")
     def eval_mv_ps(ref_ext, mv):
         """14-bit luma prediction at per-block (x, y) qpel MVs."""
         return mc_luma_batch_ps(_luma_windows(ref_ext, mv), mv[:, 0] & 3,
                                 mv[:, 1] & 3, n, n, bd)
 
+    @trace.spanned("search")
     def eval_mv(ref_ext, mv):
         """Pixel-domain luma prediction at per-block (x, y) qpel MVs."""
         return mc_luma_batch(_luma_windows(ref_ext, mv), mv[:, 0] & 3,
@@ -668,18 +679,21 @@ def _inter_tools_builder(enc):
         return _windows(ref_c, _tile(cby0, B) + CM - 1 + (mv[:, 1] >> 3),
                         _tile(cbx0, B) + CM - 1 + (mv[:, 0] >> 3), cn + 3)
 
+    @trace.spanned("search")
     def chroma_pred(ref_c, mv):
         return mc_chroma_batch(_chroma_windows(ref_c, mv), mv[:, 0] & 7,
                                mv[:, 1] & 7, cn, cn, bd)
 
+    @trace.spanned("search")
     def chroma_pred_ps(ref_c, mv):
         return mc_chroma_batch_ps(_chroma_windows(ref_c, mv), mv[:, 0] & 7,
                                   mv[:, 1] & 7, cn, cn, bd)
 
     return dict(me=me, eval_mv_ps=eval_mv_ps, eval_mv=eval_mv,
                 chroma_pred=chroma_pred, chroma_pred_ps=chroma_pred_ps,
-                satd=satd, bi_avg=lambda a, b: bi_avg(a, b, bd), R=R, M=M,
-                CM=CM)
+                satd=satd,
+                bi_avg=trace.spanned("search")(lambda a, b: bi_avg(a, b, bd)),
+                R=R, M=M, CM=CM)
 
 
 def _quad_helpers(g, F, dev):
@@ -694,9 +708,11 @@ def _quad_helpers(g, F, dev):
     def inbounds(bs):
         by = (np.arange(gh) // bs) * bs * 16
         bx = (np.arange(gw) // bs) * bs * 16
-        return torch.as_tensor((by[:, None] + bs * 16 <= g.height)
-                               & (bx[None, :] + bs * 16 <= g.width),
-                               device=dev).reshape(-1).repeat(F)
+        with trace.sync():
+            ok = torch.as_tensor((by[:, None] + bs * 16 <= g.height)
+                                 & (bx[None, :] + bs * 16 <= g.width),
+                                 device=dev)
+        return ok.reshape(-1).repeat(F)
 
     def qsum(a, bs):
         # in row-major order of the quad's blocks: the reference's reduce
@@ -779,7 +795,8 @@ def build_p_pipeline(enc, nr: int = 1, batch: int | None = None):
     def per_frame(x):
         """One int32 value per frame -> [F, 1, 1] and per block [F*nb, 1,
         1]."""
-        t = torch.tensor(_frames(x), dtype=torch.int32, device=dev)
+        with trace.sync():
+            t = torch.tensor(_frames(x), dtype=torch.int32, device=dev)
         return t[:, None, None], t.repeat_interleave(nb)[:, None, None]
 
     def prep(oy, refs_y, refs_cb, refs_cr, qp_base, rbits, wy, wo):
@@ -797,7 +814,9 @@ def build_p_pipeline(enc, nr: int = 1, batch: int | None = None):
             mode32 = modes.reshape(F, gh, gw)[:, 0::2, 0::2].reshape(F, -1)
         else:
             mode32 = torch.zeros((F, B32), dtype=torch.int32, device=dev)
-        lam_f = torch.stack([me_lambda(q) for q in _frames(qp_base)]).to(dev)
+        lam_f = torch.stack([me_lambda(q) for q in _frames(qp_base)])
+        with trace.sync():
+            lam_f = lam_f.to(dev)
         lam = lam_f.repeat_interleave(nb)              # [F * nb]
         (wy_f, wy_b), (wo_f, wo_b) = per_frame(wy), per_frame(wo)
         scale = 1 << (bd - 8)
@@ -942,11 +961,13 @@ def build_p_pipeline(enc, nr: int = 1, batch: int | None = None):
         (modes, mode32, mv, rsel, inter, pred_y, pred_cb, pred_cr,
          cost_p, cost_i) = prep(oy, refs_y, refs_cb, refs_cr, qp_base, rbits,
                                 wy, wo)
+        with trace.sync():
+            pocs = torch.as_tensor(np.asarray(ref_pocs, np.int32),
+                                   device=dev)
         small, tails, ext = main(
             oy, ocb, ocr, modes, mode32, mv, rsel, inter, pred_y, pred_cb,
             pred_cr, qpy, qpb, qpr, lam, qp_base, dqp_cb, dqp_cr, sao_lam,
-            qp_base_ctb, torch.as_tensor(np.asarray(ref_pocs, np.int32),
-                                         device=dev), nr_offsets)
+            qp_base_ctb, pocs, nr_offsets)
         small = dict(small, modes=modes, mode32=mode32, mv=mv.to(torch.int16),
                      ref_idx=rsel, inter=inter, cost_p=cost_p, cost_i=cost_i)
         if not batch:
@@ -1006,7 +1027,9 @@ def build_b_pipeline(enc, batch: int | None = None, make_ext: bool = False):
         """Returns (modes, mode32, mv0, mv1, d, inter, pred_y, pred_cb,
         pred_cr), each with a leading frame dimension when batched."""
         oy = oy.reshape(F, ph, pw)
-        lam_f = torch.stack([me_lambda(q) for q in _frames(qp_base)]).to(dev)
+        lam_f = torch.stack([me_lambda(q) for q in _frames(qp_base)])
+        with trace.sync():
+            lam_f = lam_f.to(dev)
         lam = lam_f.repeat_interleave(nb)              # [F * nb]
         an = [analyse16(oy[f]) for f in range(F)]
         modes = torch.stack([a[0] for a in an])

@@ -34,6 +34,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .. import trace
 from .._util import to_device, to_host_samples
 from ..cabac.ctu import MODE_INTER, MODE_INTRA, PicSyntax, chroma_qp
 from ..common.bitstream import (NAL_AUD, NAL_IDR_W_RADL, NAL_PPS,
@@ -160,7 +161,9 @@ def fetch_packed(small: dict) -> dict:
         b = x.contiguous().view(torch.uint8)
         metas.append((n, host_dt, tuple(v.shape), b.numel()))
         parts.append(b)
-    buf = torch.cat(parts).cpu().numpy()
+    packed = torch.cat(parts)
+    with trace.sync():
+        buf = packed.cpu().numpy()
     out, off = {}, 0
     for n, host_dt, shape, nb in metas:
         store = np.uint8 if host_dt == bool else host_dt
@@ -306,7 +309,7 @@ class Encoder:
                     self._nr_offsets[cat + sfx] = np.zeros((nn,),
                                                            np.int32)
         # stage wall-clock accounting, rendered by summary()
-        self._clock = _time.time
+        self._clock = _time.perf_counter
         self._t0 = self._clock()
         self._perf = {"frames": 0, "bytes": 0, "qp_sum": 0,
                       "fetch_wait": 0.0, "entropy": 0.0,
@@ -459,6 +462,7 @@ class Encoder:
             out += wrap_nal(NAL_PREFIX_SEI, sei)
         return out
 
+    @trace.spanned("complexity")
     def _complexity_estimate(self, orig, is_p: bool) -> float:
         y = orig[0].astype(np.int32)
         half = (y[0::2, 0::2] + y[1::2, 0::2]
@@ -754,6 +758,7 @@ class Encoder:
                                        | set(keep_extra))
                 self._inflight.append(bp)
 
+    @trace.spanned("lookahead")
     def _slicetype_decide(self) -> int:
         """Adaptive B placement (b-adapt): a trellis over the queued
         display-order window.  Every segmentation of the window is scored
@@ -823,221 +828,231 @@ class Encoder:
         deferred B only stashes its inputs: ``_dispatch_b_batch`` runs
         them; with ``defer_all`` any picture only stashes them, for an
         outside batcher such as ``parallel.gop``)."""
-        g = self.geom
-        p = self.params
-        ph = g.ctbs_h << g.log2_ctb
-        pw = g.ctbs_w << g.log2_ctb
-        orig = (pad_plane(np.asarray(planes[0]), ph, pw),
-                pad_plane(np.asarray(planes[1]), ph // 2, pw // 2),
-                pad_plane(np.asarray(planes[2]), ph // 2, pw // 2))
-        if kind != "I" and (self.force_all_intra or l0_poc is None):
-            kind = "I"
-            poc = 0
-        is_p = kind == "P"
-        is_b = kind == "B"
-        # frame complexity for rate control: the lowres lookahead cost when
-        # the window is active, else the inline half-res estimate
-        if cplx is None:
-            if la is not None and la[1]:
-                cplx = float(la[1])
+        with trace.span("dispatch", didx, default=self._display_idx):
+            g = self.geom
+            p = self.params
+            ph = g.ctbs_h << g.log2_ctb
+            pw = g.ctbs_w << g.log2_ctb
+            with trace.span("pad"):
+                orig = (pad_plane(np.asarray(planes[0]), ph, pw),
+                        pad_plane(np.asarray(planes[1]), ph // 2, pw // 2),
+                        pad_plane(np.asarray(planes[2]), ph // 2, pw // 2))
+            if kind != "I" and (self.force_all_intra or l0_poc is None):
+                kind = "I"
+                poc = 0
+            is_p = kind == "P"
+            is_b = kind == "B"
+            # frame complexity for rate control: the lowres lookahead cost when
+            # the window is active, else the inline half-res estimate
+            if cplx is None:
+                if la is not None and la[1]:
+                    cplx = float(la[1])
+                else:
+                    cplx = self._complexity_estimate(orig, kind != "I")
+            self._la_off16 = la[0] if la is not None else None
+            self.qp = self.rc.frame_qp(is_intra=kind == "I", satd=cplx,
+                                       is_b=is_b, is_ref_b=ref_b)
+            ov = self._qp_override(didx)
+            if ov is not None:
+                self.qp = int(ov)
+
+            cu_size = min(16, 1 << g.log2_ctb)
+            cu_log2 = cu_size.bit_length() - 1
+            sps = self.sps
+            ps = PicSyntax(
+                g, max_tr_depth_intra=sps.max_transform_hierarchy_depth_intra,
+                max_tr_depth_inter=sps.max_transform_hierarchy_depth_inter,
+                sign_hiding=bool(self.pps.sign_data_hiding),
+                slice_qp=self.qp, cu_qp_delta_enabled=self.aq)
+            ps.depth[:] = g.log2_ctb - cu_log2
+            ps.pred_mode[:] = MODE_INTRA
+            ps.tu_depth[:] = 0
+            self._qp_plan(orig)
+
+            ps.cur_poc = poc
+            if is_p and l0_poc is not None:
+                active = [q for q in self._ref_pocs if q < poc]
+                if l0_poc not in active:
+                    active = [l0_poc] + active
+                ps.ref_pocs_l0 = tuple(active[:self.num_ref])
             else:
-                cplx = self._complexity_estimate(orig, kind != "I")
-        self._la_off16 = la[0] if la is not None else None
-        self.qp = self.rc.frame_qp(is_intra=kind == "I", satd=cplx,
-                                   is_b=is_b, is_ref_b=ref_b)
-        ov = self._qp_override(didx)
-        if ov is not None:
-            self.qp = int(ov)
+                ps.ref_pocs_l0 = (l0_poc,) if l0_poc is not None else ()
+            ps.ref_pocs_l1 = (l1_poc,) if l1_poc is not None else ()
+            # every picture the DPB must keep past this frame (for Bs also the
+            # already-dispatched next anchor)
+            ps.rps_keep = tuple(self._ref_pocs)
 
-        cu_size = min(16, 1 << g.log2_ctb)
-        cu_log2 = cu_size.bit_length() - 1
-        ps = PicSyntax(
-            g, max_tr_depth_intra=self.sps.max_transform_hierarchy_depth_intra,
-            max_tr_depth_inter=self.sps.max_transform_hierarchy_depth_inter,
-            sign_hiding=bool(self.pps.sign_data_hiding),
-            slice_qp=self.qp, cu_qp_delta_enabled=self.aq)
-        ps.depth[:] = g.log2_ctb - cu_log2
-        ps.pred_mode[:] = MODE_INTRA
-        ps.tu_depth[:] = 0
-        self._qp_plan(orig)
-
-        ps.cur_poc = poc
-        if is_p and l0_poc is not None:
-            active = [q for q in self._ref_pocs if q < poc]
-            if l0_poc not in active:
-                active = [l0_poc] + active
-            ps.ref_pocs_l0 = tuple(active[:self.num_ref])
-        else:
-            ps.ref_pocs_l0 = (l0_poc,) if l0_poc is not None else ()
-        ps.ref_pocs_l1 = (l1_poc,) if l1_poc is not None else ()
-        # every picture the DPB must keep past this frame (for Bs also the
-        # already-dispatched next anchor)
-        ps.rps_keep = tuple(self._ref_pocs)
-
-        pend = _Pending(poc=poc, kind=kind, qp=self.qp, ps=ps,
-                        display_idx=0, planes=planes, orig=orig,
-                        l0_poc=l0_poc, l1_poc=l1_poc, cu_size=cu_size)
-        if p.weightp and kind != "B":
-            self._wp_src[poc] = np.asarray(planes[0])
-            while len(self._wp_src) > 4:
-                self._wp_src.pop(next(iter(self._wp_src)))
-        ref_src = self._wp_src.get(l0_poc) if is_p and p.weightp else None
-        if ref_src is not None and ref_src.shape == np.asarray(
-                planes[0]).shape:
-            from .weights import analyse_luma_weight
-            pend.wp = analyse_luma_weight(np.asarray(planes[0]), ref_src,
-                                          self.bit_depth)
-        ps.wp_entry = pend.wp
-        if p.lossless:
-            pend.rec = self._encode_lossless(ps, orig)
-            return pend
-        if defer_all:
-            # the batcher stacks the device inputs of several encoders
-            pend.qp_arrays = self._qp_arrays
-            pend.filter_qps = self._filter_qps()
-        elif is_b:
-            ps.b_is_ref = ref_b         # TRAIL_R
-            if defer_b:
-                # batched mini-GOP dispatch: _dispatch_b_batch stacks these
+            pend = _Pending(poc=poc, kind=kind, qp=self.qp, ps=ps,
+                            display_idx=0, planes=planes, orig=orig,
+                            l0_poc=l0_poc, l1_poc=l1_poc, cu_size=cu_size)
+            if p.weightp and kind != "B":
+                self._wp_src[poc] = np.asarray(planes[0])
+                while len(self._wp_src) > 4:
+                    self._wp_src.pop(next(iter(self._wp_src)))
+            ref_src = (self._wp_src.get(l0_poc) if is_p and p.weightp
+                       else None)
+            if ref_src is not None and ref_src.shape == np.asarray(
+                    planes[0]).shape:
+                from .weights import analyse_luma_weight
+                with trace.span("weightp"):
+                    pend.wp = analyse_luma_weight(np.asarray(planes[0]),
+                                                  ref_src, self.bit_depth)
+            ps.wp_entry = pend.wp
+            if p.lossless:
+                pend.rec = self._encode_lossless(ps, orig)
+                return pend
+            if defer_all:
+                # the batcher stacks the device inputs of several encoders
                 pend.qp_arrays = self._qp_arrays
                 pend.filter_qps = self._filter_qps()
-            elif ref_b:
-                pend.out_dev, pend.ext = self._dispatch_b_ref(
-                    orig, l0_poc, l1_poc)
+            elif is_b:
+                ps.b_is_ref = ref_b         # TRAIL_R
+                if defer_b:
+                    # batched mini-GOP dispatch: _dispatch_b_batch stacks these
+                    pend.qp_arrays = self._qp_arrays
+                    pend.filter_qps = self._filter_qps()
+                elif ref_b:
+                    pend.out_dev, pend.ext = self._dispatch_b_ref(
+                        orig, l0_poc, l1_poc)
+                else:
+                    pend.out_dev = self._dispatch_b(orig, l0_poc, l1_poc)
+            elif is_p:
+                pend.out_dev, pend.ext = self._dispatch_p(
+                    orig, ps.ref_pocs_l0, pend.wp)
+                pend.allow_scenecut = bool(p.scenecut_threshold
+                                           and self.bframes == 0
+                                           and not self._use_lookahead)
             else:
-                pend.out_dev = self._dispatch_b(orig, l0_poc, l1_poc)
-        elif is_p:
-            pend.out_dev, pend.ext = self._dispatch_p(
-                orig, ps.ref_pocs_l0, pend.wp)
-            pend.allow_scenecut = bool(p.scenecut_threshold
-                                       and self.bframes == 0
-                                       and not self._use_lookahead)
-        else:
-            pend.out_dev, pend.ext = self._dispatch_i(orig)
-        return pend
+                pend.out_dev, pend.ext = self._dispatch_i(orig)
+            return pend
 
     def _finish_one(self, pend: _Pending) -> EncodedFrame:
         """Host finish: fetch, scatter syntax, derive inter syntax,
         entropy-code, hash SEI, rate control."""
-        p = self.params
-        self.qp = pend.qp
-        ps = pend.ps
-        kind = pend.kind
-        is_p = kind == "P"
-        is_b = kind == "B"
-        poc = pend.poc
-        keyint = max(1, p.keyint_max)
-        if pend.out_dev is None:
-            o = None
-        elif is_b:
-            o = self._finish_b(pend)
-        elif is_p:
-            o = self._finish_p(pend)
-            cost_p, cost_i = self.last_frame_costs
-            if (pend.allow_scenecut and not self._inflight
-                    and cost_p > 0.85 * cost_i
-                    and poc % keyint >= self._min_keyint()):
-                # scene change: restart the GOP with an IDR
-                redo = self._dispatch_one(pend.planes, 0, "I", cplx=0.0)
-                redo.display_idx = pend.display_idx
-                self._cvs_base = pend.display_idx
-                self._after_anchor(redo, idr=True)
-                return self._finish_one(redo)
-        else:
-            o = self._finish_i(pend)
-        if o is None:
-            # lossless: the recon is the source; no loop filter runs
-            checksums = None
-            cw, ch_ = self.sps.pic_width, self.sps.pic_height
-            rec = pend.rec
-            coded_rec = (rec[0][:ch_, :cw], rec[1][:ch_ // 2, :cw // 2],
-                         rec[2][:ch_ // 2, :cw // 2])
-            cl, cr, ct, cb = self.sps.conf_win
-            wl = cw - 2 * (cl + cr)
-            hl = ch_ - 2 * (ct + cb)
-            rec_crop = (
-                coded_rec[0][2 * ct:2 * ct + hl, 2 * cl:2 * cl + wl],
-                coded_rec[1][ct:ct + hl // 2, cl:cl + wl // 2],
-                coded_rec[2][ct:ct + hl // 2, cl:cl + wl // 2])
-        else:
-            checksums = o["checksums"]
-            tails = pend.out_dev[1]
-            coded_rec = tails["rec_coded"]
-            rec_crop = tails["rec_conf"]
-            k = pend.batch_idx
-            if k is not None:
-                coded_rec = tuple(pl[k] for pl in coded_rec)
-                rec_crop = tuple(pl[k] for pl in rec_crop)
-            rec_crop = tuple(to_host_samples(pl) for pl in rec_crop)
-
-        st = SLICE_B if is_b else SLICE_P if is_p else SLICE_I
-        au = self._entropy_encode(ps, st, poc)
-        if self.dpb.get(poc) is pend:
-            self.dpb[poc] = coded_rec
-
-        if p.decoded_picture_hash:
-            if (p.decoded_picture_hash == HASH_CHECKSUM
-                    and checksums is not None):
-                payload = bytes([2]) + b"".join(
-                    int(c).to_bytes(4, "big") for c in checksums)
+        with trace.span("finish", pend.display_idx):
+            p = self.params
+            self.qp = pend.qp
+            ps = pend.ps
+            kind = pend.kind
+            is_p = kind == "P"
+            is_b = kind == "B"
+            poc = pend.poc
+            keyint = max(1, p.keyint_max)
+            if pend.out_dev is None:
+                o = None
+            elif is_b:
+                o = self._finish_b(pend)
+            elif is_p:
+                o = self._finish_p(pend)
+                cost_p, cost_i = self.last_frame_costs
+                if (pend.allow_scenecut and not self._inflight
+                        and cost_p > 0.85 * cost_i
+                        and poc % keyint >= self._min_keyint()):
+                    # scene change: restart the GOP with an IDR
+                    redo = self._dispatch_one(pend.planes, 0, "I", cplx=0.0)
+                    redo.display_idx = pend.display_idx
+                    self._cvs_base = pend.display_idx
+                    self._after_anchor(redo, idr=True)
+                    return self._finish_one(redo)
             else:
-                payload = picture_hash_payload(
-                    [pl if o is None else to_host_samples(pl)
-                     for pl in coded_rec], self.bit_depth,
-                    hash_type=p.decoded_picture_hash - 1)
-            sei = write_sei_rbsp([(SEI_DECODED_PICTURE_HASH, payload)])
-            au += wrap_nal(NAL_SUFFIX_SEI, sei, long_start_code=False)
+                o = self._finish_i(pend)
+            if o is None:
+                # lossless: the recon is the source; no loop filter runs
+                checksums = None
+                cw, ch_ = self.sps.pic_width, self.sps.pic_height
+                rec = pend.rec
+                coded_rec = (rec[0][:ch_, :cw], rec[1][:ch_ // 2, :cw // 2],
+                             rec[2][:ch_ // 2, :cw // 2])
+                cl, cr, ct, cb = self.sps.conf_win
+                wl = cw - 2 * (cl + cr)
+                hl = ch_ - 2 * (ct + cb)
+                rec_crop = (
+                    coded_rec[0][2 * ct:2 * ct + hl, 2 * cl:2 * cl + wl],
+                    coded_rec[1][ct:ct + hl // 2, cl:cl + wl // 2],
+                    coded_rec[2][ct:ct + hl // 2, cl:cl + wl // 2])
+            else:
+                checksums = o["checksums"]
+                tails = pend.out_dev[1]
+                coded_rec = tails["rec_coded"]
+                rec_crop = tails["rec_conf"]
+                k = pend.batch_idx
+                if k is not None:
+                    coded_rec = tuple(pl[k] for pl in coded_rec)
+                    rec_crop = tuple(pl[k] for pl in rec_crop)
+                rec_crop = tuple(to_host_samples(pl) for pl in rec_crop)
 
-        if self.hrd:
-            # prefix SEI NAL: buffering-period on IRAP AUs + pic-timing
-            # on every AU
-            sps = self.sps
-            order = self.frames_encoded
-            msgs = []
-            if kind == "I":
-                # hrdFullness: the 90 kHz delay from the CPB fill that the
-                # rate control tracks
-                fill = int(self.rc.buffer_fill)
-                dly = (90000 * fill + self._hrd_bitrate_unscale) \
-                    // self._hrd_bitrate_unscale
-                off = (90000 * self._hrd_cpb_unscale
-                       + self._hrd_bitrate_unscale) \
-                    // self._hrd_bitrate_unscale - dly
-                msgs.append((SEI_BUFFERING_PERIOD,
-                             buffering_period_payload(sps, dly, off)))
-                self._last_bp_order = order
-                self._cvs_finish_base = order
-            rem = min(max(1, order - self._last_bp_order),
-                      1 << sps.hrd_cpb_removal_len)
-            out_delay = max(0, sps.num_reorder_pics + poc
-                            - (order - self._cvs_finish_base))
-            msgs.append((SEI_PIC_TIMING,
-                         pic_timing_payload(sps, rem, out_delay)))
-            # inherited from the reference and kept so the streams stay
-            # equal: a 3-byte start code, though the NAL opens the AU
-            au = wrap_nal(NAL_PREFIX_SEI, write_sei_rbsp(msgs),
-                          long_start_code=False) + au
+            st = SLICE_B if is_b else SLICE_P if is_p else SLICE_I
+            au = self._entropy_encode(ps, st, poc)
+            if self.dpb.get(poc) is pend:
+                self.dpb[poc] = coded_rec
 
-        if p.repeat_headers and kind == "I" and self.frames_encoded > 0:
-            au = self.headers() + au
-        if p.aud:
-            bw = BitWriter()
-            bw.write(2 if is_b else 1 if is_p else 0, 3)
-            bw.rbsp_trailing_bits()
-            au = wrap_nal(NAL_AUD, bw.getvalue(),
-                          long_start_code=True) + au
-        self.rc.update(len(au) * 8, self.qp, is_intra=kind == "I")
-        self.frames_encoded += 1
-        self.last_slice_type_str = "B" if is_b else "P" if is_p else "I"
-        self.last_ps = ps
-        self._perf["frames"] += 1
-        self._perf["bytes"] += len(au)
-        self._perf["qp_sum"] += self.qp
-        self._perf["by_type"][self.last_slice_type_str] += 1
-        return EncodedFrame(poc=poc, display_idx=pend.display_idx, au=au,
-                            recon=rec_crop, coded=coded_rec,
-                            kind=self.last_slice_type_str, qp=self.qp,
-                            stats=_frame_cu_stats(ps))
+            if p.decoded_picture_hash:
+                with trace.span("hash"):
+                    if (p.decoded_picture_hash == HASH_CHECKSUM
+                            and checksums is not None):
+                        payload = bytes([2]) + b"".join(
+                            int(c).to_bytes(4, "big") for c in checksums)
+                    else:
+                        payload = picture_hash_payload(
+                            [pl if o is None else to_host_samples(pl)
+                             for pl in coded_rec], self.bit_depth,
+                            hash_type=p.decoded_picture_hash - 1)
+                    sei = write_sei_rbsp([(SEI_DECODED_PICTURE_HASH,
+                                           payload)])
+                    au += wrap_nal(NAL_SUFFIX_SEI, sei,
+                                   long_start_code=False)
+
+            if self.hrd:
+                # prefix SEI NAL: buffering-period on IRAP AUs + pic-timing
+                # on every AU
+                sps = self.sps
+                order = self.frames_encoded
+                msgs = []
+                if kind == "I":
+                    # hrdFullness: the 90 kHz delay from the CPB fill that the
+                    # rate control tracks
+                    fill = int(self.rc.buffer_fill)
+                    dly = (90000 * fill + self._hrd_bitrate_unscale) \
+                        // self._hrd_bitrate_unscale
+                    off = (90000 * self._hrd_cpb_unscale
+                           + self._hrd_bitrate_unscale) \
+                        // self._hrd_bitrate_unscale - dly
+                    msgs.append((SEI_BUFFERING_PERIOD,
+                                 buffering_period_payload(sps, dly, off)))
+                    self._last_bp_order = order
+                    self._cvs_finish_base = order
+                rem = min(max(1, order - self._last_bp_order),
+                          1 << sps.hrd_cpb_removal_len)
+                out_delay = max(0, sps.num_reorder_pics + poc
+                                - (order - self._cvs_finish_base))
+                msgs.append((SEI_PIC_TIMING,
+                             pic_timing_payload(sps, rem, out_delay)))
+                # inherited from the reference and kept so the streams stay
+                # equal: a 3-byte start code, though the NAL opens the AU
+                au = wrap_nal(NAL_PREFIX_SEI, write_sei_rbsp(msgs),
+                              long_start_code=False) + au
+
+            if p.repeat_headers and kind == "I" and self.frames_encoded > 0:
+                au = self.headers() + au
+            if p.aud:
+                bw = BitWriter()
+                bw.write(2 if is_b else 1 if is_p else 0, 3)
+                bw.rbsp_trailing_bits()
+                au = wrap_nal(NAL_AUD, bw.getvalue(),
+                              long_start_code=True) + au
+            with trace.span("rc"):
+                self.rc.update(len(au) * 8, self.qp, is_intra=kind == "I")
+            self.frames_encoded += 1
+            self.last_slice_type_str = "B" if is_b else "P" if is_p else "I"
+            self.last_ps = ps
+            self._perf["frames"] += 1
+            self._perf["bytes"] += len(au)
+            self._perf["qp_sum"] += self.qp
+            self._perf["by_type"][self.last_slice_type_str] += 1
+            return EncodedFrame(poc=poc, display_idx=pend.display_idx, au=au,
+                                recon=rec_crop, coded=coded_rec,
+                                kind=self.last_slice_type_str, qp=self.qp,
+                                stats=_frame_cu_stats(ps))
 
     # -- device pipelines ----------------------------------------------------
 
@@ -1166,6 +1181,7 @@ class Encoder:
         return (np.int32(self.qp), np.int32(dq_cb), np.int32(dq_cr),
                 np.float32(sao_lam))
 
+    @trace.spanned("qp_plan")
     def _qp_plan(self, orig):
         """Per-CTB desired QPs + SSD-domain lambdas (frame QP + AQ, or the
         lookahead's AQ + cuTree offsets when it gave them)."""
@@ -1203,12 +1219,14 @@ class Encoder:
             self._i_pipeline = build_i_pipeline(self)
         qpy, qpb, qpr, lam, qp_ctb = (self._dev(a) for a in self._qp_arrays)
         qp_base, dq_cb, dq_cr, sao_lam = self._filter_qps()
-        small, tails, ext = self._i_pipeline(
-            *(self._dev(pl) for pl in orig), qpy, qpb, qpr, lam,
-            int(qp_base), int(dq_cb), int(dq_cr), float(sao_lam), qp_ctb,
-            **self._nr_args())
+        with trace.span("pipeline"):
+            small, tails, ext = self._i_pipeline(
+                *(self._dev(pl) for pl in orig), qpy, qpb, qpr, lam,
+                int(qp_base), int(dq_cb), int(dq_cr), float(sao_lam),
+                qp_ctb, **self._nr_args())
         return (small, tails), ext
 
+    @trace.spanned("syntax")
     def _finish_i(self, pend):
         ps = pend.ps
         o, coeffs = self._fetch_outputs(pend)
@@ -1243,15 +1261,18 @@ class Encoder:
         refs = [self._get_ref_ext(q) for q in pocs]
         qpy, qpb, qpr, lam, qp_ctb = (self._dev(a) for a in self._qp_arrays)
         qp_base, dq_cb, dq_cr, sao_lam = self._filter_qps()
-        small, tails, ext = self._p_pipeline(
-            *(self._dev(pl) for pl in orig),
-            tuple(r[0] for r in refs), tuple(r[1] for r in refs),
-            tuple(r[2] for r in refs),
-            qpy, qpb, qpr, lam, int(qp_base), int(dq_cb), int(dq_cr),
-            float(sao_lam), qp_ctb, np.asarray(pocs, np.int32),
-            int(wp[0]), int(wp[1]), n_act=len(ref_pocs), **self._nr_args())
+        with trace.span("pipeline"):
+            small, tails, ext = self._p_pipeline(
+                *(self._dev(pl) for pl in orig),
+                tuple(r[0] for r in refs), tuple(r[1] for r in refs),
+                tuple(r[2] for r in refs),
+                qpy, qpb, qpr, lam, int(qp_base), int(dq_cb), int(dq_cr),
+                float(sao_lam), qp_ctb, np.asarray(pocs, np.int32),
+                int(wp[0]), int(wp[1]), n_act=len(ref_pocs),
+                **self._nr_args())
         return (small, tails), ext
 
+    @trace.spanned("syntax")
     def _finish_p(self, pend):
         ps = pend.ps
         g = self.geom
@@ -1303,8 +1324,9 @@ class Encoder:
         from .device_pipeline import build_b_pipeline
         if self._b_pipeline is None:
             self._b_pipeline = build_b_pipeline(self)
-        small, tails, _ = self._b_pipeline(
-            *self._b_inputs(orig, l0_poc, l1_poc), **self._nr_args())
+        with trace.span("pipeline"):
+            small, tails, _ = self._b_pipeline(
+                *self._b_inputs(orig, l0_poc, l1_poc), **self._nr_args())
         return (small, tails)
 
     def _dispatch_b_ref(self, orig, l0_poc, l1_poc):
@@ -1313,8 +1335,9 @@ class Encoder:
         from .device_pipeline import build_b_pipeline
         if self._b_ref_pipeline is None:
             self._b_ref_pipeline = build_b_pipeline(self, make_ext=True)
-        small, tails, ext = self._b_ref_pipeline(
-            *self._b_inputs(orig, l0_poc, l1_poc), **self._nr_args())
+        with trace.span("pipeline"):
+            small, tails, ext = self._b_ref_pipeline(
+                *self._b_inputs(orig, l0_poc, l1_poc), **self._nr_args())
         return (small, tails), ext
 
     def _dispatch_b_batch(self, pends, l0_poc, l1_poc):
@@ -1329,20 +1352,25 @@ class Encoder:
                 self, batch=F)
         refs0 = self._get_ref_ext(l0_poc)
         refs1 = self._get_ref_ext(l1_poc)
-        orig = [self._dev(np.stack([p.orig[i] for p in pends]))
-                for i in range(3)]
-        qs = [self._dev(np.stack([p.qp_arrays[i] for p in pends]))
-              for i in range(5)]
-        fq = [np.stack([p.filter_qps[i] for p in pends]) for i in range(4)]
-        small, tails, _ = pipe(
-            *orig, *refs0, *refs1, qs[0], qs[1], qs[2], qs[3], fq[0],
-            fq[1], fq[2], fq[3], int(l0_poc), int(l1_poc), qs[4],
-            **self._nr_args())
+        # the dispatch serves several frames: its spans carry frame -1
+        with trace.span("dispatch", -1):
+            orig = [self._dev(np.stack([p.orig[i] for p in pends]))
+                    for i in range(3)]
+            qs = [self._dev(np.stack([p.qp_arrays[i] for p in pends]))
+                  for i in range(5)]
+            fq = [np.stack([p.filter_qps[i] for p in pends])
+                  for i in range(4)]
+            with trace.span("pipeline"):
+                small, tails, _ = pipe(
+                    *orig, *refs0, *refs1, qs[0], qs[1], qs[2], qs[3],
+                    fq[0], fq[1], fq[2], fq[3], int(l0_poc), int(l1_poc),
+                    qs[4], **self._nr_args())
         handle = _BatchFetch(small)
         for k, p in enumerate(pends):
             p.out_dev = (handle, tails)
             p.batch_idx = k
 
+    @trace.spanned("syntax")
     def _finish_b(self, pend):
         """Scatter the fetched B outputs into PicSyntax and derive the
         merge/AMVP syntax."""
@@ -1403,6 +1431,7 @@ class Encoder:
 
     # -- P-frame syntax derivation -------------------------------------------
 
+    @trace.spanned("entropy")
     def _derive_inter_all(self, ps):
         """Merge/AMVP/skip derivation over all inter CU leaves (native C);
         TMVP col picture attached here, in entropy order."""
@@ -1427,6 +1456,7 @@ class Encoder:
         while len(self._col_store) > 8:
             self._col_store.pop(next(iter(self._col_store)))
 
+    @trace.spanned("entropy")
     def _entropy_encode(self, ps: PicSyntax, slice_type: int = SLICE_I,
                         poc: int = 0) -> bytes:
         t0 = self._clock()

@@ -22,6 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import trace
 from .._util import to_device
 from ..ops.cost import satd as satd_fn
 from ..ops.intra import predict_all_modes, substitute_references
@@ -207,6 +208,7 @@ class Lookahead:
         self.calls[name] += 1
         self.devices.add(out[0].device.type)
 
+    @trace.spanned("lookahead")
     def _analyze(self, fr: LowresFrame) -> None:
         y = fr.planes[0]
         h2, w2 = (y.shape[0] // 2) & ~7, (y.shape[1] // 2) & ~7
@@ -330,6 +332,7 @@ class Lookahead:
         return float(np.minimum(b_fr.intra_cost.astype(np.int64),
                                 pc.astype(np.int64)).sum())
 
+    @trace.spanned("lookahead")
     def _propagate(self) -> np.ndarray:
         """estimateCUPropagate (slicetype.cpp:1741) over the window: each
         frame's (aq-weighted intra cost + inherited propagation) flows to

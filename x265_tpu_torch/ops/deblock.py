@@ -18,6 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import trace
 from .._util import dev_table
 from ..cabac.ctu import _CHROMA_QP_MAP
 
@@ -185,8 +186,9 @@ def deblock_plane(plane, bs_v, bs_h, qp, bit_depth=8, beta_off=0, tc_off=0,
     per_edge = isinstance(qp, tuple)
 
     def full(q, shape):
-        return torch.as_tensor(q, dtype=torch.int32,
-                               device=plane.device).expand(shape)
+        with trace.sync():
+            q = torch.as_tensor(q, dtype=torch.int32, device=plane.device)
+        return q.expand(shape)
 
     if nkv >= 1:
         bsv = bs_v[:, 2::2][:, :nkv]
@@ -211,8 +213,9 @@ def deblock_picture(planes, intra4, cbf4, mv4, use32, static_masks,
     from ``x265_tpu.ops.deblock.edge_masks_np``, motion_b the two-list
     (nmv, mva, mvb, poca, pocb) planes or None for one-list P motion."""
     dev = planes[0].device
-    ev0, eh0, _inside = (torch.as_tensor(m, device=dev)
-                         for m in static_masks)
+    with trace.sync():
+        ev0, eh0, _inside = (torch.as_tensor(m, device=dev)
+                             for m in static_masks)
     h4p, w4p = ev0.shape
     if use32 is not None:
         u4 = use32.repeat_interleave(8, 0).repeat_interleave(8, 1)
