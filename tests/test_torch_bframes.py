@@ -38,31 +38,13 @@ from x265_tpu_torch.convert import planes_to_torch
 from x265_tpu_torch.encoder import ctu_scan_cuda, me_cuda
 from x265_tpu_torch.encoder import device_pipeline as dp
 from x265_tpu_torch.encoder.intra_encoder import Encoder
+from ref_memo import ref_programs  # noqa: F401
 from torch_threads import one_torch_thread  # noqa: F401
 
 W, H = 192, 128
 CASES = {"pyramid": (dict(bframes=4, b_pyramid=True), 6,
                      [0, 5, 3, 1, 2, 4]),
          "flat": (dict(bframes=2, b_pyramid=False), 4, [0, 3, 1, 2])}
-
-
-@pytest.fixture(scope="module", autouse=True)
-def ref_programs():
-    """The reference's pipeline builders, memoised for the module."""
-    with pytest.MonkeyPatch.context() as mp:
-        for name in ("build_i_pipeline", "build_p_pipeline",
-                     "build_b_pipeline"):
-            real = getattr(ref_dp, name)
-            memo = {}
-
-            def build(enc, *a, _real=real, _memo=memo, **kw):
-                key = (a, tuple(sorted(kw.items())))
-                if key not in _memo:
-                    _memo[key] = _real(enc, *a, **kw)
-                return _memo[key]
-
-            mp.setattr(ref_dp, name, build)
-        yield
 
 
 def _frames(n):

@@ -11,35 +11,16 @@ import numpy as np
 import pytest
 
 import x265_tpu.encoder as ref_encoder
-import x265_tpu.encoder.device_pipeline as ref_dp
 from bench import synthetic_frame
 from x265_tpu.common.params import Params as RefParams
 from x265_tpu.decoder import decode_annexb
 from x265_tpu_torch import Params
 from x265_tpu_torch.encoder import ctu_scan_cuda, me_cuda
 from x265_tpu_torch.encoder.intra_encoder import Encoder
+from ref_memo import ref_programs  # noqa: F401
 from torch_threads import one_torch_thread  # noqa: F401
 
 W, H, N = 192, 128, 3
-
-
-@pytest.fixture(scope="module", autouse=True)
-def ref_programs():
-    """The reference's I and P pipeline builders, memoised for the module
-    (its encoders share geometry and search / scan parameters)."""
-    with pytest.MonkeyPatch.context() as mp:
-        for name in ("build_i_pipeline", "build_p_pipeline"):
-            real = getattr(ref_dp, name)
-            memo = {}
-
-            def build(enc, *a, _real=real, _memo=memo, **kw):
-                key = (a, tuple(sorted(kw.items())))
-                if key not in _memo:
-                    _memo[key] = _real(enc, *a, **kw)
-                return _memo[key]
-
-            mp.setattr(ref_dp, name, build)
-        yield
 
 
 def _frames(n=N):

@@ -34,7 +34,6 @@ import pytest
 import torch
 
 import x265_tpu.encoder as ref_encoder
-import x265_tpu.encoder.device_pipeline as ref_dp
 import x265_tpu.encoder.lookahead as ref_la
 from test_aq_lookahead import structured_clip
 from test_badapt import _clip
@@ -45,34 +44,10 @@ from x265_tpu_torch.encoder import ctu_scan_cuda, me_cuda
 from x265_tpu_torch.encoder import lookahead as la
 from x265_tpu_torch.encoder.aq import aq_offsets
 from x265_tpu_torch.encoder.intra_encoder import Encoder
+from ref_memo import ref_programs  # noqa: F401
 from torch_threads import one_torch_thread  # noqa: F401
 
 R = 10
-
-
-def _memo(real):
-    memo = {}
-
-    def build(*a, **kw):
-        key = (tuple(x for x in a if not hasattr(x, "params")),
-               tuple(sorted(kw.items())))
-        if key not in memo:
-            memo[key] = real(*a, **kw)
-        return memo[key]
-    return build
-
-
-@pytest.fixture(scope="module", autouse=True)
-def ref_programs():
-    """The reference's program builders, memoised for the module."""
-    with pytest.MonkeyPatch.context() as mp:
-        for mod, names in ((ref_dp, ("build_i_pipeline", "build_p_pipeline",
-                                     "build_b_pipeline")),
-                           (ref_la, ("_build_lowres_program",
-                                     "_build_bidir_program"))):
-            for name in names:
-                mp.setattr(mod, name, _memo(getattr(mod, name)))
-        yield
 
 
 def _planes(kind, lw, lh, seed, bd=8):

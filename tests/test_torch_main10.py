@@ -23,8 +23,6 @@ import torch
 
 import x265_tpu.encoder as ref_encoder
 import x265_tpu.encoder.aq as ref_aq
-import x265_tpu.encoder.device_pipeline as ref_dp
-import x265_tpu.encoder.lookahead as ref_la
 import x265_tpu.encoder.weights as ref_weights
 from x265_tpu.common.params import Params as RefParams
 from x265_tpu.decoder import decode_annexb
@@ -32,35 +30,13 @@ from x265_tpu_torch import Params
 from x265_tpu_torch.encoder import aq, ctu_scan_cuda, me_cuda, weights
 from x265_tpu_torch.encoder.intra_encoder import Encoder
 from x265_tpu_torch.smoke_config import smoke_frames_bench10
+from ref_memo import ref_programs  # noqa: F401
 from torch_threads import one_torch_thread  # noqa: F401
 
 W, H = 192, 128
 CASES = {"ippp": (dict(bframes=0, rc_lookahead=0), 3, [0, 1, 2]),
          "bgop": (dict(bframes=2, b_pyramid=False, b_adapt=0,
                        rc_lookahead=3), 4, [0, 3, 1, 2])}
-
-
-@pytest.fixture(scope="module", autouse=True)
-def ref_programs():
-    """The reference's program builders, memoised for the module."""
-    with pytest.MonkeyPatch.context() as mp:
-        for mod, names in ((ref_dp, ("build_i_pipeline", "build_p_pipeline",
-                                     "build_b_pipeline")),
-                           (ref_la, ("_build_lowres_program",
-                                     "_build_bidir_program"))):
-            for name in names:
-                real = getattr(mod, name)
-                memo = {}
-
-                def build(*a, _real=real, _memo=memo, **kw):
-                    key = (tuple(x for x in a if not hasattr(x, "params")),
-                           tuple(sorted(kw.items())))
-                    if key not in _memo:
-                        _memo[key] = _real(*a, **kw)
-                    return _memo[key]
-
-                mp.setattr(mod, name, build)
-        yield
 
 
 def _params(cls, case):

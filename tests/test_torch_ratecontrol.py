@@ -17,7 +17,6 @@ import numpy as np
 import pytest
 
 import x265_tpu.encoder as ref_encoder
-import x265_tpu.encoder.device_pipeline as ref_dp
 from x265_tpu.common.params import Params as RefParams
 from x265_tpu.common.params import param_parse as ref_param_parse
 from x265_tpu.common.sei import parse_sei_rbsp
@@ -27,30 +26,10 @@ from x265_tpu_torch.common.params import param_parse
 from x265_tpu_torch.encoder import encode_sequence
 from x265_tpu_torch.encoder.intra_encoder import Encoder
 from x265_tpu_torch.smoke_config import synthetic_frame
+from ref_memo import ref_programs  # noqa: F401
 from torch_threads import one_torch_thread  # noqa: F401
 
 W, H, N = 96, 64, 4
-
-
-@pytest.fixture(scope="module", autouse=True)
-def ref_programs():
-    """The reference's I, P and B pipeline builders, memoised for the
-    module (its encoders share geometry and search / scan parameters; the
-    QPs are inputs)."""
-    with pytest.MonkeyPatch.context() as mp:
-        for name in ("build_i_pipeline", "build_p_pipeline",
-                     "build_b_pipeline"):
-            real = getattr(ref_dp, name)
-            memo = {}
-
-            def build(enc, *a, _real=real, _memo=memo, **kw):
-                key = (a, tuple(sorted(kw.items())))
-                if key not in _memo:
-                    _memo[key] = _real(enc, *a, **kw)
-                return _memo[key]
-
-            mp.setattr(ref_dp, name, build)
-        yield
 
 
 def _frames(n=N):
