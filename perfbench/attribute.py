@@ -16,11 +16,20 @@ profiler's.  ``align`` puts the spans on the profiler's clock: by the
 profiler's own user annotations of the spans where the trace holds them
 (one per span, the same names in the same order), else by one offset
 measured from a marker launch bracketed by two reads of the spans' clock.
+
+``readings`` puts it together for a traced run's profiled part: the
+spans' counts and self times, and on the card the device trace against
+them, every reading per AU returned there (the ``finish`` spans that no
+other ``finish`` encloses).
 """
 
 from __future__ import annotations
 
 import bisect
+import time
+from types import SimpleNamespace
+
+from . import measure
 
 
 def self_ns(spans) -> dict:
@@ -128,3 +137,107 @@ def top_level(spans, name: str) -> int:
     """Spans named ``name`` that no span of that name encloses."""
     return sum(1 for s in spans if s[0] == name
                and (s[3] < 0 or spans[s[3]][0] != name))
+
+
+def marker_launch() -> tuple:
+    """A launch bracketed by two reads of the spans' clock, made after the
+    device has drained (and after one launch of the same kernel, so that
+    the bracket holds no first-launch work): (pc0, pc1)."""
+    import torch
+    torch.cuda._sleep(1)
+    torch.cuda.synchronize()
+    pc0 = time.perf_counter_ns()
+    torch.cuda._sleep(1)
+    pc1 = time.perf_counter_ns()
+    return pc0, pc1
+
+
+def _events(prof, names) -> tuple:
+    """The device operations (name, start, end, correlation id), the host
+    launch time of each correlation id, the runtime event of the last
+    launch, and the user annotations named as spans, from the profiler's
+    events in memory."""
+    from torch.autograd import DeviceType
+    ops, launch, notes, last = [], {}, [], None
+    for ev in prof.profiler.kineto_results.events():
+        name = ev.name()
+        if ev.device_type() == DeviceType.CUDA:
+            ops.append((name, ev.start_ns(), ev.end_ns(),
+                        ev.correlation_id()))
+        elif name.startswith("cu"):
+            launch[ev.correlation_id()] = ev.start_ns()
+            if name.startswith("cudaLaunchKernel") and (
+                    last is None or ev.start_ns() > last[1]):
+                last = (ev.correlation_id(), ev.start_ns(), ev.end_ns())
+        elif name in names:
+            notes.append((name, ev.start_ns(), ev.end_ns()))
+    notes.sort(key=lambda a: (a[1], -a[2]))
+    return ops, launch, notes, last
+
+
+def readings(spans, prof, phase_b, t_close, marker):
+    """The program's spans of the profiled part, and on the card the
+    device trace against them."""
+    frames = top_level(spans, "finish")
+    own = self_ns(spans)
+    n_of = {}
+    for s in spans:
+        n_of[s[0]] = n_of.get(s[0], 0) + 1
+    sync_ns = sum(s[2] - s[1] for s in spans if s[0] == "sync")
+    r = SimpleNamespace(frames=frames, levels=n_of.get("scan.level", 0),
+                        level_self_ns=own.get("scan.level", 0),
+                        syncs=n_of.get("sync", 0), sync_ns=sync_ns,
+                        under=None)
+    per = max(1, frames)
+    info = dict(frames=frames, spans=len(spans),
+                self_ms_per_frame={k: v / 1e6 / per
+                                   for k, v in sorted(own.items())},
+                spans_per_frame={k: v / per for k, v in sorted(n_of.items())},
+                syncs_per_frame=r.syncs / per,
+                sync_ms_per_frame=sync_ns / 1e6 / per)
+    r.info = info
+    if prof is None or not frames:
+        return r
+    ops, launch, notes, last = _events(prof, set(n_of))
+    if last is not None:
+        # the marker is the last launch; it is not the program's
+        ops = [op for op in ops if op[3] != last[0]]
+    aligned, route, half = align(
+        spans, notes, None if last is None else marker + last[1:])
+    info["clock"] = dict(route=route, half_width_ns=half,
+                         annotations=len(notes))
+    if aligned is None:
+        return r
+    owner = owners(ops, launch, aligned)
+    tot = totals(ops, owner, aligned)
+    r.under = tot["under"]
+
+    def kernel(part, span):
+        idx = [i for i, op in enumerate(ops) if part in op[0]]
+        at = sum(1 for i in idx
+                 if owner[i] >= 0 and aligned[owner[i]][0] == span)
+        return dict(ops=len(idx), under_span=at)
+
+    lo = int(phase_b["t0"] * 1e9) + phase_b["epoch"]
+    hi = int(t_close * 1e9) + phase_b["epoch"]
+    idle = measure.label_gaps(
+        measure.gaps([(op[1], op[2]) for op in ops], lo, hi),
+        [s[:3] for s in aligned])
+    info.update(
+        device_ms=dict(total=tot["total"][0] / 1e6,
+                       attributed=(tot["total"][0]
+                                   - tot["unattributed"][0]) / 1e6,
+                       unattributed=tot["unattributed"][0] / 1e6),
+        ops=dict(total=tot["total"][1], unattributed=tot["unattributed"][1]),
+        device_ms_per_frame={k: v[0] / 1e6 / per
+                             for k, v in sorted(tot["by_span"].items())},
+        launches_per_frame={k: v[1] / per
+                            for k, v in sorted(tot["by_span"].items())},
+        under_device_ms_per_frame={k: v[0] / 1e6 / per
+                                   for k, v in sorted(tot["under"].items())},
+        under_launches_per_frame={k: v[1] / per
+                                  for k, v in sorted(tot["under"].items())},
+        idle_ms_per_frame={k: v / 1e6 / per for k, v in sorted(idle.items())},
+        k1=kernel("k1_kernel", "scan.level"),
+        k2=kernel("k2_kernel", "search.k2"))
+    return r

@@ -26,6 +26,13 @@ window included.  The judge:
   - ``cuts_not_intra`` (configurations with scene-cut detection, traffic
     with cuts): shot cuts whose first frame the stream does not code as
     an intra picture;
+  - ``sao_ctbs_differing`` (configurations with SAO): CTB components
+    (luma, chroma) of the sampled pictures whose SAO parameters in the
+    stream differ from the decision of the benchmark's frozen plain copy
+    of the encoder's (``refenc.sao``), worked out again from the
+    picture's source frame, the reference decoder's planes before SAO and
+    the lambda of the slice QP (a picture that does not decode counts
+    all its CTBs);
 * holds the encoder's decisions to the benchmark's frozen plain copies of
   the CTU step and the subpel refine (``steps``, ``refenc``): a seeded
   sample of the run's K1 and K2 calls of every shape, each recomputed from
@@ -57,8 +64,8 @@ from .refdec.decoder import (DecodeError, decode_picture, hash_matches,
                              index_stream)
 
 LIMITS = dict(pictures_missing=0, samples_differing=0, hash_mismatches=0,
-              motion_mismatches=0, cuts_not_intra=0, k1_outputs_differing=0,
-              k2_outputs_differing=0)
+              motion_mismatches=0, cuts_not_intra=0, sao_ctbs_differing=0,
+              k1_outputs_differing=0, k2_outputs_differing=0)
 
 
 @functools.lru_cache(maxsize=2)
@@ -114,22 +121,28 @@ def motion_equal(a: dict, b: dict, h4: int, w4: int) -> bool:
 
 def judge(stream: bytes, pushed: int, recon: list, motion: list,
           sample: list, cut_displays: list | None, device,
-          log: list | None = None) -> dict:
+          log: list | None = None, source=None) -> dict:
     """The numbers compared, from the stream, the number of frames pushed,
     the program's coded-size reconstructions and retained motion fields
     in decode order, the decode-order indices to judge, and the display
-    indices of shot cuts (None: not judged).  ``log`` gets each judged
-    picture's decode order, slice type, bytes and seconds."""
+    indices of shot cuts (None: not judged).  ``source`` (None: SAO not
+    judged) gives a picture's source planes as host arrays.  ``log`` gets
+    each judged picture's decode order, slice type, bytes and seconds."""
+    from .refenc import sao
     pics = _index(stream)
     shown = {e.display for e in pics}
     out = dict(pictures_missing=len(set(range(pushed)) - shown),
                samples_differing=0, hash_mismatches=0, motion_mismatches=0)
+    if source is not None:
+        out["sao_ctbs_differing"] = 0
     if len(pics) != len(recon):
         out["pictures_missing"] += abs(len(recon) - len(pics))
     by_key = {(e.cvs, e.poc): e.order for e in pics}
     for k in sample:
         if k >= len(pics) or k >= len(recon):
             out["hash_mismatches"] += 1
+            if source is not None:
+                out["sao_ctbs_differing"] += 1
             continue
         e = pics[k]
         t0 = time.perf_counter()
@@ -139,7 +152,8 @@ def judge(stream: bytes, pushed: int, recon: list, motion: list,
                     for p in e.refs_l0 + e.refs_l1}
             col = (motion[by_key[(e.cvs, e.col_poc)]]
                    if e.col_poc is not None else None)
-            coded, mf = decode_picture(e, refs, col, device)
+            keep = {}
+            coded, mf = decode_picture(e, refs, col, device, keep)
         except (DecodeError, KeyError, IndexError, ValueError,
                 AssertionError) as exc:
             print(f"check: picture {k} (POC {e.poc}) does not decode: "
@@ -147,6 +161,10 @@ def judge(stream: bytes, pushed: int, recon: list, motion: list,
             out["samples_differing"] += total
             out["hash_mismatches"] += 1
             out["motion_mismatches"] += 1
+            if source is not None:
+                g = 1 << e.sps.log2_ctb_size
+                out["sao_ctbs_differing"] += 2 * (
+                    -(-e.sps.pic_width // g)) * (-(-e.sps.pic_height // g))
             continue
         diff = sum(int((np.asarray(a).astype(np.int32)
                         != np.asarray(b).astype(np.int32)).sum())
@@ -159,6 +177,15 @@ def judge(stream: bytes, pushed: int, recon: list, motion: list,
         if k >= len(motion) or not motion_equal(
                 mf, motion[k], e.sps.pic_height // 4, e.sps.pic_width // 4):
             out["motion_mismatches"] += 1
+        if source is not None:
+            ps = keep["syntax"]
+            ref = sao.decide(source(e), keep["pre_sao"],
+                             1 << e.sps.log2_ctb_size,
+                             sao.sao_lambda(e.slice_qp),
+                             e.sps.bit_depth_luma)
+            out["sao_ctbs_differing"] += sao.ctbs_differing(
+                ref, ps.sao_type, ps.sao_eo_class, ps.sao_band_pos,
+                ps.sao_offsets)
         if log is not None:
             log.append((k, e.slice_type, len(e.rbsp),
                         round(time.perf_counter() - t0, 3)))

@@ -7,9 +7,10 @@ is, the control, or a planted fault (``faults.FAULTS``).
 
 Each seed is one run of the cell (a short window at the cell's own sizes
 and load) and prints one JSON line: the seed, the fault, ``correct``, the
-window's fps and every number compared.  ``--warmup`` pushes N frames
-before the window instead of the traffic's count (the control runs the
-reference steps in the program's place, some seconds a frame).  The
+window's fps and every number compared.  ``--warmup`` codes N frames
+before the window (``gop_parallel``: N frames of each GOP) instead of the
+traffic's ``warmup_frames`` (the control runs the reference steps in
+the program's place, some seconds a frame).  The
 benchmark's own runs never run this.
 """
 

@@ -6,7 +6,10 @@ is built and returns the function that takes it out again.
 * ``control``: the control run.  The encoder's RD costs are float32
   (the reconstruction itself is integer-exact); the control puts the
   benchmark's own reference steps (``refenc``) in the place of K1 and K2
-  with every RD cost computed in bfloat16, the precision below.
+  with every RD cost computed in bfloat16, the precision below, and the
+  reference's SAO statistics (``refenc.sao``) in the place of the
+  encoder's, with each SAO cost (the filter stage's fused multiply-adds)
+  rounded to bfloat16.
 * ``deblock_skipped``: the configurations' guarantee that every picture
   decodes to the reconstruction whose MD5 its hash SEI carries, broken the
   way a later change might be tempted to: the deblocking filter is left
@@ -14,8 +17,12 @@ is built and returns the function that takes it out again.
   it.
 * ``state_unchanged``: each CTU-scan step (K1 on the card) returns the
   wavefront's carry as it got it.
-* ``half_dropped``: every second AU the encoder finishes is left out of
-  what it returns.
+* ``half_dropped``: every second AU that the encoder finishes
+  (``Encoder._finish_one``, on every path) comes back empty;
+* ``sao_skipped``: the SAO decision finds no gain anywhere (every
+  option's distortion change 0), so every CTB's SAO is off while the
+  slices still enable it: a stream that decodes to its own MD5, with SAO's
+  work left out;
 * ``token_altered``: one byte of each picture's slice data is altered
   where the entropy coder produces it;
 * ``scenecut_missed``: the lookahead never reports a scene cut (a fault
@@ -24,6 +31,7 @@ is built and returns the function that takes it out again.
 
 from __future__ import annotations
 
+import dataclasses
 import importlib
 
 PACKAGE = "x265_tpu_torch"
@@ -38,6 +46,9 @@ def _patch(mod: str, owner: str | None, attr: str, make):
 
 
 def control():
+    import torch
+
+    from .refenc import sao
     from .refenc.refine import refine
     from .refenc.settings import StepSettings
     from .refenc.step import make_step
@@ -66,7 +77,28 @@ def control():
             return refine(W, ob, mvi, pmv, lam, subme, mrq, bd, True)
         return ref
 
-    undo = [_patch("encoder.ctu_scan_cuda", None, "ctu_step", k1),
+    def sao_estimate(orig):
+        def est(o, rec, ctbs_h, ctbs_w, ctb, eo_valid, inside,
+                bit_depth=8):
+            h, w = int(inside[:, 0].sum()), int(inside[0].sum())
+            dist, offs, pos, bits = sao.estimate(
+                o[:h, :w].cpu().numpy(), rec[:h, :w].cpu().numpy(), ctb,
+                bit_depth)
+
+            def dev(x, dtype):
+                return torch.from_numpy(x.reshape(
+                    ctbs_h, ctbs_w, *x.shape[1:])).to(rec.device, dtype)
+            return (dev(dist, torch.float32), dev(offs, torch.float32),
+                    dev(pos, torch.int32), dev(bits, torch.float32))
+        return est
+
+    def bf16_fma(orig):
+        return lambda a, b, c: orig(a, b, c).to(torch.bfloat16).float()
+
+    undo = [_patch("encoder.device_pipeline", None, "sao_estimate_plane",
+                   sao_estimate),
+            _patch("encoder.device_pipeline", None, "fma32", bf16_fma),
+            _patch("encoder.ctu_scan_cuda", None, "ctu_step", k1),
             _patch("encoder.me_cuda", None, "launch",
                    lambda orig: k2(orig, 1)),
             _patch("encoder.me_cuda", None, "refine_plain",
@@ -91,13 +123,23 @@ def state_unchanged():
 
 def half_dropped():
     def make(orig):
-        def drain(self, depth):
-            out = orig(self, depth)
+        def finish(self, pend):
+            ef = orig(self, pend)
             n = getattr(self, "_fault_count", 0)
-            self._fault_count = n + len(out)
-            return [ef for j, ef in enumerate(out) if (n + j) % 2 == 0]
-        return drain
-    return _patch("encoder.intra_encoder", "Encoder", "_drain", make)
+            self._fault_count = n + 1
+            return ef if n % 2 == 0 else dataclasses.replace(ef, au=b"")
+        return finish
+    return _patch("encoder.intra_encoder", "Encoder", "_finish_one", make)
+
+
+def sao_skipped():
+    def make(orig):
+        def est(*a, **k):
+            dist, offs, pos, bits = orig(*a, **k)
+            return dist * 0, offs, pos, bits
+        return est
+    return _patch("encoder.device_pipeline", None, "sao_estimate_plane",
+                  make)
 
 
 def token_altered():
@@ -122,5 +164,7 @@ def scenecut_missed():
 
 FAULTS = dict(control=control, deblock_skipped=deblock_skipped,
               state_unchanged=state_unchanged,
-              half_dropped=half_dropped, token_altered=token_altered,
+              half_dropped=half_dropped,
+              sao_skipped=sao_skipped, token_altered=token_altered,
               scenecut_missed=scenecut_missed)
+

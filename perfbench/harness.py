@@ -5,29 +5,38 @@ metric sits in a file of its own, found by the name that
 ``BENCHMARK.json`` gives it:
 
 * ``configs/<config>.json`` (the entry's ``file``): the preset and tune
-  the encoder starts from and every field set beyond them;
+  the encoder starts from, every field set beyond them, and the driver
+  (``driver``, ``push_frame`` where it names none);
 * ``traffic/<traffic>.json``: the content generator's parameters, the
-  frames pushed before the window, the pictures the check decodes;
+  frames or rounds coded before the window, the pictures the check
+  decodes;
 * ``metrics/<metric>.py``: a reader ``read(ctx)`` of one per-layer metric
   from a traced run, returning None where it finds nothing to read.
 
-The cell drives one ``x265_tpu_torch`` ``Encoder`` in one thread through
-``push_frame``, frames offered back to back from a pool made from the
-seed.  The window opens after a fixed number of frames, at the return of
-a push that returned AUs (the lookahead is full and AUs flow), and closes
-at the first such return after ``--seconds``: ``fps`` is every AU
-returned inside it over its length.  Frames still in flight are flushed
-after it, untimed, and their AUs join the stream that is judged
-(``check``).  Each AU's reconstruction is copied for the check without a
-host synchronisation: on the card into page-locked buffers made in
-set-up, by a copy queued on the stream; a seeded sample of the K1 and K2
-calls is kept for the check by cloning on the device (``steps``).
+A driver runs the program through the window (``Window``) on a pool of
+frames made from the seed:
+
+* ``push_frame`` (``drive_push``): one ``x265_tpu_torch`` ``Encoder`` in
+  one thread, frames offered back to back.  The window opens after a
+  fixed number of frames, at the return of a push that returned AUs (the
+  lookahead is full and AUs flow), and closes at the first such return
+  after ``--seconds``.  Frames still in flight are flushed after it,
+  untimed, and their AUs join the stream that is judged.
+* ``gop_parallel`` (``gop_parallel.drive``): closed GOPs encoded together,
+  one batched dispatch a round; the window holds whole rounds.
+
+``fps`` is every AU finished inside the window over its length.  Each
+AU's reconstruction is copied for the check (``check``) without a host
+synchronisation: on the card into page-locked buffers made in set-up, by
+a copy queued on the stream; a seeded sample of the K1 and K2 calls is
+kept for the check by cloning on the device (``steps``).
 
 A traced run (``--trace 1``) measures the same window in two parts: the
 first third with every span synchronised (the layers' self times per
-frame), the rest under the profiler with unsynchronised spans (the
-device's busy and idle time, the kernels' device time against their
-bounds, the idle gaps by the host's span, each frame's latency).
+frame), the rest under the profiler with unsynchronised spans and the
+program's own span recorder on (the device's busy and idle time, the
+kernels' device time against their bounds, the idle gaps by the host's
+span, each frame's latency, the device trace by the program's spans).
 """
 
 from __future__ import annotations
@@ -40,6 +49,8 @@ import resource
 import sys
 import time
 from types import SimpleNamespace
+
+from . import measure
 
 PB = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(PB)
@@ -180,13 +191,205 @@ class _GcWatch:
         return dict(collections=self.n, seconds=self.s)
 
 
+def _recorder():
+    """The program's own span recorder (``x265_tpu_torch.trace``), or None
+    for a program without one."""
+    try:
+        from x265_tpu_torch import trace
+    except ImportError:
+        return None
+    return trace
+
+
+class Window:
+    """The measured window, as every driver keeps it.  The driver calls
+    ``open`` at the end of its warm-up, ``step`` at the end of each unit of
+    work (a push that returned AUs, a round of GOPs) with the AUs that it
+    finished until ``step`` says that the window has closed, then
+    ``close``.  With a ``tracer`` (a traced run) the window is measured in
+    two parts: until ``TRACE_SYNC_SHARE`` of ``seconds`` with every span of
+    the tracer synchronised, then, from the end of the unit that passes
+    it, with the tracer's spans unsynchronised, the program's own span
+    recorder on and, on the card, the profiler."""
+
+    def __init__(self, seconds: float, tracer, cuda: bool):
+        self.seconds, self.tracer, self.cuda = seconds, tracer, cuda
+        self.frames = 0
+        self.t_open = self.t_close = None
+        self.phase_a = self.phase_b = self.prof = self.recorder = None
+        self.lat_ms = []        # frame latencies of the profiled part
+        self.traced = None
+
+    def open(self, t: float) -> None:
+        import torch
+        from x265_tpu_torch.encoder import ctu_scan_cuda, me_cuda
+        self.k1_0, self.k2_0 = ctu_scan_cuda.LAUNCHES, me_cuda.LAUNCHES
+        if self.cuda:
+            torch.cuda.reset_peak_memory_stats()
+        self.t_open = t
+        self.deadline = t + self.seconds
+        if self.tracer is not None:
+            self.tracer.reset("sync")
+            self.t_split = t + self.seconds * TRACE_SYNC_SHARE
+        self.ru0 = resource.getrusage(resource.RUSAGE_SELF)
+        self.cpu0 = time.process_time()
+        self.gc_watch = _GcWatch()
+        gc.callbacks.append(self.gc_watch)
+
+    def step(self, t: float, n: int, last: bool = False) -> bool:
+        """A unit of the window ended at ``t`` with ``n`` AUs finished;
+        True where the window closes with it: the first unit that ends
+        ``seconds`` after the opening, or the ``last`` that the driver
+        can offer."""
+        self.frames += n
+        if (self.tracer is not None and self.phase_b is None and n
+                and t >= self.t_split):
+            self._profile()
+        if (t >= self.deadline or last) and n:
+            self.t_close = t
+            return True
+        return False
+
+    def _profile(self) -> None:
+        self.phase_a = dict(self_ns=self.tracer.self_ns(),
+                            frames=self.frames)
+        self.tracer.reset("mark")
+        self.recorder = _recorder()
+        if self.recorder is not None:
+            self.recorder.start()
+        if self.cuda:
+            from torch.profiler import ProfilerActivity, profile
+            self.prof = profile(activities=[ProfilerActivity.CUDA])
+            self.prof.__enter__()
+        self.phase_b = dict(t0=time.perf_counter(),
+                            epoch=time.time_ns() - time.perf_counter_ns())
+
+    def close(self) -> None:
+        import torch
+        from x265_tpu_torch.encoder import ctu_scan_cuda, me_cuda
+        ru1 = resource.getrusage(resource.RUSAGE_SELF)
+        self.cpu_s = time.process_time() - self.cpu0
+        gc.callbacks.remove(self.gc_watch)
+        self.ctx_switches = dict(
+            voluntary=ru1.ru_nvcsw - self.ru0.ru_nvcsw,
+            involuntary=ru1.ru_nivcsw - self.ru0.ru_nivcsw)
+        self.peak = torch.cuda.max_memory_allocated() if self.cuda else 0
+        self.k1_n = ctu_scan_cuda.LAUNCHES - self.k1_0
+        self.k2_n = me_cuda.LAUNCHES - self.k2_0
+        if self.tracer is None:
+            return
+        self.tracer.mode = "off"
+        from . import attribute
+        recorded = (self.recorder.stop() if self.recorder is not None
+                    else None)
+        marker = attribute.marker_launch() if self.prof is not None else None
+        ctx = _read_trace(self.tracer, self.prof, self.phase_a, self.phase_b,
+                          self.t_close, self.lat_ms)
+        ctx.spans = recorded
+        if recorded is not None:
+            ctx.program = attribute.readings(recorded, self.prof,
+                                             self.phase_b, self.t_close,
+                                             marker)
+            print(json.dumps(dict(info="program_spans",
+                                  **ctx.program.info)), flush=True)
+        self.traced = ctx
+
+    def info(self) -> dict:
+        return dict(
+            frames=self.frames, window_s=self.t_close - self.t_open,
+            k1_launches_per_frame=self.k1_n / max(1, self.frames),
+            k2_launches_per_frame=self.k2_n / max(1, self.frames),
+            peak_device_gib=self.peak / 2 ** 30)
+
+
+def drive_push(run, win: Window) -> SimpleNamespace:
+    """The ``push_frame`` driver: one ``Encoder`` in one thread, the pool's
+    frames pushed back to back (the pool repeats).  The window opens at
+    the return of the first push, from the traffic's ``warmup_frames``
+    on, that returned AUs; a unit is a push that returned AUs.  The
+    frames still in flight when it closes are flushed, untimed."""
+    from x265_tpu_torch.encoder.intra_encoder import Encoder
+    pool, traffic = run.pool, run.traffic
+    enc = Encoder(run.params, device=run.device)
+    stream = [enc.headers()]
+    recon = PlaneStore(int(traffic["pool_frames"]), run.cuda)
+    motion = []
+    store = enc._store_col_motion
+
+    def keep_motion(ps, poc):
+        store(ps, poc)
+        motion.append(enc._col_store[poc])
+    enc._store_col_motion = keep_motion
+
+    push_t = []
+    win_orders = []
+
+    def push(i):
+        push_t.append(time.perf_counter())
+        efs = enc.push_frame(pool[i % len(pool)])
+        t = time.perf_counter()
+        for ef in efs:
+            stream.append(ef.au)
+            recon.add(ef.coded)
+        return efs, t
+
+    warm = int(traffic["warmup_frames"])
+    i = 0
+    while True:
+        efs, t = push(i)
+        i += 1
+        if i >= warm and efs:
+            break
+    win.open(t)
+    kinds = {}
+    push_s = []
+    while True:
+        n_before = len(recon.items)
+        efs, t = push(i)
+        push_s.append(t - push_t[-1])
+        i += 1
+        for ef in efs:
+            kinds[ef.kind] = kinds.get(ef.kind, 0) + 1
+        win_orders.extend(range(n_before, len(recon.items)))
+        if win.phase_b is not None:
+            win.lat_ms.extend((t - push_t[ef.display_idx]) * 1e3
+                              for ef in efs
+                              if push_t[ef.display_idx] >= win.phase_b["t0"])
+        if win.step(t, len(efs)):
+            break
+    win.close()
+    pushed = i
+    for ef in enc.flush():
+        stream.append(ef.au)
+        recon.add(ef.coded)
+    return SimpleNamespace(
+        stream=stream, recon=recon, order=None, motion=motion, pushed=pushed,
+        win_orders=win_orders, pool_index=lambda cvs, poc, display:
+        display % len(pool), info=dict(
+            pushed=pushed, window_kinds=kinds,
+            push_s=dict(n=len(push_s), p50=measure.percentile(push_s, 50),
+                        p90=measure.percentile(push_s, 90),
+                        max=max(push_s))))
+
+
+def _drivers() -> dict:
+    """Each driver's run and the size of the pool it encodes."""
+    from . import gop_parallel
+    return {"push_frame": (drive_push,
+                           lambda config, params, traffic:
+                           int(traffic["pool_frames"])),
+            "gop_parallel": (gop_parallel.drive, gop_parallel.pool_frames)}
+
+
 def run_cell(workload: str, seed: int, seconds: float, trace: bool,
              t_start: float, root: str = ROOT, device: str = "cuda",
              overrides: dict | None = None, fault=None) -> dict:
     """One run of ``workload``; returns the result line's object.  The
-    ``overrides`` (a test's small sizes: ``params``, ``traffic``) and the
-    ``fault`` (a function that plants one in the program and returns its
-    undo) serve the benchmark's own tests and the control's readings."""
+    configuration's ``driver`` (``push_frame`` where it names none)
+    drives the program through the window.  The ``overrides`` (a test's
+    small sizes: ``config``, ``params``, ``traffic``) and the ``fault`` (a
+    function that plants one in the program and returns its undo) serve
+    the benchmark's own tests and the control's readings."""
     bench = load_json(os.path.join(root, "BENCHMARK.json"))
     c = find_cell(bench, root, workload)
     chips = int(c.cell["chips"])
@@ -199,19 +402,24 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
     config = dict(c.config)
     traffic = dict(c.traffic)
     if overrides:
+        config.update(overrides.get("config", {}))
         config["params"] = {**config["params"],
                             **overrides.get("params", {})}
         traffic.update(overrides.get("traffic", {}))
     readers = metric_readers(bench, root, c.cell, trace)
+    drivers = _drivers()
+    name = config.get("driver", "push_frame")
+    if name not in drivers:
+        raise HarnessError(f"no driver {name!r}")
 
-    from . import check, content, measure, spans, steps
-    from x265_tpu_torch.encoder import ctu_scan_cuda, me_cuda
-    from x265_tpu_torch.encoder.intra_encoder import Encoder
+    from . import check, content, spans, steps
     cuda = device == "cuda"
     if cuda:
         from x265_tpu_torch.build import load_library
         load_library()
     params = make_params(config)
+    drive, pool_frames = drivers[name]
+    traffic["pool_frames"] = pool_frames(config, params, traffic)
     W, H = params.source_width, params.source_height
     pool = content.generate(traffic, W, H, seed, device=device)
     cuts = content.cut_frames(traffic, W, H, seed)
@@ -227,119 +435,31 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
         from torch.profiler import ProfilerActivity, profile
         with profile(activities=[ProfilerActivity.CUDA]):
             torch.zeros(1, device=device).add_(1)     # CUPTI's start-up
+    win = Window(seconds, tracer, cuda)
     try:
-        enc = Encoder(params, device=device)
-        stream = [enc.headers()]
-        recon = PlaneStore(int(traffic["pool_frames"]), cuda)
-        motion = []
-        store = enc._store_col_motion
-
-        def keep_motion(ps, poc):
-            store(ps, poc)
-            motion.append(enc._col_store[poc])
-        enc._store_col_motion = keep_motion
-
-        push_t = []
-        lat_ms, win_orders = [], []
-
-        def push(i):
-            push_t.append(time.perf_counter())
-            efs = enc.push_frame(pool[i % len(pool)])
-            t = time.perf_counter()
-            for ef in efs:
-                stream.append(ef.au)
-                recon.add(ef.coded)
-            return efs, t
-
-        warm = int(traffic["warmup_frames"])
-        i = 0
-        while True:
-            efs, t = push(i)
-            i += 1
-            if i >= warm and efs:
-                break
-        k1_0, k2_0 = ctu_scan_cuda.LAUNCHES, me_cuda.LAUNCHES
-        if cuda:
-            torch.cuda.reset_peak_memory_stats()
-        t_open = t
-        setup_s = t_open - t_start
-        deadline = t_open + seconds
-        frames = 0
-        phase_b = None
-        prof = None
-        if trace:
-            tracer.reset("sync")
-            t_split = t_open + seconds * TRACE_SYNC_SHARE
-        kinds = {}
-        push_s = []
-        ru0 = resource.getrusage(resource.RUSAGE_SELF)
-        cpu0 = time.process_time()
-        gc_watch = _GcWatch()
-        gc.callbacks.append(gc_watch)
-        while True:
-            n_before = len(recon.items)
-            efs, t = push(i)
-            push_s.append(t - push_t[-1])
-            i += 1
-            frames += len(efs)
-            for ef in efs:
-                kinds[ef.kind] = kinds.get(ef.kind, 0) + 1
-            win_orders.extend(range(n_before, len(recon.items)))
-            if phase_b is not None:
-                lat_ms.extend((t - push_t[ef.display_idx]) * 1e3
-                              for ef in efs
-                              if push_t[ef.display_idx] >= phase_b["t0"])
-            if trace and phase_b is None and efs and t >= t_split:
-                phase_a = dict(self_ns=tracer.self_ns(), frames=frames)
-                tracer.reset("mark")
-                if cuda:
-                    prof = profile(activities=[ProfilerActivity.CUDA])
-                    prof.__enter__()
-                phase_b = dict(t0=time.perf_counter(),
-                               epoch=time.time_ns() - time.perf_counter_ns())
-            if t >= deadline and efs:
-                break
-        t_close = t
-        ru1 = resource.getrusage(resource.RUSAGE_SELF)
-        cpu_s = time.process_time() - cpu0
-        gc.callbacks.remove(gc_watch)
-        peak = torch.cuda.max_memory_allocated() if cuda else 0
-        k1_n = ctu_scan_cuda.LAUNCHES - k1_0
-        k2_n = me_cuda.LAUNCHES - k2_0
-        traced = None
-        if trace:
-            tracer.mode = "off"
-            traced = _read_trace(tracer, prof, phase_a, phase_b, t_close,
-                                 lat_ms, measure)
-        pushed = i
-        efs = enc.flush()
-        for ef in efs:
-            stream.append(ef.au)
-            recon.add(ef.coded)
+        run = drive(SimpleNamespace(
+            params=params, config=config, traffic=traffic, pool=pool,
+            device=device, cuda=cuda), win)
         if cuda:
             torch.cuda.synchronize()
-        recon = recon.planes()
+        recon = run.recon.planes()
+        if run.order is not None:
+            recon = [recon[k] for k in run.order]
     finally:
         undo_steps()
         if undo is not None:
             undo()
         if undo_fault is not None:
             undo_fault()
-    window_s = t_close - t_open
+    stream, pushed = run.stream, run.pushed
+    setup_s = win.t_open - t_start
+    window_s = win.t_close - win.t_open
     print(json.dumps(dict(
-        info="window", frames=frames, window_s=window_s, pushed=pushed,
-        k1_launches_per_frame=k1_n / max(1, frames),
-        k2_launches_per_frame=k2_n / max(1, frames),
-        peak_device_gib=peak / 2 ** 30,
-        stream_bytes=sum(len(a) for a in stream), window_kinds=kinds,
-        push_s=dict(n=len(push_s), p50=measure.percentile(push_s, 50),
-                    p90=measure.percentile(push_s, 90), max=max(push_s)),
-        cpu_s=cpu_s, gc=gc_watch.summary(), ctx_switches=dict(
-            voluntary=ru1.ru_nvcsw - ru0.ru_nvcsw,
-            involuntary=ru1.ru_nivcsw - ru0.ru_nivcsw))),
-        flush=True)
+        info="window", **win.info(), stream_bytes=sum(len(a) for a in stream),
+        **run.info, cpu_s=win.cpu_s, gc=win.gc_watch.summary(),
+        ctx_switches=win.ctx_switches)), flush=True)
 
-    enc = None
+    run.recon = None
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
@@ -347,12 +467,16 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
                    if params.scenecut_threshold > 0 and cuts else None)
     t_check = time.perf_counter()
     au_stream = b"".join(stream)
-    sample = check.draw_sample(seed, win_orders,
+    sample = check.draw_sample(seed, run.win_orders,
                                int(traffic["check_pictures"]),
                                check.slice_types(au_stream))
     log, step_log = [], []
-    numbers = check.judge(au_stream, pushed, recon, motion, sample,
-                          judged_cuts, device, log)
+    source = None
+    if params.sao:
+        def source(e):
+            return host_planes(pool[run.pool_index(e.cvs, e.poc, e.display)])
+    numbers = check.judge(au_stream, pushed, recon, run.motion, sample,
+                          judged_cuts, device, log, source)
     numbers.update(check.judge_steps(au_stream, recorder, config, step_log))
     ok = check.verdict(numbers)
     print(json.dumps(dict(info="check", pictures=log, steps=step_log,
@@ -360,11 +484,12 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
     failed = numbers["pictures_missing"] + (0 if ok else 1)
 
     metrics = {}
+    traced = win.traced
     for m, reader in readers:
         if trace:
             v = reader(traced)
         elif m["name"] == "fps":
-            v = frames / window_s
+            v = win.frames / window_s
         elif m["name"] == "setup_s":
             v = setup_s
         else:
@@ -373,7 +498,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
             metrics[m["name"]] = {"value": v, "unit": m["unit"]}
     dev = dict(platform="gpu" if cuda else "cpu",
                kind=torch.cuda.get_device_name(0) if cuda else "cpu",
-               count=chips, memory_peak_bytes=peak)
+               count=chips, memory_peak_bytes=win.peak)
     result = dict(correct=ok, attempted=pushed, failed=failed,
                   metrics=metrics, device=dev)
     if trace and traced is not None:
@@ -384,8 +509,8 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
     return result
 
 
-def _read_trace(tracer, prof, phase_a, phase_b, t_close, lat_ms,
-                measure) -> SimpleNamespace:
+def _read_trace(tracer, prof, phase_a, phase_b, t_close,
+                lat_ms) -> SimpleNamespace:
     """The traced window's readings, for the per-layer metrics' readers."""
     ctx = SimpleNamespace(
         frames_a=phase_a["frames"], self_ms={

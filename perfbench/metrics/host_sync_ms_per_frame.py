@@ -3,8 +3,6 @@ spans (waiting for the device, and the copy) per AU of the profiled part
 of a traced window (ms)."""
 from perfbench.metrics import _program
 
-_program.install()
-
 
 def read(ctx):
     p = _program.program(ctx)

@@ -3,8 +3,6 @@ program's ``sync`` spans: fetches, recon and hash copies, blocking
 uploads) per AU of the profiled part of a traced window."""
 from perfbench.metrics import _program
 
-_program.install()
-
 
 def read(ctx):
     p = _program.program(ctx)

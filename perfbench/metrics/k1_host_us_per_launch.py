@@ -4,8 +4,6 @@ level's slice, K1's argument checks and launch, the count) over their
 number, in the profiled part of a traced window."""
 from perfbench.metrics import _program
 
-_program.install()
-
 
 def read(ctx):
     p = _program.program(ctx)

@@ -3,8 +3,6 @@ launched under the program's ``loopfilter`` spans (the spans they open
 included) per AU of the profiled part of a traced window (ms)."""
 from perfbench.metrics import _program
 
-_program.install()
-
 
 def read(ctx):
     ns = _program.under_per_frame(ctx, "loopfilter", 0)

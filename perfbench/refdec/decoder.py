@@ -162,12 +162,14 @@ def motion_field(ps: PicSyntax) -> dict:
 
 
 def decode_picture(e: PictureEntry, refs: dict, col: dict | None,
-                   device="cpu"):
+                   device="cpu", keep: dict | None = None):
     """Decode picture ``e`` alone: ``refs`` maps each POC of its reference
     lists to coded-size (Y, Cb, Cr) planes, ``col`` is the collocated
     picture's motion field (None if the slice uses no TMVP).  Returns the
     decoded coded-size planes (int16) and the picture's motion field.
-    The loop filters run in plain torch on ``device``."""
+    The loop filters run in plain torch on ``device``.  ``keep``, where
+    given, gets the coded-size planes before SAO (``pre_sao``) and the
+    picture's parsed syntax (``syntax``)."""
     sh, sps, pps = e.sh, e.sps, e.pps
     geom = PictureGeometry(sps.pic_width, sps.pic_height,
                            sps.log2_ctb_size, sps.log2_min_cb_size)
@@ -230,9 +232,13 @@ def decode_picture(e: PictureEntry, refs: dict, col: dict | None,
         weights=sh if use_w else None)
 
     cw, ch = sps.pic_width, sps.pic_height
+    if keep is not None:
+        keep["syntax"] = ps
     if sh.deblocking_filter_disabled and not (sh.sao_luma or sh.sao_chroma):
         coded = (planes[0][:ch, :cw], planes[1][:ch // 2, :cw // 2],
                  planes[2][:ch // 2, :cw // 2])
+        if keep is not None:
+            keep["pre_sao"] = coded
     else:
         dev = torch.device(device)
         y, cb, cr = (torch.from_numpy(p).to(dev).to(torch.int32)
@@ -242,6 +248,11 @@ def decode_picture(e: PictureEntry, refs: dict, col: dict | None,
                 ps, (y, cb, cr), sh.slice_qp, bd, sh.beta_offset_div2,
                 sh.tc_offset_div2, pps.cb_qp_offset, pps.cr_qp_offset)
         ctb = 1 << geom.log2_ctb
+        if keep is not None:
+            keep["pre_sao"] = tuple(
+                p[:hh, :ww].to(torch.int16).cpu().numpy()
+                for p, hh, ww in ((y, ch, cw), (cb, ch // 2, cw // 2),
+                                  (cr, ch // 2, cw // 2)))
         if sh.sao_luma:
             y = sao_apply_decoded_plane(y, ps, 0, ctb, cw, ch, bd)
         if sh.sao_chroma:

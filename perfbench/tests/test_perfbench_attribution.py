@@ -3,6 +3,7 @@ the innermost span at each launch, unattributed operations, the partition
 of device time, the two clock routes, the readings and the readers; and a
 traced run on the CPU that reports the spans' own metrics."""
 
+import json
 import sys
 import time
 import types
@@ -10,7 +11,7 @@ import types
 import pytest
 from torch.autograd import DeviceType
 
-from perfbench import attribute, harness, spans
+from perfbench import attribute, harness
 from perfbench.metrics import _program
 from perfbench.tests.tiny import CELLS
 
@@ -128,8 +129,8 @@ def test_readings_on_a_synthetic_trace():
            _Ev("cudaLaunchKernel", cpu, off + 1002, off + 1004, 5),
            _Ev("void spin_kernel(long)", dev, off + 1005, off + 1006, 5)]
     phase_b = dict(t0=0.0, epoch=off)
-    r = _program.readings(SPANS, _prof(evs), phase_b, 700e-9,
-                          (1000, 1006))
+    r = attribute.readings(SPANS, _prof(evs), phase_b, 700e-9,
+                           (1000, 1006))
     info = r.info
     assert info["clock"] == dict(route="marker", half_width_ns=2,
                                  annotations=0)
@@ -165,15 +166,23 @@ def test_readers_read_nothing_without_the_spans():
 
 
 def test_no_recorder_no_hook(monkeypatch):
-    """A program without ``x265_tpu_torch.trace`` (the parent's) is left
-    as it is."""
+    """A program without ``x265_tpu_torch.trace`` (the parent's) has no
+    recorder for the harness to turn on: a traced run reads none of its
+    spans, and its readers return None."""
     import x265_tpu_torch
-    monkeypatch.setattr(_program, "_installed", False)
-    monkeypatch.delattr(x265_tpu_torch, "trace", raising=False)
-    monkeypatch.setitem(sys.modules, "x265_tpu_torch.trace", None)
-    read, reset = harness._read_trace, spans.Tracer.reset
-    _program.install()
-    assert (harness._read_trace, spans.Tracer.reset) == (read, reset)
+    with monkeypatch.context() as mp:
+        mp.delattr(x265_tpu_torch, "trace", raising=False)
+        mp.setitem(sys.modules, "x265_tpu_torch.trace", None)
+        assert harness._recorder() is None
+    monkeypatch.setattr(harness, "_recorder", lambda: None)
+    res = harness.run_cell("ultrafast-1080p.live", 2 ** 31 + 13, 1.0, True,
+                           time.perf_counter(), device="cpu",
+                           overrides=CELLS["ultrafast-1080p.live"])
+    assert res["correct"]
+    m = res["metrics"]
+    assert "k1_host_us_per_launch" not in m
+    assert "host_syncs_per_frame" not in m
+    assert "scan_ms_per_frame" in m
 
 
 def test_traced_cpu_run_reports_the_spans():
@@ -189,3 +198,24 @@ def test_traced_cpu_run_reports_the_spans():
     assert m["host_sync_ms_per_frame"]["value"] > 0
     assert "scan_device_ms_per_frame" not in m
     assert "scan_ms_per_frame" in m and "entropy_ms_per_frame" in m
+
+
+def test_traced_segment_run_reports_the_spans(capsys):
+    """The GOP-parallel driver's traced run: the recorder is on in the
+    profiled part, every AU of it is a top-level ``finish`` span, and the
+    readers of the spans' own clock read the batched rounds."""
+    w = "medium-zerolatency-1080p.ch8"
+    res = harness.run_cell(w, 2 ** 31 + 17, 1.0, True, time.perf_counter(),
+                           device="cpu", overrides=CELLS[w])
+    assert res["correct"]
+    m = res["metrics"]
+    for name in ("k1_host_us_per_launch", "host_syncs_per_frame",
+                 "scan_ms_per_frame", "search_ms_per_frame",
+                 "entropy_ms_per_frame", "loopfilter_ms_per_frame"):
+        assert m[name]["value"] > 0, name
+    assert "frame_latency_ms_p90" not in m
+    out = capsys.readouterr().out
+    spans_line = [json.loads(x) for x in out.splitlines()
+                  if '"program_spans"' in x][0]
+    assert spans_line["frames"] > 0
+    assert spans_line["frames"] % CELLS[w]["config"]["gops"] == 0

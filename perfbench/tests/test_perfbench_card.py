@@ -11,7 +11,8 @@ from perfbench import harness
 
 
 @pytest.mark.card
-@pytest.mark.parametrize("workload", ["ultrafast-1080p.live"])
+@pytest.mark.parametrize("workload", ["ultrafast-1080p.live",
+                                      "medium-zerolatency-1080p.ch8"])
 def test_cell_on_the_card(workload):
     import torch
     if not torch.cuda.is_available():

@@ -1,7 +1,7 @@
 """The harness on the CPU: discovery by name, the metric arithmetic, the
 import check, the draw of the judged pictures, and whole runs of every
 cell (and of a cell with shot cuts added as files) at a small size, sound
-and with each planted fault."""
+and with each planted fault; the GOP-parallel driver's window."""
 
 import json
 import os
@@ -27,13 +27,17 @@ def test_every_cell_finds_its_files():
     for cell in bench["workloads"]:
         c = harness.find_cell(bench, ROOT, cell["name"])
         assert c.config["name"] == cell["config"]
-        assert "pool_frames" in c.traffic
+        # the GOP-parallel driver's pool is its GOPs
+        assert ("pool_frames" in c.traffic) != (
+            c.config.get("driver") == "gop_parallel")
         for trace in (False, True):
             readers = harness.metric_readers(bench, ROOT, c.cell, trace)
             names = {m["name"] for m, _ in readers}
             if trace:
-                assert "device_idle_share" in names
-                assert all(callable(r) for _, r in readers)
+                assert names == {m["name"] for m in bench["per_layer"]
+                                 if cell["name"] in m.get(
+                                     "workloads", [cell["name"]])}
+                assert names and all(callable(r) for _, r in readers)
             else:
                 assert names == {"fps", "setup_s"}
 
@@ -202,13 +206,18 @@ def test_sound_run_is_correct(workload, vod_copy):
     assert all(v["value"] == 0 for v in res["checks"].values())
     assert {"k1_outputs_differing", "k2_outputs_differing"} <= set(
         res["checks"])
+    # the SAO decision is judged where the configuration runs SAO
+    assert ("sao_ctbs_differing" in res["checks"]) == (
+        workload != "ultrafast-1080p.live")
 
 
-# every fault each cell can have (the live configuration detects no scene
-# cuts, and its traffic has none)
+# every fault each cell can have: the live and channel configurations
+# detect no scene cuts, and the live one runs no SAO
+NOT_THERE = {"ultrafast-1080p.live": {"scenecut_missed", "sao_skipped"},
+             "medium-zerolatency-1080p.ch8": {"scenecut_missed"}}
 CELL_FAULTS = [(w, f) for w in sorted(CELLS) + ["vod"]
                for f in sorted(faults.FAULTS)
-               if not (f == "scenecut_missed" and "live" in w)]
+               if f not in NOT_THERE.get(w, ())]
 
 
 @pytest.mark.parametrize("workload,fault", CELL_FAULTS)
@@ -219,10 +228,11 @@ def test_fault_is_caught(workload, fault, vod_copy):
                               for k, v in res["checks"].items()})
 
 
-def test_control_fails_the_step_check():
+@pytest.mark.parametrize("workload", sorted(CELLS))
+def test_control_fails_the_step_check(workload):
     """The control (the reference steps in bfloat16 in the program's
     place) fails the numbers that hold the encoder's decisions."""
-    res = _run("ultrafast-1080p.live", None, fault=faults.control)
+    res = _run(workload, None, fault=faults.control)
     c = {k: v["value"] for k, v in res["checks"].items()}
     assert c["k1_outputs_differing"] + c["k2_outputs_differing"] > 0
 
@@ -260,3 +270,77 @@ def test_run_that_loads_the_jax_package_prints_nothing(tmp_path, capsys):
     assert rc != 0
     assert "x265_tpu" in out.err
     assert '"correct"' not in out.out
+
+
+def _info(out: str, name: str) -> dict:
+    """The info line ``name`` that a run printed."""
+    for line in out.splitlines():
+        if line.startswith("{") and json.loads(line).get("info") == name:
+            return json.loads(line)
+    raise AssertionError(f"no {name} line")
+
+
+def test_gop_window_holds_whole_p_rounds(capsys):
+    """The GOP-parallel window opens after the warm-up rounds and holds
+    whole rounds of P pictures with every reference slot active; the
+    call stops at the window's last round."""
+    w = "medium-zerolatency-1080p.ch8"
+    res = harness.run_cell(w, 2 ** 31 + 5, 0.5, False, time.perf_counter(),
+                           device="cpu", overrides=CELLS[w])
+    info = _info(capsys.readouterr().out, "window")
+    G = CELLS[w]["config"]["gops"]
+    assert res["correct"], res["checks"]
+    assert info["frames"] > 0 and info["frames"] % G == 0
+    assert info["window_kinds"] == {"P": info["frames"]}
+    assert info["window_refs"] == {"3": info["frames"]}
+    assert not info["window_at_gop_end"]
+    assert res["attempted"] == info["pushed"] == G * (4 + info["frames"]
+                                                      // G)
+
+
+# the result line's layout on the parent of the GOP-parallel driver: the
+# push_frame path's line keeps it
+LIVE_LINE = {
+    False: (["correct", "attempted", "failed", "metrics", "device",
+             "checks"], ["fps", "setup_s"],
+            ["platform", "kind", "count", "memory_peak_bytes"]),
+    True: (["correct", "attempted", "failed", "metrics", "device",
+            "breakdown", "checks"],
+           ["frame_latency_ms_p90", "entropy_ms_per_frame",
+            "loopfilter_ms_per_frame", "search_ms_per_frame",
+            "scan_ms_per_frame", "k1_host_us_per_launch",
+            "host_syncs_per_frame", "host_sync_ms_per_frame"],
+           ["platform", "kind", "count", "memory_peak_bytes", "busy_s",
+            "window_s"])}
+
+
+@pytest.mark.parametrize("trace", [False, True])
+def test_live_result_line_is_as_before(trace):
+    w = "ultrafast-1080p.live"
+    res = harness.run_cell(w, 2 ** 31 + 7, 2.0, trace, time.perf_counter(),
+                           device="cpu", overrides=CELLS[w])
+    keys, metrics, device = LIVE_LINE[trace]
+    assert list(res) == keys
+    assert list(res["metrics"]) == metrics
+    assert list(res["device"]) == device
+    assert res["correct"] and res["failed"] == 0
+    assert {k: v["value"] for k, v in res["checks"].items()} == dict(
+        pictures_missing=0, samples_differing=0, hash_mismatches=0,
+        motion_mismatches=0, k1_outputs_differing=0, k2_outputs_differing=0)
+
+
+def test_gop_window_closes_at_the_gops_end(capsys):
+    """A window longer than the rest of the GOPs closes at their last
+    round: it never holds an I round or a round with fewer reference
+    pictures, whatever the program's speed."""
+    w = "medium-zerolatency-1080p.ch8"
+    res = harness.run_cell(w, 2 ** 31 + 9, 60.0, False, time.perf_counter(),
+                           device="cpu", overrides=CELLS[w])
+    info = _info(capsys.readouterr().out, "window")
+    G = CELLS[w]["config"]["gops"]
+    K = CELLS[w]["params"]["keyint_max"]
+    assert res["correct"], res["checks"]
+    assert info["window_at_gop_end"] and info["window_s"] < 60.0
+    assert info["window_kinds"] == {"P": G * (K - 4)}
+    assert info["window_refs"] == {"3": G * (K - 4)}
+    assert res["attempted"] == G * K

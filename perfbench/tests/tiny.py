@@ -5,7 +5,6 @@ LIVE = {"params": {"source_width": 128, "source_height": 96, "bitrate": 30,
                    "vbv_max_bitrate": 30, "vbv_buffer_size": 30},
         "traffic": {"pool_frames": 90, "segment_frames": 10,
                     "warmup_frames": 8, "check_pictures": 3}}
-CELLS = {"ultrafast-1080p.live": LIVE}
 
 # a cell with shot cuts and scene-cut detection, which the tests add to a
 # copy of the benchmark as files and entries only: x265's medium preset at
@@ -24,3 +23,12 @@ VOD_TRAFFIC = {
 VOD = {"params": {"source_width": 128, "source_height": 96},
        "traffic": {"pool_frames": 90, "shot_frames": [30, 36, 24],
                    "warmup_frames": 30, "check_pictures": 3}}
+
+# the GOP-parallel cell: 2 channels' closed GOPs of 8 frames, a cut
+# inside each; the height is padded to the coded 96, as 1080 is to 1088
+CHANNELS = {"config": {"gops": 2},
+            "params": {"source_width": 128, "source_height": 88,
+                       "keyint_max": 8, "keyint_min": 8},
+            "traffic": {"shot_frames": [5, 7], "check_pictures": 3}}
+CELLS = {"ultrafast-1080p.live": LIVE,
+         "medium-zerolatency-1080p.ch8": CHANNELS}
